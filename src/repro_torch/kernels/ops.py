@@ -1,0 +1,22 @@
+"""Public wrappers of the port's kernels, the counterpart of
+``repro/kernels/ops.py`` for the kernels ported so far.
+
+Each wrapper counts its kernel launches in a plain integer
+(``gru_seq.launches``), so a run can show that its path went through
+the kernel."""
+from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+from repro_torch.kernels.gru_cell import gru_seq
+
+KERNELS = (gru_seq, fedavg_reduce)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+__all__ = ["fedavg_reduce", "gru_seq", "launch_counts", "reset_launches"]

@@ -1,0 +1,193 @@
+"""The port's kernel wrappers against the JAX package's kernels.
+
+On the CPU the wrappers run their kernels' plain versions; those are held
+against ``repro.kernels.ops`` (Pallas, interpret mode) and
+``repro.kernels.ref`` on the same numpy inputs, at the shapes and
+tolerances of ``tests/test_kernels.py``.  The cases marked ``cuda`` hold
+each CUDA kernel against its plain version on the card, and skip here.
+The JAX package is imported inside the tests that use it, so the
+``cuda`` cases also run where only PyTorch is installed."""
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from numpy.testing import assert_allclose  # noqa: E402
+
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import fedavg_reduce as fr_mod  # noqa: E402
+from repro_torch.kernels import gru_cell  # noqa: E402
+
+TOL = {"float32": dict(atol=3e-5, rtol=3e-5),
+       "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+GRU_TOL = dict(atol=2e-5, rtol=2e-5)
+
+GRU_SHAPES = [(8, 12, 32, 4), (4, 24, 64, 4), (2, 8, 128, 2)]
+FEDAVG_SHAPES = [(20, 1000, 256), (4, 513, 128), (32, 4096, 4096)]
+
+
+def _jax():
+    pytest.importorskip("jax")
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    return jops, jref
+
+
+def _gru_inputs(B, T, h, seed=0):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(B, T, 3 * h)).astype(np.float32),
+            r.normal(size=(B, h)).astype(np.float32),
+            (r.normal(size=(h, 3 * h)) * 0.1).astype(np.float32))
+
+
+def _fedavg_inputs(C, N, seed=0):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(C, N)).astype(np.float32),
+            r.uniform(0.5, 2.0, C).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,T,h,bb", GRU_SHAPES)
+def test_gru_seq_plain_matches_jax(B, T, h, bb):
+    jops, jref = _jax()
+    import jax.numpy as jnp
+    xw, h0, wh = _gru_inputs(B, T, h)
+    out = ops.gru_seq(*(torch.from_numpy(a) for a in (xw, h0, wh)))
+    assert out.shape == (B, T, h) and out.dtype == torch.float32
+    j_kernel = jops.gru_seq(jnp.asarray(xw), jnp.asarray(h0),
+                            jnp.asarray(wh), bb=bb)
+    j_ref = jref.gru_seq_ref(jnp.asarray(xw), jnp.asarray(h0),
+                             jnp.asarray(wh))
+    assert_allclose(out.numpy(), np.asarray(j_kernel), **GRU_TOL)
+    assert_allclose(out.numpy(), np.asarray(j_ref), **GRU_TOL)
+
+
+@pytest.mark.parametrize("C,N,bn", FEDAVG_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fedavg_reduce_plain_matches_jax(C, N, bn, dtype):
+    jops, jref = _jax()
+    import jax.numpy as jnp
+    x, w = _fedavg_inputs(C, N)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    out = ops.fedavg_reduce(xt, torch.from_numpy(w))
+    assert out.shape == (N,) and out.dtype == xt.dtype
+    xj = jnp.asarray(x, getattr(jnp, dtype))
+    j_kernel = jops.fedavg_reduce(xj, jnp.asarray(w), bn=bn)
+    j_ref = jref.fedavg_reduce_ref(xj, jnp.asarray(w))
+    got = out.float().numpy()
+    assert_allclose(got, np.asarray(j_kernel, np.float32), **TOL[dtype])
+    assert_allclose(got, np.asarray(j_ref, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B", [1, 3, 5, 16])
+def test_gru_seq_takes_any_batch(B):
+    """The JAX kernel asserts B % bb == 0; the port takes any B."""
+    xw, h0, wh = _gru_inputs(B, 12, 16, seed=B)
+    args = [torch.from_numpy(a) for a in (xw, h0, wh)]
+    out = gru_cell.gru_seq(*args)
+    assert out.shape == (B, 12, 16)
+    # row b of a batch is the same sequence alone
+    solo = gru_cell.gru_seq(args[0][-1:], args[1][-1:], args[2])
+    assert_allclose(out[-1:].numpy(), solo.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_calls_do_not_count_launches():
+    ops.reset_launches()
+    xw, h0, wh = _gru_inputs(2, 4, 8)
+    ops.gru_seq(*(torch.from_numpy(a) for a in (xw, h0, wh)))
+    x, w = _fedavg_inputs(3, 10)
+    ops.fedavg_reduce(torch.from_numpy(x), torch.from_numpy(w))
+    assert ops.launch_counts() == {"gru_seq": 0, "fedavg_reduce": 0}
+
+
+def test_wrappers_check_shapes_and_devices():
+    xw, h0, wh = (torch.from_numpy(a) for a in _gru_inputs(2, 4, 8))
+    with pytest.raises(ValueError):
+        gru_cell.gru_seq(xw, h0[:1], wh)
+    with pytest.raises(ValueError):
+        gru_cell.gru_seq(xw[..., :-1], h0, wh)
+    x, w = (torch.from_numpy(a) for a in _fedavg_inputs(3, 10))
+    with pytest.raises(ValueError):
+        fr_mod.fedavg_reduce(x, w[:2])
+    with pytest.raises(ValueError, match="different devices"):
+        fr_mod.fedavg_reduce(x, w.to("meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fr_mod.fedavg_reduce(x.to("meta"), w.to("meta"))
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    import torch.utils.cpp_extension as cpp
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build._nvcc()
+
+
+def test_every_kernel_source_is_built_and_bound():
+    names = {p.name for p in build.sources()}
+    assert names == {"gru_seq.cu", "fedavg_reduce.cu"}
+    text = "".join(p.read_text() for p in build.sources())
+    for entry in build.SIGNATURES:
+        assert f'extern "C" int {entry}(' in text
+    # each source names the TPU kernel it replaces
+    assert "src/repro/kernels/gru_cell.py:gru_seq" in text
+    assert "src/repro/kernels/fedavg_reduce.py:fedavg_reduce" in text
+    assert len(build.source_hash()) == 16
+
+
+# ---------------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,h", [(1, 12, 128), (4, 12, 128),
+                                   (16, 12, 128), (6, 24, 64),
+                                   (8, 12, 32), (3, 5, 1024)])
+def test_gru_seq_kernel_matches_plain(cuda_device, B, T, h):
+    xw, h0, wh = (torch.from_numpy(a).to(cuda_device)
+                  for a in _gru_inputs(B, T, h))
+    before = gru_cell.gru_seq.launches
+    out = gru_cell.gru_seq(xw, h0, wh)
+    torch.cuda.synchronize()
+    assert gru_cell.gru_seq.launches == before + 1
+    want = ref.gru_seq_ref(xw, h0, wh)
+    assert_allclose(out.cpu().numpy(), want.cpu().numpy(), **GRU_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N", [(20, 148737), (8, 148737), (3, 148737),
+                                 (4, 513), (32, 4096)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fedavg_reduce_kernel_matches_plain(cuda_device, C, N, dtype):
+    x, w = _fedavg_inputs(C, N)
+    xt = torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    wt = torch.from_numpy(w).to(cuda_device)
+    before = fr_mod.fedavg_reduce.launches
+    out = fr_mod.fedavg_reduce(xt, wt)
+    torch.cuda.synchronize()
+    assert fr_mod.fedavg_reduce.launches == before + 1
+    assert out.dtype == xt.dtype
+    want = ref.fedavg_reduce_ref(xt, wt)
+    assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                    **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
+    x = torch.zeros((3, 10), dtype=torch.float16, device=cuda_device)
+    w = torch.ones(3, device=cuda_device)
+    with pytest.raises(TypeError):
+        fr_mod.fedavg_reduce(x, w)
+    xw = torch.zeros((2, 4, 12), device=cuda_device).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        gru_cell.gru_seq(xw, torch.zeros((4, 4), device=cuda_device),
+                         torch.zeros((4, 12), device=cuda_device))
