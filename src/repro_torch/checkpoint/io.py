@@ -12,7 +12,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.params import flatten_with_path, tree_map_with_path
+from repro_torch.params import (array_to_tensor, flatten_with_path,
+                                tree_map_with_path)
 
 Tree = Any
 _SEP = "::"
@@ -37,7 +38,9 @@ def save_pytree(path: str, tree: Tree) -> None:
 
 def load_pytree(path: str, like: Tree) -> Tree:
     """Restore into the structure of ``like``: each tensor keeps the
-    shape, dtype and device of its counterpart in ``like``."""
+    shape, dtype and device of its counterpart in ``like``.  A bfloat16
+    leaf written by the JAX package (raw ``|V2`` in the npz) loads bit
+    for bit."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path) as data:
@@ -52,6 +55,6 @@ def load_pytree(path: str, like: Tree) -> Tree:
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"checkpoint shape {arr.shape} != "
                              f"{tuple(leaf.shape)} at {_key(p)}")
-        return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+        return array_to_tensor(arr).to(device=leaf.device, dtype=leaf.dtype)
 
     return tree_map_with_path(restore, like)

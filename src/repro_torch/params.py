@@ -56,13 +56,30 @@ def unflatten(paths: List[Path], leaves: List[Any]) -> Dict[Any, Any]:
     return out
 
 
+def is_bfloat16(arr: np.ndarray) -> bool:
+    """numpy has no bfloat16: JAX hands one over as ``ml_dtypes.bfloat16``
+    and ``np.savez`` stores it as raw 2-byte ``|V2``."""
+    return arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                            and arr.dtype.itemsize == 2)
+
+
+def array_to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """numpy -> CPU tensor of the same dtype; a bfloat16 array (either
+    form of :func:`is_bfloat16`) is carried over bit for bit through its
+    bytes viewed as uint16."""
+    if is_bfloat16(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def from_numpy_tree(tree: Tree, device: DeviceLike = None) -> Tree:
     """Arrays (numpy, or anything ``np.asarray`` takes) -> tensors on
-    ``device``, same keys, shapes and dtypes.  Leaves that already are
-    tensors are moved to ``device``."""
+    ``device``, same keys, shapes and dtypes, bfloat16 included.  Leaves
+    that already are tensors are moved to ``device``."""
     dev = resolve_device(device)
     return tree_map(lambda x: x.to(dev) if torch.is_tensor(x)
-                    else torch.from_numpy(np.array(x)).to(dev), tree)
+                    else array_to_tensor(np.array(x)).to(dev), tree)
 
 
 def to_numpy_tree(tree: Tree) -> Tree:

@@ -65,3 +65,44 @@ def test_load_keeps_dtype_of_like_and_checks_keys(tmp_path):
     with pytest.raises(ValueError, match="shape"):
         load_pytree(str(tmp_path / "t.npz"),
                     {"a": torch.zeros(3, 2), "b": tree["b"]})
+
+
+def _bf16_jax_tree(seed):
+    """A bfloat16 tree as the LM configs make one (``dtype="bfloat16"``),
+    with values that are not exact in fewer bits."""
+    r = np.random.default_rng(seed)
+    return {"embed": {"table": jax.numpy.asarray(r.normal(size=(7, 5)),
+                                                 jax.numpy.bfloat16)},
+            "layers": {"wq": jax.numpy.asarray(r.normal(size=(2, 5, 3)),
+                                               jax.numpy.bfloat16)}}
+
+
+def _bits(x):
+    return np.asarray(x).view(np.uint16)
+
+
+def test_bf16_jax_tree_carries_over_bit_exactly():
+    tree = _bf16_jax_tree(0)
+    got = from_numpy_tree(jax.tree.map(np.asarray, tree), "cpu")
+    for (p, a), (q, b) in zip(flatten_with_path(got),
+                              flatten_with_path(tree)):
+        assert p == q and a.dtype == torch.bfloat16
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_array_equal(a.view(torch.int16).numpy()
+                                      .view(np.uint16), _bits(b))
+
+
+def test_bf16_jax_checkpoint_loads_bit_exactly(tmp_path):
+    tree = _bf16_jax_tree(1)
+    path = str(tmp_path / "bf16.npz")
+    jio.save_pytree(path, tree)
+    with np.load(path) as data:      # npz keeps bfloat16 as raw bytes
+        assert {data[k].dtype.str for k in data.files} == {"|V2"}
+    like = jax.tree.map(
+        lambda x: torch.zeros(x.shape, dtype=torch.bfloat16), tree)
+    got = load_pytree(path, like)
+    for (_, a), (_, b) in zip(flatten_with_path(got),
+                              flatten_with_path(tree)):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_array_equal(a.view(torch.int16).numpy()
+                                      .view(np.uint16), _bits(b))
