@@ -2,13 +2,22 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, then drives the
-paper's GRU replica-serving path at full width (2 layers, hidden 128):
-flat, cluster and global FedAvg over 20 client replicas, a three-tier
-``ReplicaPool`` serving request batches (with one failover) from the
-global model, and the latency model calibrated from the pool's timings.
-Every result is held against the same functions run on the CPU, where
-the wrappers take the kernels' plain versions.
+each against its plain PyTorch version on the card, then drives two
+paths through the entry points a user calls:
+
+- the paper's GRU replica-serving path at full width (2 layers, hidden
+  128): flat, cluster and global FedAvg over 20 client replicas, a
+  three-tier ``ReplicaPool`` serving request batches (with one failover)
+  from the global model, and the latency model calibrated from the
+  pool's timings, every result held against the same functions on the
+  CPU, where the wrappers take the kernels' plain versions;
+- LM replica serving of stablelm-1.6b at its published width (24
+  layers, d 2048, bf16, random weights from a seed): the dense tiers
+  (``lm_tiers``) and the paged tiers (``paged_lm_tiers``) on one shared
+  weight tree, request batches at every tier, one failover, the
+  measured occupancy sweep into the latency model; then the same
+  entry points at full width but 2 layers in fp32 on the card and on the
+  CPU, held against each other.
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -20,6 +29,7 @@ without CUDA, outside a checkout of the repo, or when a phase fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -33,9 +43,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 SEED = 0
 #: NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor
-#: cores (both kernels do their arithmetic in fp32)
+#: cores, dense bf16 tensor-core rate (the bound of the bf16 attention
+#: rows; the kernels' arithmetic is fp32 either way)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 #: tolerances of tests/test_kernels.py (GRU 2e-5; fp32 3e-5, bf16 3e-2)
 GRU_TOL = 2e-5
 FEDAVG_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
@@ -47,14 +59,32 @@ CLUSTER_IDS = np.array([0] * 8 + [1] * 7 + [3] * 5)
 TIER_BATCH = {"device": 1, "edge": 4, "cloud": 16}
 HISTORY = 12
 BATCHES_PER_TIER = 3
+#: attention kernels against their plain versions: tests/test_kernels.py
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+#: the LM slice: stablelm-1.6b at full width, 8 tokens per request, two
+#: request batches per tier (B = the tier's rows).  Prompts of 56 tokens
+#: (prefill bucket 64): a paged tier's page budget is what its dense
+#: counterpart reserves, 64 tokens a row at its full row count, so a
+#: 64-token prompt plus 8 decoded tokens (5 pages) would not fit 32 rows
+#: in the cloud's 128 pages.
+LM_ARCH = "stablelm-1.6b"
+LM_PROMPT = 56
+LM_STEPS = 8
+LM_BATCHES_PER_TIER = 2
+LM_MEASURE = dict(prompt_len=64, decode_steps=16, occupancy_levels=(1, 4, 8))
+#: the CPU-parity run: full width, 2 layers (a depth cut only), fp32;
+#: prefill logits on the card against the CPU (fp32 sums in other
+#: orders through 2 layers and a 2048-wide head)
+PARITY_LAYERS = 2
+PARITY_LOGIT_TOL = 1e-3
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -103,12 +133,16 @@ def device_ms(torch, fn, iters: int) -> float:
 
 
 def timings(torch, kernel, plain, library, iters: int, plain_iters: int):
+    """Kernel, plain version and (where one exists, else None) the one
+    PyTorch call that computes the same function."""
     return {"ms": device_ms(torch, kernel, iters),
             "plain_ms": device_ms(torch, plain, plain_iters),
-            "library_ms": device_ms(torch, library, iters),
+            "library_ms": (device_ms(torch, library, iters)
+                           if library else None),
             "call_ms": call_ms(torch, kernel, iters),
             "plain_call_ms": call_ms(torch, plain, plain_iters),
-            "library_call_ms": call_ms(torch, library, iters)}
+            "library_call_ms": (call_ms(torch, library, iters)
+                                if library else None)}
 
 
 def phase_device(torch):
@@ -224,6 +258,162 @@ def phase_kernels(torch, n_params):
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
     return gru_rows, fed_rows
+
+
+def check_attention(torch, kernel, shape, dtype_name, call, plain,
+                    library, nbytes, flops):
+    """One attention kernel at one shape: error against its plain
+    version, times, and the bound of the work its inputs need."""
+    out = call()
+    want = plain()
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype_name]
+    err = (out.float() - want.float()).abs().max().item()
+    ok = bool(out.dtype == want.dtype and torch.allclose(
+        out.float(), want.float(), atol=tol, rtol=tol))
+    rate = BF16_FLOP_PER_S if dtype_name == "bfloat16" else FP32_FLOP_PER_S
+    bound_ms, bound_by = bound(nbytes, flops, rate)
+    row = {"kernel": kernel, "shape": list(shape), "dtype": dtype_name,
+           "max_abs_err": err, "tol": tol, "ok": ok,
+           **timings(torch, call, plain, library, 200, 20),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": nbytes, "flops": flops}
+    emit({"phase": "kernel_check", **row})
+    return row
+
+
+def _randn(torch, rng, shape, dtype):
+    return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                           device=DEVICE).to(dtype)
+
+
+def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dtype = getattr(torch, dtype_name)
+    q = _randn(torch, rng, (BH, T, D), dtype)
+    k, v = (_randn(torch, rng, (BHkv, T, D), dtype) for _ in range(2))
+    # the yardstick takes every head's kv; repeat them outside its timing
+    kx, vx = (x.repeat_interleave(BH // BHkv, 0) for x in (k, v))
+    dist = np.arange(T)[:, None] - np.arange(T)[None, :]
+    allowed = (dist >= 0) & ((dist < window) if window > 0 else True)
+    mask = torch.as_tensor(allowed, device=DEVICE)
+    pairs = BH * int(allowed.sum())
+    it = q.element_size()
+
+    def library():
+        if window > 0:
+            return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
+        return F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
+
+    return check_attention(
+        torch, "flash_attention", (BH, BHkv, T, D, window), dtype_name,
+        lambda: fa.flash_attention(q, k, v, causal=True, window=window),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window),
+        library, it * (2 * BH * T * D + 2 * BHkv * T * D), pairs * 4 * D)
+
+
+def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name):
+    """``n_valid`` (B,) leading valid slots per row, as a ring cache
+    holds them before it wraps; None: 80% of the slots at random."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    dtype = getattr(torch, dtype_name)
+    q = _randn(torch, rng, (B, H, D), dtype)
+    k, v = (_randn(torch, rng, (B, C, Hkv, D), dtype) for _ in range(2))
+    if n_valid is None:
+        valid = rng.uniform(size=(B, C)) < 0.8
+        valid[:, 0] = True
+    else:
+        valid = np.arange(C)[None, :] < np.asarray(n_valid)[:, None]
+    keys = int(valid.sum())
+    valid_t = torch.as_tensor(valid, device=DEVICE)
+    it = q.element_size()
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=valid_t[:, None, None, :], enable_gqa=H != Hkv)
+
+    return check_attention(
+        torch, "decode_attention", (B, H, Hkv, C, D), dtype_name,
+        lambda: da.decode_attention(q, k, v, valid_t),
+        lambda: ref.decode_attention_ref(q, k, v, valid_t), library,
+        it * (2 * B * H * D + 2 * keys * Hkv * D) + B * C,
+        keys * H * 4 * D)
+
+
+def check_paged(torch, rng, B, H, Hkv, ps, Pseq, D, lengths, num_pages,
+                soft_cap, window, dtype_name):
+    """Each row's pages are distinct ids of a shuffled pool; entries past
+    a row's last page point at the scratch page ``num_pages``."""
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import ref
+    dtype = getattr(torch, dtype_name)
+    lengths = np.asarray(lengths, np.int32)
+    used = -(-lengths // ps)
+    ids = rng.permutation(num_pages)
+    bt = np.full((B, Pseq), num_pages, np.int32)
+    start = 0
+    for b in range(B):
+        bt[b, :used[b]] = ids[start:start + used[b]]
+        start += used[b]
+    q = _randn(torch, rng, (B, H, D), dtype)
+    kp, vp = (_randn(torch, rng, (num_pages + 1, ps, Hkv, D), dtype)
+              for _ in range(2))
+    bt_t, ln_t = (torch.as_tensor(a, device=DEVICE) for a in (bt, lengths))
+    tokens = int(np.minimum(lengths, window or Pseq * ps).sum())
+    it = q.element_size()
+    kw = dict(soft_cap=soft_cap, window=window)
+    return check_attention(
+        torch, "paged_decode_attention", (B, H, Hkv, ps, Pseq, D),
+        dtype_name, lambda: pda.paged_decode_attention(q, kp, vp, bt_t, ln_t,
+                                                       **kw),
+        lambda: ref.paged_decode_attention_ref(q, kp, vp, bt_t, ln_t, **kw),
+        None, it * (2 * B * H * D + 2 * tokens * Hkv * D)
+        + 4 * (int(used.sum()) + B), tokens * H * 4 * D)
+
+
+def phase_attention_kernels(torch):
+    """The LM path's shapes in bf16 (full-width stablelm: 32 heads,
+    head_dim 64, prompts in the 64-token bucket; decode at 57 to 64
+    cached tokens, the paged tiers' pages filled to their budget), then
+    the sweep shapes of tests/test_kernels.py in fp32 and bf16."""
+    rng = np.random.default_rng(SEED + 4)
+    lens = lambda B: LM_PROMPT + 1 + np.arange(B) % LM_STEPS  # noqa: E731
+    main = {"flash_attention": check_flash(torch, rng, 32, 32, 64, 64, 0,
+                                           "bfloat16")}
+    rows = [main["flash_attention"]]
+    for B in (1, 4, 8):
+        rows.append(check_decode(torch, rng, B, 32, 32, 256, 64, lens(B),
+                                 "bfloat16"))
+    main["decode_attention"] = rows[-1]
+    for B, pages in ((4, 16), (16, 64), (32, 128)):
+        rows.append(check_paged(torch, rng, B, 32, 32, 16, 16, 64, lens(B),
+                                pages, 0.0, None, "bfloat16"))
+    main["paged_decode_attention"] = rows[-1]
+    for dt in ("float32", "bfloat16"):
+        for BH, BHkv, T, D in ((2, 2, 128, 64), (2, 2, 256, 32),
+                               (2, 2, 256, 128), (2, 2, 100, 64),
+                               (8, 4, 77, 32)):
+            for window in (0, 64):
+                rows.append(check_flash(torch, rng, BH, BHkv, T, D, window,
+                                        dt))
+        for H, Hkv, C in ((8, 2, 256), (4, 4, 128), (16, 2, 512)):
+            rows.append(check_decode(torch, rng, 2, H, Hkv, C, 64, None, dt))
+        for H, Hkv, ps, Pseq in ((8, 2, 16, 4), (4, 4, 8, 6)):
+            for cap, window in ((0.0, None), (30.0, None), (0.0, 20)):
+                rows.append(check_paged(
+                    torch, rng, 2, H, Hkv, ps, Pseq, 64,
+                    rng.integers(1, Pseq * ps + 1, 2), 2 * Pseq + 3, cap,
+                    window, dt))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"attention kernels disagree with their plain "
+                             f"versions: {bad}")
+    return main
 
 
 def numpy_clients(rng, m, clients: int):
@@ -386,6 +576,258 @@ def phase_profile(torch, pool, measured, batches: int = 20):
     emit({"phase": "profile", "per_request_batch": out})
 
 
+def count_calls(engine, counts) -> None:
+    """Count the engine's admissions and decode steps as the main path
+    makes them (``generate`` and ``measure`` call both through the
+    instance), independently of the kernels' launch counters."""
+    for name in ("admit", "decode"):
+        def counted(*args, _fn=getattr(engine, name), _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*args, **kw)
+        setattr(engine, name, counted)
+
+
+def full_width_tiers(specs):
+    return [dataclasses.replace(s, reduced=False) for s in specs]
+
+
+def phase_lm(torch):
+    """The LM main path: full-width stablelm-1.6b in bf16, one weight
+    tree shared by a dense and a paged pool, through the entry points a
+    user calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path
+    from repro_torch.routing import LatencyModel
+    from repro_torch.serving import ReplicaPool, lm_tiers, paged_lm_tiers
+
+    cfg = get_config(LM_ARCH)
+    m = cfg.model
+    api = make_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator().manual_seed(SEED), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for _, x in flatten_with_path(params))
+    dense = ReplicaPool(full_width_tiers(lm_tiers(LM_ARCH)),
+                        shared_params=params, device=DEVICE)
+    paged = ReplicaPool(full_width_tiers(paged_lm_tiers(LM_ARCH)),
+                        shared_params=params, device=DEVICE)
+    counts = {kind: {t: {"admit": 0, "decode": 0} for t in dense.tiers}
+              for kind in ("dense", "paged")}
+    for kind, pool in (("dense", dense), ("paged", paged)):
+        for tier in pool.tiers:
+            count_calls(pool.engine(tier), counts[kind][tier])
+    rng = np.random.default_rng(SEED + 5)
+    batches = {t: [rng.integers(0, m.vocab_size,
+                                (paged.specs[t].batch_size, LM_PROMPT))
+                   for _ in range(LM_BATCHES_PER_TIER)] for t in dense.tiers}
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = {"dense": {t: [] for t in dense.tiers},
+            "paged": {t: [] for t in paged.tiers}}
+    for tier, bs in batches.items():
+        rows = dense.specs[tier].batch_size
+        for b in bs:
+            outs["dense"][tier].append(dense.dispatch(tier, b[:rows],
+                                                      steps=LM_STEPS))
+            outs["paged"][tier].append(paged.dispatch(tier, b,
+                                                      steps=LM_STEPS))
+    dense.mark_down("edge")
+    before = (dense.failovers, counts["dense"]["edge"]["admit"],
+              counts["dense"]["cloud"]["admit"])
+    fo_batch = batches["edge"][0][:dense.specs["edge"].batch_size]
+    failover_out = dense.dispatch("edge", fo_batch, steps=LM_STEPS)
+    failovers = dense.failovers - before[0]
+    served_by_cloud = (counts["dense"]["edge"]["admit"] == before[1]
+                       and counts["dense"]["cloud"]["admit"] - before[2]
+                       == len(fo_batch))
+    dense.mark_up("edge")
+    measured = {"dense": dense.measure(**LM_MEASURE),
+                "paged": paged.measure(**LM_MEASURE)}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    lat = {k: LatencyModel.from_measurements(v, decode_tokens=LM_STEPS)
+           for k, v in measured.items()}
+    # logits of the served model through the model API (after the counted
+    # run): one prompt's prefill and one decode step
+    prompt = torch.as_tensor(batches["cloud"][0][:1], device=DEVICE)
+    cache = api.init_cache(1, 256, device=DEVICE)
+    logits, cache = api.prefill(params, prompt, cache, length=LM_PROMPT)
+    step, _ = api.decode_step(params, prompt[:, -1:],
+                              torch.tensor([LM_PROMPT], device=DEVICE), cache)
+    calls = {k: {c: sum(v[t][c] for t in v) for c in ("admit", "decode")}
+             for k, v in counts.items()}
+    want = {"flash_attention": m.num_layers * (calls["dense"]["admit"]
+                                               + calls["paged"]["admit"]),
+            "decode_attention": m.num_layers * calls["dense"]["decode"],
+            "paged_decode_attention": m.num_layers * calls["paged"]["decode"],
+            "gru_seq": 0, "fedavg_reduce": 0}
+    all_out = [o for k in outs for t in outs[k] for o in outs[k][t]]
+    first_same = all(
+        torch.equal(d[:, 0], p[:d.shape[0], 0])
+        for t in dense.tiers
+        for d, p in zip(outs["dense"][t], outs["paged"][t]))
+    later = [(d[:, 1:] == p[:d.shape[0], 1:]).float().mean().item()
+             for t in dense.tiers
+             for d, p in zip(outs["dense"][t], outs["paged"][t])]
+    checks = {
+        "full_width": (m.num_layers == 24 and m.d_model == 2048
+                       and tuple(params["layers"]["attn"]["wq"].shape)
+                       == (24, 2048, 32, 64)
+                       and params["embed"]["table"].dtype == torch.bfloat16
+                       and n_params == m.param_count()),
+        "finite_logits": bool(logits.isfinite().all()
+                              and step.isfinite().all()),
+        "shapes": all(
+            tuple(o.shape) == (pool.specs[t].batch_size, LM_STEPS)
+            for k, pool in (("dense", dense), ("paged", paged))
+            for t in pool.tiers for o in outs[k][t]),
+        "token_ids": all(bool(((o >= 0) & (o < m.vocab_size)).all())
+                         for o in all_out),
+        "dense_paged_first_tokens_equal": first_same,
+        "failover_to_cloud": (failovers == 1 and served_by_cloud
+                              and torch.equal(failover_out[:, 0],
+                                              outs["dense"]["edge"][0][:, 0])),
+        "latency_model": all(np.isfinite(lat[k].infer_ms(t)) and
+                             lat[k].infer_ms(t) > 0
+                             for k in lat for t in dense.tiers),
+        "launches": launches == want and all(
+            launches[k] > 0 for k in ("flash_attention", "decode_attention",
+                                      "paged_decode_attention")),
+    }
+    emit({"phase": "lm_slice", "arch": LM_ARCH, "params": n_params,
+          "layers": m.num_layers, "d_model": m.d_model,
+          "init_seconds": init_s, "seconds": seconds,
+          "engine_calls": counts, "launches": launches,
+          "expected_launches": want,
+          "later_tokens_dense_paged_agree": float(np.mean(later)),
+          "measured": {k: {t: dataclasses.asdict(mm) for t, mm in v.items()}
+                       for k, v in measured.items()},
+          "calibrated_infer_ms": {k: {t: lat[k].infer_ms(t)
+                                      for t in dense.tiers} for k in lat},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"LM slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches, dense, paged, batches
+
+
+def phase_lm_profile(torch, dense, paged, batches):
+    """One decode step per LM tier with every row admitted: device time
+    by kernel (``torch.profiler``) against the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for kind, pool in (("dense", dense), ("paged", paged)):
+        for tier in pool.tiers:
+            eng = pool.engine(tier)
+            for b, prompt in enumerate(batches[tier][0][:eng.batch_size]):
+                eng.admit(prompt, slot=eng.acquire_slot(),
+                          reserve_tokens=LM_STEPS)
+            eng.decode()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.decode()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            eng.drain()
+            kernels = {e.key[:80]: e.self_device_time_total / 1e3
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA}
+            dev_ms = sum(kernels.values())
+            out[f"{kind}/{tier}"] = {
+                "rows": eng.batch_size, "wall_ms": wall_ms,
+                "device_ms": dev_ms or None,
+                "device_idle_share": (1.0 - dev_ms / wall_ms
+                                      if dev_ms else None),
+                "kernels_ms": dict(sorted(kernels.items(),
+                                          key=lambda kv: -kv[1])[:8])}
+    emit({"phase": "lm_profile", "per_decode_step": out})
+
+
+def numpy_lm_params(rng, m):
+    """stablelm weights in the JAX package's tree and statistics
+    (``ParamBuilder``: embedding normal 0.02, fan-in normal elsewhere,
+    norm scales 1 and biases 0), drawn with numpy."""
+    a, L, d, f = m.attention, m.num_layers, m.d_model, m.d_ff
+    H, Hkv, hd, V = a.num_heads, a.num_kv_heads, a.head_dim, m.padded_vocab
+
+    def draw(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    def norm(*lead):
+        return {"scale": np.ones(lead + (d,), np.float32),
+                "bias": np.zeros(lead + (d,), np.float32)}
+
+    return {"embed": {"table": draw((V, d), 0.02)},
+            "lm_head": {"w": draw((d, V), d ** -0.5)},
+            "final_norm": norm(),
+            "layers": {
+                "ln1": norm(L), "ln2": norm(L),
+                "attn": {"wq": draw((L, d, H, hd), H ** -0.5),
+                         "wk": draw((L, d, Hkv, hd), Hkv ** -0.5),
+                         "wv": draw((L, d, Hkv, hd), Hkv ** -0.5),
+                         "wo": draw((L, H, hd, d), hd ** -0.5)},
+                "mlp": {"wi_gate": draw((L, d, f), d ** -0.5),
+                        "wi_up": draw((L, d, f), d ** -0.5),
+                        "wo": draw((L, f, d), f ** -0.5)}}}
+
+
+def phase_lm_parity(torch):
+    """Full-width stablelm cut to 2 layers, fp32, weights from a numpy
+    seed: the same entry points on the card (kernels) and on the CPU
+    (plain attention), for both engines."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.params import from_numpy_tree
+    from repro_torch.serving import PagedServeEngine, ServeEngine
+
+    cfg = get_config(LM_ARCH)
+    m = dataclasses.replace(cfg.model, num_layers=PARITY_LAYERS,
+                            dtype="float32", param_dtype="float32")
+    pcfg = dataclasses.replace(cfg, model=m)
+    rng = np.random.default_rng(SEED + 6)
+    tree = numpy_lm_params(rng, m)
+    prompts = rng.integers(0, m.vocab_size, (2, LM_PROMPT))
+    api = make_model(pcfg)
+    logits, tokens = {}, {}
+    for dev in (DEVICE, "cpu"):
+        params = from_numpy_tree(tree, dev)
+        padded = torch.zeros((2, 64), dtype=torch.long, device=dev)
+        padded[:, :LM_PROMPT] = torch.as_tensor(prompts)
+        lg, _ = api.prefill(params, padded, api.init_cache(2, 256, device=dev),
+                            length=LM_PROMPT)
+        logits[dev] = lg[:, :LM_PROMPT].float().cpu()
+        for name, eng in (
+                ("dense", ServeEngine(pcfg, params, batch_size=2,
+                                      max_len=256, device=dev)),
+                ("paged", PagedServeEngine(pcfg, params, max_seqs=2,
+                                           max_len=256, device=dev))):
+            tokens[(name, dev)] = eng.generate(prompts, LM_STEPS).cpu()
+    err = (logits[DEVICE] - logits["cpu"]).abs().max().item()
+    checks = {"prefill_logits_match_cpu": err <= PARITY_LOGIT_TOL,
+              "dense_tokens_match_cpu": torch.equal(tokens[("dense", DEVICE)],
+                                                    tokens[("dense", "cpu")]),
+              "paged_tokens_match_cpu": torch.equal(tokens[("paged", DEVICE)],
+                                                    tokens[("paged", "cpu")])}
+    emit({"phase": "lm_parity", "layers": m.num_layers, "d_model": m.d_model,
+          "dtype": m.dtype, "prefill_logits_max_abs_err": err,
+          "tol": PARITY_LOGIT_TOL,
+          "tokens": {f"{k}/{d}": v.tolist() for (k, d), v in tokens.items()},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"LM parity checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -429,10 +871,21 @@ def main() -> int:
         n_params = param_count(one)
         phase = "kernels"
         gru_rows, fed_rows = phase_kernels(torch, n_params)
+        phase = "attention_kernels"
+        attn_rows = phase_attention_kernels(torch)
         phase = "slice"
         launches, pool, measured = phase_slice(torch)
         phase = "profile"
         phase_profile(torch, pool, measured)
+        del pool
+        phase = "lm_slice"
+        lm_launches, dense, paged, batches = phase_lm(torch)
+        phase = "lm_profile"
+        phase_lm_profile(torch, dense, paged, batches)
+        del dense, paged
+        torch.cuda.empty_cache()
+        phase = "lm_parity"
+        phase_lm_parity(torch)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
@@ -447,6 +900,12 @@ def main() -> int:
                      "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
                      "src/repro/kernels/fedavg_reduce.py:26",
                      launches["fedavg_reduce"], fed_rows[0]),
+        *(kernel_entry(name, f"src/repro_torch/kernels/csrc/{name}.cu",
+                       f"src/repro/kernels/{name}.py:{line}",
+                       lm_launches[name], attn_rows[name])
+          for name, line in (("flash_attention", 70),
+                             ("decode_attention", 57),
+                             ("paged_decode_attention", 89))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

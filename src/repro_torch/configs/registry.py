@@ -1,6 +1,7 @@
 """Registry of the configurations the port can run so far.
 
-Only the paper's own model is ported; every other architecture of
+The paper's own GRU and the dense transformer the LM tiers serve by
+default are ported; every other architecture of
 ``repro/configs/registry.py`` waits for its slice (ROADMAP.md)."""
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from repro_torch.configs.base import ArchConfig
 
 _MODULES = {
     "gru-traffic": "repro_torch.configs.gru_traffic",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1p6b",
 }
 
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+Every ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers they include) is
+compiled by ``nvcc`` for Hopper (``sm_90a``), one
 process per source, all started together, and the objects are linked
 into one shared library with a plain C interface, loaded with
 ``ctypes``.  The library goes to ``kernels/_build/<hash>/`` (listed in
@@ -25,12 +26,19 @@ LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 #: C signature of every kernel entry point: (argtypes); all return int
 SIGNATURES = {
     "gru_seq_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "fedavg_reduce_f32": (_P, _P, _P, _I, _L, _P),
     "fedavg_reduce_bf16": (_P, _P, _P, _I, _L, _P),
+    **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 7 + (_P,)
+       for t in ("f32", "bf16")},
+    **{f"decode_attention_{t}": (_P,) * 5 + (_I,) * 6 + (_P,)
+       for t in ("f32", "bf16")},
+    **{f"paged_decode_attention_{t}": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
+       for t in ("f32", "bf16")},
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -40,9 +48,13 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,0 +1,52 @@
+"""Wrapper of the hand-written CUDA kernel ``csrc/flash_attention.cu``:
+causal (optionally sliding-window) attention, the prefill of both LM
+serving engines.  Counterpart of ``repro/kernels/flash_attention.py``.
+
+A CPU tensor takes the plain version (:func:`ref.flash_attention_ref`);
+a CUDA tensor launches the kernel or raises."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import common_device
+from repro_torch.kernels import build, ref
+from repro_torch.kernels._checks import head_dims, kernel_inputs
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (BH,T,D); k/v (BHkv,T,D) -> (BH,T,Dv) in q's dtype.  BHkv = BH
+    is the JAX signature; a GQA caller may instead pass each kv head once
+    (BHkv dividing BH, query row bh reads kv row bh // (BH // BHkv)).
+    ``window <= 0`` means no window; any T."""
+    dev = common_device(q, k, v)
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash_attention takes (BH,T,D) q, k and v")
+    BH, T, D = q.shape
+    BHkv, Dv = k.shape[0], v.shape[2]
+    if (tuple(k.shape) != (BHkv, T, D) or tuple(v.shape[:2]) != (BHkv, T)
+            or BHkv == 0 or BH % BHkv):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
+    suffix = kernel_inputs("flash_attention", q=q, k=k, v=v)
+    head_dims("flash_attention", D, Dv)
+    out = torch.empty((BH, T, Dv), dtype=q.dtype, device=dev)
+    if BH == 0 or T == 0:
+        return out
+    # a window that reaches past every key is no window (and the kernel
+    # then never forms q_pos - window)
+    win = int(window) if 0 < window < T else 0
+    with torch.cuda.device(dev):
+        build.launch(f"flash_attention_{suffix}", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), BH, BHkv, T, D, Dv,
+                     int(bool(causal)), win,
+                     torch.cuda.current_stream().cuda_stream)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -4,10 +4,14 @@
 Each wrapper counts its kernel launches in a plain integer
 (``gru_seq.launches``), so a run can show that its path went through
 the kernel."""
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gru_cell import gru_seq
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 
-KERNELS = (gru_seq, fedavg_reduce)
+KERNELS = (gru_seq, fedavg_reduce, flash_attention, decode_attention,
+           paged_decode_attention)
 
 
 def reset_launches() -> None:
@@ -19,4 +23,6 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["fedavg_reduce", "gru_seq", "launch_counts", "reset_launches"]
+__all__ = ["decode_attention", "fedavg_reduce", "flash_attention",
+           "gru_seq", "launch_counts", "paged_decode_attention",
+           "reset_launches"]

@@ -5,7 +5,13 @@ The wrappers in this package run these for tensors on the CPU, and
 ``chip_smoke.py`` holds every kernel against them on the card."""
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+#: mask value of the JAX kernels and their oracles (``kernels/ref.py``)
+NEG_INF = -1e30
 
 
 def gru_seq_ref(xw: torch.Tensor, h0: torch.Tensor,
@@ -33,3 +39,73 @@ def fedavg_reduce_ref(stacked: torch.Tensor,
     float32 and returned in the dtype of ``stacked``."""
     w = (weights / weights.sum()).float()
     return (w[:, None] * stacked.float()).sum(dim=0).to(stacked.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """q (BH,T,D); k/v (BHkv,T,D) with BHkv dividing BH (query row bh
+    reads kv row bh // G, G = BH/BHkv; G = 1 is the JAX signature) ->
+    (BH,T,Dv) in q's dtype.  ``window <= 0`` means no window."""
+    G = q.shape[0] // k.shape[0]
+    k = k.repeat_interleave(G, dim=0)
+    v = v.repeat_interleave(G, dim=0)
+    T = q.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    pos = torch.arange(T, device=q.device)
+    d = pos[:, None] - pos[None, :]
+    mask = torch.ones((T, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= d >= 0
+    if window > 0:
+        mask &= d < window
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """q (B,H,D); k/v (B,C,Hkv,D); valid (B,C) bool -> (B,H,Dv)."""
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bchd->bhgc", qg.float(), k.float()) \
+        / math.sqrt(D)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
+    return o.reshape(B, H, v.shape[-1]).to(q.dtype)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               lengths: torch.Tensor, *,
+                               soft_cap: float = 0.0,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """q (B,H,D); k/v_pages (P, ps, Hkv, D); block_tables (B, Pseq) page
+    ids; lengths (B,) -> (B,H,Dv).  Gathers each row's pages into a
+    contiguous view and masks logical token t of row b unless
+    ``t < lengths[b]`` (and ``lengths[b]-1-t < window``)."""
+    B, H, D = q.shape
+    ps, Hkv = k_pages.shape[1], k_pages.shape[2]
+    C = block_tables.shape[1] * ps
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, C, Hkv, D)
+    v = v_pages[bt].reshape(B, C, Hkv, v_pages.shape[-1])
+    tok = torch.arange(C, device=q.device)[None, :]
+    ln = lengths.long()[:, None]
+    valid = tok < ln
+    if window is not None:
+        valid &= (ln - 1 - tok) < window
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bchd->bhgc", qg.float(), k.float()) \
+        / math.sqrt(D)
+    if soft_cap:
+        s = torch.tanh(s / soft_cap) * soft_cap
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
+    return o.reshape(B, H, v.shape[-1]).to(q.dtype)

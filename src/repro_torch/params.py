@@ -36,8 +36,11 @@ def tree_map_with_path(fn: Callable[[Path, Any], Any], tree: Tree,
         return {k: tree_map_with_path(fn, v, prefix + (k,))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map_with_path(fn, v, prefix + (i,))
-                          for i, v in enumerate(tree))
+        leaves = [tree_map_with_path(fn, v, prefix + (i,))
+                  for i, v in enumerate(tree)]
+        # a NamedTuple (the caches) takes its fields positionally
+        return type(tree)(*leaves) if hasattr(tree, "_fields") \
+            else type(tree)(leaves)
     return fn(prefix, tree)
 
 

@@ -3,13 +3,15 @@ leaves a model replica at every tier (device, edge aggregator, cloud), so
 serving can dispatch to whichever tier routing selects.  Counterpart of
 ``repro/serving/replica.py``.
 
-Per-tier batch sizes (= concurrency caps) mirror the hardware asymmetry:
-a device serves one sequence at a time, an edge host a handful, the cloud
-a large batch.  The paper's own GRU (family ``rnn``) has no token decode
-loop — each request is one forward over a history window — so it is
-served per request batch; the forward's recurrence runs in the
-``gru_seq`` CUDA kernel on the card.  The slot engines of the LM
-families come with their slice (ROADMAP.md).
+One :class:`ServeEngine` or :class:`PagedServeEngine` per LM tier, with
+per-tier batch sizes (= concurrency caps) mirroring the hardware
+asymmetry: a device serves one sequence at a time, an edge host a
+handful, the cloud a large batch.  The paper's own GRU (family ``rnn``)
+has no token decode loop — each request is one forward over a history
+window — so it is served per request batch; the forward's recurrence
+runs in the ``gru_seq`` CUDA kernel on the card.  The LM engines' prefill
+and decode attention run in the ``flash_attention``, ``decode_attention``
+and ``paged_decode_attention`` kernels.
 
 ``measure()`` produces the per-tier timings that
 ``LatencyModel.from_measurements`` turns into a calibrated latency model
@@ -29,7 +31,8 @@ from repro_torch.configs import get_config
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import make_model
 from repro_torch.params import from_numpy_tree
-from repro_torch.serving.engine import EngineMeasurement
+from repro_torch.serving.engine import (EngineMeasurement, PagedServeEngine,
+                                       ServeEngine)
 
 TIERS = ("device", "edge", "cloud")
 
@@ -45,17 +48,20 @@ FAILOVER_ORDER: Dict[str, Tuple[str, ...]] = {
     "cloud": (),
 }
 
-_LM_SLICE = ("LM tiers are not ported to PyTorch yet; see ROADMAP.md "
-             "for the order of slices")
-
 
 @dataclass(frozen=True)
 class TierSpec:
     tier: str                        # device | edge | cloud
     arch: str = "gru-traffic"        # config-registry name
-    batch_size: int = 1              # request batch = concurrency cap
+    batch_size: int = 1              # engine rows = concurrency cap
+    max_len: int = 256
     reduced: bool = True             # CPU-sized config variant
     replicas: int = 1                # replicas behind this tier
+    # paged cache (transformer families only): batch_size rows share a
+    # PagePool instead of each reserving a dense max_len cache
+    paged: bool = False
+    page_size: int = 16
+    num_pages: Optional[int] = None  # default: batch_size * ceil(max_len/ps)
 
 
 # the paper serves ONE model from every tier; the tiers differ in
@@ -68,13 +74,27 @@ DEFAULT_TIERS: Tuple[TierSpec, ...] = (
 )
 
 
-def lm_tiers(arch: str = "xlstm-125m", max_len: int = 256):
-    raise NotImplementedError(_LM_SLICE)
+def lm_tiers(arch: str = "xlstm-125m", max_len: int = 256,
+             ) -> Tuple[TierSpec, ...]:
+    """Tier layout for a token-decoding LM: dense engines with 1, 4 and 8
+    slots.  (The default arch is the JAX package's; xlstm is not ported
+    yet, so building its tiers raises.)"""
+    return (TierSpec("device", arch=arch, batch_size=1, max_len=max_len),
+            TierSpec("edge", arch=arch, batch_size=4, max_len=max_len),
+            TierSpec("cloud", arch=arch, batch_size=8, max_len=max_len))
 
 
 def paged_lm_tiers(arch: str = "stablelm-1.6b", max_len: int = 256,
-                   page_size: int = 16):
-    raise NotImplementedError(_LM_SLICE)
+                   page_size: int = 16) -> Tuple[TierSpec, ...]:
+    """Paged tier layout: each tier keeps the page budget a dense tier of
+    :func:`lm_tiers` would hold but admits by actual token footprint, so
+    it runs 4, 16 and 32 rows."""
+    pages_dense = -(-max_len // page_size)
+    return tuple(TierSpec(t, arch=arch, batch_size=b, max_len=max_len,
+                          paged=True, page_size=page_size,
+                          num_pages=n * pages_dense)
+                 for t, b, n in (("device", 4, 1), ("edge", 16, 4),
+                                 ("cloud", 32, 8)))
 
 
 class _RnnReplica:
@@ -156,15 +176,22 @@ class ReplicaPool:
         cfg = get_config(spec.arch)
         if spec.reduced:
             cfg = cfg.reduced()
-        if cfg.model.family != "rnn":
-            raise NotImplementedError(_LM_SLICE)
+        api = make_model(cfg)
         params = self._shared_params
         if params is None:
             # all tiers replicate the SAME weights (same seed)
             gen = torch.Generator().manual_seed(self.seed)
-            params = make_model(cfg).init_params(gen, self.device)
-        return _RnnReplica(cfg, from_numpy_tree(params, self.device),
-                           self.device)
+            params = api.init_params(gen, self.device)
+        params = from_numpy_tree(params, self.device)
+        if cfg.model.family == "rnn":
+            return _RnnReplica(cfg, params, self.device)
+        if spec.paged:
+            return PagedServeEngine(cfg, params, max_seqs=spec.batch_size,
+                                    page_size=spec.page_size,
+                                    num_pages=spec.num_pages,
+                                    max_len=spec.max_len, device=self.device)
+        return ServeEngine(cfg, params, batch_size=spec.batch_size,
+                           max_len=spec.max_len, device=self.device)
 
     def replica(self, tier: str):
         if tier not in self._replicas:
@@ -172,9 +199,10 @@ class ReplicaPool:
         return self._replicas[tier]
 
     def engine(self, tier: str):
-        if isinstance(self.replica(tier), _RnnReplica):
+        rep = self.replica(tier)
+        if not isinstance(rep, (ServeEngine, PagedServeEngine)):
             raise TypeError(f"tier {tier!r} serves a per-request model")
-        raise NotImplementedError(_LM_SLICE)
+        return rep
 
     # -- health / failover --------------------------------------------------
 
@@ -190,10 +218,14 @@ class ReplicaPool:
         self._health[tier] = state
 
     def mark_down(self, tier: str) -> List[int]:
-        """Crash a tier and stop routing to it until :meth:`mark_up`.
-        Returns the drained slot ids so callers can requeue: always
-        empty here, as the per-request GRU holds no sequences."""
+        """Crash a tier: drain its engine (in-flight sequences lose their
+        cache; paged pools are checked leak-free by ``drain``) and stop
+        routing to it until :meth:`mark_up`.  Returns the drained slot
+        ids so callers can requeue (none for the per-request GRU)."""
         self.set_health(tier, DOWN)
+        rep = self._replicas.get(tier)
+        if rep is not None and hasattr(rep, "drain"):
+            return rep.drain()
         return []
 
     def mark_up(self, tier: str) -> None:
@@ -216,16 +248,33 @@ class ReplicaPool:
 
     # -- dispatch -----------------------------------------------------------
 
-    def dispatch(self, tier: str, batch) -> torch.Tensor:
+    def dispatch(self, tier: str, batch, steps: int = 8) -> torch.Tensor:
         """Serve one batch on ``tier`` (or its failover target when the
-        tier is down — see :meth:`resolve_tier`): a single forward,
-        (B,T,1) windows -> (B,1) predictions on the pool's device."""
-        return self.replica(self.resolve_tier(tier)).serve(batch)
+        tier is down — see :meth:`resolve_tier`): token generation for LM
+        tiers ((B,S) int prompts -> (B,steps) tokens), a single forward
+        for rnn tiers ((B,T,1) windows -> (B,1) predictions), on the
+        pool's device."""
+        rep = self.replica(self.resolve_tier(tier))
+        if isinstance(rep, _RnnReplica):
+            return rep.serve(batch)
+        return rep.generate(batch, steps=steps)
 
     # -- calibration --------------------------------------------------------
 
-    def measure(self) -> Dict[str, EngineMeasurement]:
+    def measure(self, prompt_len: int = 64, decode_steps: int = 16,
+                occupancy_levels: Optional[Sequence[int]] = None,
+                ) -> Dict[str, EngineMeasurement]:
         """Per-tier timings — feed the result to
-        ``LatencyModel.from_measurements``."""
-        return {tier: self.replica(tier).measure(self.specs[tier].batch_size)
-                for tier in self.specs}
+        ``LatencyModel.from_measurements``.  ``occupancy_levels`` sweeps
+        LM tiers' decode time at those admitted-sequence counts (levels
+        a tier cannot reach are dropped)."""
+        out = {}
+        for tier, spec in self.specs.items():
+            rep = self.replica(tier)
+            if isinstance(rep, _RnnReplica):
+                out[tier] = rep.measure(spec.batch_size)
+            else:
+                out[tier] = rep.measure(prompt_len=prompt_len,
+                                        decode_steps=decode_steps,
+                                        occupancy_levels=occupancy_levels)
+        return out

@@ -37,9 +37,23 @@ def test_gru_traffic_config_is_the_same(reduced):
     assert t.model.param_count() == j.model.param_count()
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+def test_stablelm_config_is_the_same(reduced):
+    j, t = jax_get_config("stablelm-1.6b"), get_config("stablelm-1.6b")
+    if reduced:
+        j, t = j.reduced(), t.reduced()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.param_count() == j.model.param_count()
+    if not reduced:
+        m = t.model
+        assert (m.num_layers, m.d_model, m.d_ff, m.padded_vocab) == \
+            (24, 2048, 5632, 100_352)
+        assert m.param_count() == 1_644_167_168
+
+
 def test_registry_knows_only_ported_configs():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("stablelm-1.6b")
+        get_config("xlstm-125m")
 
 
 def test_engine_measurement_has_the_same_fields():

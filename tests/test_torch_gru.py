@@ -104,10 +104,10 @@ def test_make_model_rnn_api_matches_forward():
 
 def test_make_model_other_families_wait_for_their_slice():
     _, tcfg = _cfgs(True)
-    dense = dataclasses.replace(
-        tcfg, model=dataclasses.replace(tcfg.model, family="dense"))
+    ssm = dataclasses.replace(
+        tcfg, model=dataclasses.replace(tcfg.model, family="ssm"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(dense)
+        make_model(ssm)
 
 
 def test_entry_points_default_to_the_gpu():

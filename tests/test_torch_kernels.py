@@ -98,7 +98,9 @@ def test_cpu_calls_do_not_count_launches():
     ops.gru_seq(*(torch.from_numpy(a) for a in (xw, h0, wh)))
     x, w = _fedavg_inputs(3, 10)
     ops.fedavg_reduce(torch.from_numpy(x), torch.from_numpy(w))
-    assert ops.launch_counts() == {"gru_seq": 0, "fedavg_reduce": 0}
+    assert ops.launch_counts() == {
+        "gru_seq": 0, "fedavg_reduce": 0, "flash_attention": 0,
+        "decode_attention": 0, "paged_decode_attention": 0}
 
 
 def test_wrappers_check_shapes_and_devices():
@@ -126,7 +128,9 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 def test_every_kernel_source_is_built_and_bound():
     names = {p.name for p in build.sources()}
-    assert names == {"gru_seq.cu", "fedavg_reduce.cu"}
+    assert names == {"gru_seq.cu", "fedavg_reduce.cu", "flash_attention.cu",
+                     "decode_attention.cu", "paged_decode_attention.cu"}
+    assert {p.name for p in build.headers()} == {"attention_common.cuh"}
     text = "".join(p.read_text() for p in build.sources())
     for entry in build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text

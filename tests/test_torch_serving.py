@@ -36,8 +36,7 @@ def _shared(reduced=True, seed=0):
 def _pools(specs=None, shared=None):
     shared = _shared() if shared is None else shared
     jspecs = specs or jrep.DEFAULT_TIERS
-    tspecs = [rep.TierSpec(s.tier, s.arch, s.batch_size, s.reduced,
-                           s.replicas) for s in jspecs]
+    tspecs = [rep.TierSpec(**dataclasses.asdict(s)) for s in jspecs]
     jpool = jrep.ReplicaPool(jspecs, shared_params=jax.tree.map(
         jnp.asarray, shared))
     tpool = rep.ReplicaPool(tspecs, shared_params=shared, device="cpu")
@@ -146,19 +145,20 @@ def test_pool_runs_on_the_gpu_unless_asked_for_the_cpu():
 
 
 def test_lm_paths_wait_for_their_slice():
+    """The LM tiers serve the ported dense family; the families of later
+    slices still raise, naming ROADMAP.md."""
     _, tpool = _pools()
     with pytest.raises(TypeError):
         tpool.engine("device")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rep.lm_tiers()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rep.paged_lm_tiers()
+    assert [s.arch for s in rep.lm_tiers()] == ["xlstm-125m"] * 3
+    xl = rep.ReplicaPool(rep.lm_tiers(), device="cpu")
+    with pytest.raises(KeyError, match="ROADMAP"):
+        xl.dispatch("edge", np.zeros((1, 6), np.int64))
     with pytest.raises(ValueError):
         rep.ReplicaPool([rep.TierSpec("fog")], device="cpu")
-    lm = rep.ReplicaPool([rep.TierSpec("edge", arch="stablelm-1.6b")],
-                         device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        lm.dispatch("edge", np.zeros((1, 6), np.int64))
+    lm = rep.ReplicaPool([rep.TierSpec("edge", arch="stablelm-1.6b",
+                                       max_len=32)], device="cpu")
+    assert lm.engine("edge").batch_size == 1
 
 
 def test_pool_without_shared_params_serves_one_model_everywhere():
@@ -187,3 +187,96 @@ def test_slice_fedavg_then_serve_matches_jax():
         w = r.normal(size=(B, 12, 1))
         assert_allclose(tpool.dispatch(tier, w).numpy(),
                         np.asarray(jpool.dispatch(tier, w)), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# LM tiers: reduced stablelm-1.6b, dense and paged engines
+# ---------------------------------------------------------------------------
+
+def _lm_shared(seed=0):
+    """Reduced stablelm weights from the JAX package, cast to fp32 (the
+    tiers keep the config's bf16 caches)."""
+    from repro.models import make_model as jax_make_model
+    cfg = jax_get_config("stablelm-1.6b").reduced()
+    params, _ = jax_make_model(cfg).init_params(jax.random.key(seed))
+    return jax.tree.map(lambda x: np.asarray(x, np.float32), params)
+
+
+def _lm_pools(paged, shared=None):
+    shared = _lm_shared() if shared is None else shared
+    jspecs = (jrep.paged_lm_tiers(max_len=64) if paged
+              else jrep.lm_tiers("stablelm-1.6b", max_len=64))
+    tspecs = (rep.paged_lm_tiers(max_len=64) if paged
+              else rep.lm_tiers("stablelm-1.6b", max_len=64))
+    assert [dataclasses.asdict(s) for s in tspecs] == \
+        [dataclasses.asdict(s) for s in jspecs]
+    jpool = jrep.ReplicaPool(jspecs, shared_params=jax.tree.map(
+        jnp.asarray, shared))
+    tpool = rep.ReplicaPool(tspecs, shared_params=shared, device="cpu")
+    return jpool, tpool
+
+
+def test_lm_tier_layouts_match_jax():
+    for fn in ("lm_tiers", "paged_lm_tiers"):
+        assert ([dataclasses.asdict(s) for s in getattr(rep, fn)()]
+                == [dataclasses.asdict(s) for s in getattr(jrep, fn)()])
+    assert [s.batch_size for s in rep.lm_tiers()] == [1, 4, 8]
+    assert [(s.batch_size, s.num_pages) for s in rep.paged_lm_tiers()] == \
+        [(4, 16), (16, 64), (32, 128)]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("tier,B", [("device", 1), ("edge", 3),
+                                    ("cloud", 4)])
+def test_lm_dispatch_matches_jax(paged, tier, B):
+    jpool, tpool = _lm_pools(paged)
+    prompts = np.random.default_rng(B).integers(0, 1024, (B, 11))
+    want = np.asarray(jpool.dispatch(tier, prompts, steps=5))
+    got = tpool.dispatch(tier, prompts, steps=5)
+    assert got.shape == (B, 5) and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+    eng = tpool.engine(tier)
+    assert isinstance(eng, rep.PagedServeEngine if paged else rep.ServeEngine)
+    assert eng.batch_size == tpool.specs[tier].batch_size
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lm_failover_from_a_down_edge_goes_to_the_cloud(paged):
+    jpool, tpool = _lm_pools(paged)
+    prompts = np.random.default_rng(7).integers(0, 1024, (2, 9))
+    eng = tpool.engine("edge")
+    slot = eng.acquire_slot()
+    eng.admit(prompts[0], slot=slot)             # in flight when it crashes
+    for pool in (jpool, tpool):
+        pool.engine("edge")
+    assert tpool.mark_down("edge") == [slot]
+    assert jpool.mark_down("edge") == []
+    if paged:
+        assert eng.pool.free_pages == eng.num_pages
+    got = tpool.dispatch("edge", prompts, steps=4)   # served by the cloud
+    want = np.asarray(jpool.dispatch("edge", prompts, steps=4))
+    assert tpool.failovers == jpool.failovers == 1
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), tpool.engine("cloud").generate(prompts, 4).numpy())
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_lm_measure_feeds_the_latency_model(paged):
+    """Per-tier timings into the latency model; the occupancy sweep
+    reaches the levels the JAX pool reaches (the slot or page budget
+    stops it at the same place)."""
+    jpool, tpool = _lm_pools(paged)
+    kw = dict(prompt_len=8, decode_steps=2, occupancy_levels=(1, 4, 8))
+    measured = tpool.measure(**kw)
+    jmeasured = jpool.measure(**kw)
+    assert set(measured) == {"device", "edge", "cloud"}
+    for tier, m in measured.items():
+        assert m.batch_size == tpool.specs[tier].batch_size
+        assert m.prompt_len == 8 and m.prefill_ms > 0.0
+        assert [lvl for lvl, _ in m.occupancy_ms] == \
+            [lvl for lvl, _ in jmeasured[tier].occupancy_ms]
+        assert all(ms > 0.0 for _, ms in m.occupancy_ms)
+    lat = LatencyModel.from_measurements(measured, decode_tokens=2)
+    for tier in tpool.tiers:
+        assert lat.infer_ms(tier) > 0.0
