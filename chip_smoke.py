@@ -513,7 +513,9 @@ def phase_slice(torch):
     # per forward: one gru_seq launch per layer; measure() makes one
     # warm-up and 8 timed forwards per tier
     want = {"gru_seq": m.rnn_layers * (n_dispatch + 9 * len(TIER_BATCH)),
-            "fedavg_reduce": 1 + 2 * len(np.unique(CLUSTER_IDS)) + 1}
+            "fedavg_reduce": 1 + 2 * len(np.unique(CLUSTER_IDS)) + 1,
+            "flash_attention": 0, "decode_attention": 0,
+            "paged_decode_attention": 0}
     checks = {
         "full_width": (rep.cfg.model.rnn_hidden == 128
                        and tuple(rep.params["gru"]["1"]["w_h"].shape)
@@ -610,6 +612,9 @@ def phase_lm(torch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(x.numel() for _, x in flatten_with_path(params))
+    # ModelConfig.param_count() leaves out the norms' scales and biases
+    norm_params = ((2 * m.num_layers + 1) * m.d_model
+                   * (2 if m.norm == "layernorm" else 1))
     dense = ReplicaPool(full_width_tiers(lm_tiers(LM_ARCH)),
                         shared_params=params, device=DEVICE)
     paged = ReplicaPool(full_width_tiers(paged_lm_tiers(LM_ARCH)),
@@ -680,7 +685,7 @@ def phase_lm(torch):
                        and tuple(params["layers"]["attn"]["wq"].shape)
                        == (24, 2048, 32, 64)
                        and params["embed"]["table"].dtype == torch.bfloat16
-                       and n_params == m.param_count()),
+                       and n_params == m.param_count() + norm_params),
         "finite_logits": bool(logits.isfinite().all()
                               and step.isfinite().all()),
         "shapes": all(
@@ -701,6 +706,7 @@ def phase_lm(torch):
                                       "paged_decode_attention")),
     }
     emit({"phase": "lm_slice", "arch": LM_ARCH, "params": n_params,
+          "config_param_count": m.param_count(), "norm_params": norm_params,
           "layers": m.num_layers, "d_model": m.d_model,
           "init_seconds": init_s, "seconds": seconds,
           "engine_calls": counts, "launches": launches,
@@ -726,7 +732,7 @@ def phase_lm_profile(torch, dense, paged, batches):
     for kind, pool in (("dense", dense), ("paged", paged)):
         for tier in pool.tiers:
             eng = pool.engine(tier)
-            for b, prompt in enumerate(batches[tier][0][:eng.batch_size]):
+            for prompt in batches[tier][0][:eng.batch_size]:
                 eng.admit(prompt, slot=eng.acquire_slot(),
                           reserve_tokens=LM_STEPS)
             eng.decode()

@@ -37,19 +37,19 @@ from repro_torch.models.common import ParamInit
 from repro_torch.models.rope import apply_rope
 
 _NEG_INF = -2.0e38  # fp32-safe mask value, as in the JAX module
-_NOT_PORTED = "is not ported to PyTorch yet; see ROADMAP.md"
+NOT_PORTED = "is not ported to PyTorch yet; see ROADMAP.md"
 
 
 def check_supported(a: AttentionConfig) -> None:
     """Raise for the attention features this slice does not port."""
     if a.kind == "mla":
-        raise NotImplementedError(f"MLA attention {_NOT_PORTED}")
+        raise NotImplementedError(f"MLA attention {NOT_PORTED}")
     if a.kind == "local_global":
-        raise NotImplementedError(f"local:global attention {_NOT_PORTED}")
+        raise NotImplementedError(f"local:global attention {NOT_PORTED}")
     if a.qk_norm:
-        raise NotImplementedError(f"qk_norm {_NOT_PORTED}")
+        raise NotImplementedError(f"qk_norm {NOT_PORTED}")
     if a.logit_soft_cap:
-        raise NotImplementedError(f"logit_soft_cap {_NOT_PORTED}")
+        raise NotImplementedError(f"logit_soft_cap {NOT_PORTED}")
 
 
 def init_gqa(pi: ParamInit, path: str, d_model: int, a: AttentionConfig,
@@ -179,7 +179,7 @@ def gqa_forward(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     """x (B,S,d), positions 0..S-1 -> (B,S,d)."""
     check_supported(a)
     if kv_source is not None:
-        raise NotImplementedError(f"cross attention {_NOT_PORTED}")
+        raise NotImplementedError(f"cross attention {NOT_PORTED}")
     q, k, v = _qkv(p, x, positions, inv_freq)
     out = _causal_attention(q, k, v, positions, causal, window)
     return _out_proj(out, p["wo"])

@@ -31,13 +31,13 @@ Params = Dict[str, Any]
 
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
-        raise NotImplementedError(f"MoE layers {attn._NOT_PORTED}")
+        raise NotImplementedError(f"MoE layers {attn.NOT_PORTED}")
     if cfg.attention.rope_theta == 0.0:
         raise NotImplementedError(
-            f"sinusoidal positions (rope_theta == 0) {attn._NOT_PORTED}")
+            f"sinusoidal positions (rope_theta == 0) {attn.NOT_PORTED}")
     if cfg.attention.kind not in ("full", "swa"):
         raise NotImplementedError(
-            f"attention kind {cfg.attention.kind!r} {attn._NOT_PORTED}")
+            f"attention kind {cfg.attention.kind!r} {attn.NOT_PORTED}")
     attn.check_supported(cfg.attention)
 
 

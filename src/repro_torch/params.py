@@ -59,7 +59,7 @@ def unflatten(paths: List[Path], leaves: List[Any]) -> Dict[Any, Any]:
     return out
 
 
-def is_bfloat16(arr: np.ndarray) -> bool:
+def _is_bfloat16(arr: np.ndarray) -> bool:
     """numpy has no bfloat16: JAX hands one over as ``ml_dtypes.bfloat16``
     and ``np.savez`` stores it as raw 2-byte ``|V2``."""
     return arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
@@ -68,9 +68,9 @@ def is_bfloat16(arr: np.ndarray) -> bool:
 
 def array_to_tensor(arr: np.ndarray) -> torch.Tensor:
     """numpy -> CPU tensor of the same dtype; a bfloat16 array (either
-    form of :func:`is_bfloat16`) is carried over bit for bit through its
+    form of :func:`_is_bfloat16`) is carried over bit for bit through its
     bytes viewed as uint16."""
-    if is_bfloat16(arr):
+    if _is_bfloat16(arr):
         return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
                                 ).view(torch.bfloat16)
     return torch.from_numpy(arr)

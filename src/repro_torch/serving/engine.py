@@ -34,7 +34,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import make_model
-from repro_torch.params import from_numpy_tree, tree_map
+from repro_torch.params import flatten_with_path, from_numpy_tree, tree_map
 from repro_torch.serving.page_pool import PagePool
 
 
@@ -67,7 +67,6 @@ def _clone(cache):
 
 def _restore(cache, saved) -> None:
     """Copy the tensors of ``saved`` back into ``cache`` in place."""
-    from repro_torch.params import flatten_with_path
     for (_, dst), (_, src) in zip(flatten_with_path(cache),
                                   flatten_with_path(saved)):
         dst.copy_(src)
