@@ -17,7 +17,13 @@ paths through the entry points a user calls:
   weight tree, request batches at every tier, one failover, the
   measured occupancy sweep into the latency model; then the same
   entry points at full width but 2 layers in fp32 on the card and on the
-  CPU, held against each other.
+  CPU, held against each other;
+- MoE + MLA replica serving of deepseek-v2-lite-16b at its published
+  width (27 layers, d 2048, MLA with kv_lora 512, 64 routed experts top-6
+  and 2 shared, bf16, 15.7 B random weights drawn on the card from a
+  seed), through the same entry points and checks, and its own 2-layer
+  fp32 cut (the lead dense layer and one MoE layer) on the card and on
+  the CPU.
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -77,6 +83,24 @@ LM_MEASURE = dict(prompt_len=64, decode_steps=16, occupancy_levels=(1, 4, 8))
 #: orders through 2 layers and a 2048-wide head)
 PARITY_LAYERS = 2
 PARITY_LOGIT_TOL = 1e-3
+#: the MoE slice: deepseek-v2-lite-16b at full width, with the LM slice's
+#: requests, measurement and parity cut (its 2 layers: the lead dense
+#: layer and one MoE layer)
+MOE_ARCH = "deepseek-v2-lite-16b"
+#: topk_router against its plain version: tests/test_kernels.py's weight
+#: tolerance, and indices identical
+ROUTER_TOL = 1e-6
+#: served trees at full width: leaf -> shape
+FULL_WIDTH = {
+    LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
+    MOE_ARCH: {("lead", "0", "attn", "wq"): (2048, 16, 192),
+               ("lead", "0", "mlp", "wi_gate"): (2048, 10944),
+               ("layers", "attn", "wq"): (26, 2048, 16, 192),
+               ("layers", "attn", "w_uk"): (26, 512, 16, 128),
+               ("layers", "moe", "router"): (26, 2048, 64),
+               ("layers", "moe", "wi_gate"): (26, 64, 2048, 1408),
+               ("layers", "moe", "shared", "wi_gate"): (26, 2048, 2816)},
+}
 
 
 def emit(obj) -> None:
@@ -287,13 +311,17 @@ def _randn(torch, rng, shape, dtype):
                            device=DEVICE).to(dtype)
 
 
-def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name):
+def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None):
+    """``Dv`` (default D) is the value dim: MLA prefill scores over 192
+    dims and returns 128."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
+    Dv = D if Dv is None else Dv
     q = _randn(torch, rng, (BH, T, D), dtype)
-    k, v = (_randn(torch, rng, (BHkv, T, D), dtype) for _ in range(2))
+    k = _randn(torch, rng, (BHkv, T, D), dtype)
+    v = _randn(torch, rng, (BHkv, T, Dv), dtype)
     # the yardstick takes every head's kv; repeat them outside its timing
     kx, vx = (x.repeat_interleave(BH // BHkv, 0) for x in (k, v))
     dist = np.arange(T)[:, None] - np.arange(T)[None, :]
@@ -307,11 +335,13 @@ def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name):
             return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
         return F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
 
+    shape = (BH, BHkv, T, D, window) + ((Dv,) if Dv != D else ())
     return check_attention(
-        torch, "flash_attention", (BH, BHkv, T, D, window), dtype_name,
+        torch, "flash_attention", shape, dtype_name,
         lambda: fa.flash_attention(q, k, v, causal=True, window=window),
         lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window),
-        library, it * (2 * BH * T * D + 2 * BHkv * T * D), pairs * 4 * D)
+        library, it * (BH * T * (D + Dv) + BHkv * T * (D + Dv)),
+        pairs * 2 * (D + Dv))
 
 
 def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name):
@@ -416,6 +446,112 @@ def phase_attention_kernels(torch):
     return main
 
 
+def check_router(torch, rng, T, E, k, tie=False):
+    """topk_router at (T, E, k); with ``tie`` the first row's logits are
+    all equal, so every probability ties and the picks are 0..k-1."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_router as tr
+    x = rng.normal(size=(T, E)).astype(np.float32)
+    if tie:
+        x[0] = 0.5
+    logits = torch.as_tensor(x, device=DEVICE)
+    w, i = tr.topk_router(logits, k)
+    wr, ir = ref.topk_router_ref(logits, k)
+    torch.cuda.synchronize()
+    err = (w - wr).abs().max().item()
+    same_idx = bool(torch.equal(i, ir))
+    if tie:
+        same_idx &= i[0].tolist() == list(range(k))
+
+    def library():
+        return torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+
+    # logits in, weights and indices out; softmax (max, exp, sum, divide)
+    # and k scans over every logit
+    nbytes, ops_ = 4 * T * E + 8 * T * k, T * E * (4 + k)
+    bound_ms, bound_by = bound(nbytes, ops_)
+    row = {"kernel": "topk_router", "shape": [T, E, k], "dtype": "float32",
+           "tie_row": tie, "max_abs_err": err, "tol": ROUTER_TOL,
+           "indices_equal": same_idx,
+           "ok": bool(err <= ROUTER_TOL and same_idx),
+           **timings(torch, lambda: tr.topk_router(logits, k),
+                     lambda: ref.topk_router_ref(logits, k), library, 200,
+                     20),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": ops_}
+    emit({"phase": "kernel_check", **row})
+    return row
+
+
+def check_paged_mla(torch, rng, B, H, R, Dr, ps, Pseq, lengths, num_pages,
+                    dtype_name):
+    """paged_mla_decode_attention; each row's pages are distinct ids of a
+    shuffled pool, entries past a row's last page point at the scratch
+    page ``num_pages``."""
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import ref
+    dtype = getattr(torch, dtype_name)
+    lengths = np.asarray(lengths, np.int32)
+    used = -(-lengths // ps)
+    ids = rng.permutation(num_pages)
+    bt = np.full((B, Pseq), num_pages, np.int32)
+    start = 0
+    for b in range(B):
+        bt[b, :used[b]] = ids[start:start + used[b]]
+        start += used[b]
+    qc, qr = (_randn(torch, rng, (B, H, w), dtype) for w in (R, Dr))
+    ckv, kr = (_randn(torch, rng, (num_pages + 1, ps, w), dtype)
+               for w in (R, Dr))
+    bt_t, ln_t = (torch.as_tensor(a, device=DEVICE) for a in (bt, lengths))
+    scale = 1.0 / np.sqrt(128 + Dr)      # deepseek's nope 128 + rope
+    tokens = int(lengths.sum())
+    it = qc.element_size()
+    return check_attention(
+        torch, "paged_mla_decode_attention", (B, H, R, Dr, ps, Pseq),
+        dtype_name,
+        lambda: pda.paged_mla_decode_attention(qc, qr, ckv, kr, bt_t, ln_t,
+                                               scale=scale),
+        lambda: ref.paged_mla_decode_attention_ref(qc, qr, ckv, kr, bt_t,
+                                                   ln_t, scale=scale),
+        None, it * (B * H * (2 * R + Dr) + tokens * (R + Dr))
+        + 4 * (int(used.sum()) + B), tokens * H * 2 * (2 * R + Dr))
+
+
+def phase_moe_kernels(torch):
+    """The MoE slice's kernels at its shapes (full-width deepseek-v2-lite:
+    router over 64 experts top-6 at the 64-token prefill bucket and at 32
+    and 1 decode rows; absorbed-MLA paged decode at 16 heads, R 512, Dr
+    64, 16-token pages, 57 to 64 cached tokens a row; flash at score dim
+    192 and value dim 128), then the sweep shapes of tests/test_kernels.py
+    in fp32 and bf16, and a tie row for the router."""
+    rng = np.random.default_rng(SEED + 7)
+    lens = lambda B: LM_PROMPT + 1 + np.arange(B) % LM_STEPS  # noqa: E731
+    main = {}
+    rows = [check_router(torch, rng, T, 64, 6) for T in (64, 32, 1)]
+    main["topk_router"] = rows[0]
+    rows += [check_router(torch, rng, T, E, k, tie)
+             for T, E, k in ((64, 16, 4), (128, 60, 4), (32, 64, 6))
+             for tie in (False, True)]
+    for B, pages in ((1, 16), (4, 16), (32, 128)):
+        rows.append(check_paged_mla(torch, rng, B, 16, 512, 64, 16, 16,
+                                    lens(B), pages, "bfloat16"))
+    main["paged_mla_decode_attention"] = rows[-1]
+    rows.append(check_flash(torch, rng, 16, 16, 64, 192, 0, "bfloat16",
+                            Dv=128))
+    main["flash_attention"] = rows[-1]
+    for dt in ("float32", "bfloat16"):
+        for H, R, Dr, ps, Pseq in ((8, 64, 16, 16, 4), (4, 128, 32, 8, 3)):
+            rows.append(check_paged_mla(
+                torch, rng, 2, H, R, Dr, ps, Pseq,
+                rng.integers(1, Pseq * ps + 1, 2), 2 * Pseq + 2, dt))
+        rows.append(check_flash(torch, rng, 2, 2, 100, 192, 0, dt, Dv=128))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"MoE slice kernels disagree with their plain "
+                             f"versions: {bad}")
+    return main
+
+
 def numpy_clients(rng, m, clients: int):
     """Stacked client replicas of the GRU in the JAX package's layout:
     fan-in-normal weights, small random biases (replicas that trained
@@ -515,7 +651,8 @@ def phase_slice(torch):
     want = {"gru_seq": m.rnn_layers * (n_dispatch + 9 * len(TIER_BATCH)),
             "fedavg_reduce": 1 + 2 * len(np.unique(CLUSTER_IDS)) + 1,
             "flash_attention": 0, "decode_attention": 0,
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "paged_mla_decode_attention": 0,
+            "topk_router": 0}
     checks = {
         "full_width": (rep.cfg.model.rnn_hidden == 128
                        and tuple(rep.params["gru"]["1"]["w_h"].shape)
@@ -593,10 +730,38 @@ def full_width_tiers(specs):
     return [dataclasses.replace(s, reduced=False) for s in specs]
 
 
-def phase_lm(torch):
-    """The LM main path: full-width stablelm-1.6b in bf16, one weight
-    tree shared by a dense and a paged pool, through the entry points a
-    user calls."""
+def norm_params(m) -> int:
+    """Weights ``ModelConfig.param_count()`` leaves out: the norms' scales
+    (and LayerNorm biases), and each MLA layer's ``kv_norm``."""
+    n = (2 * m.num_layers + 1) * m.d_model * (2 if m.norm == "layernorm"
+                                              else 1)
+    if m.attention.kind == "mla":
+        n += m.num_layers * m.attention.mla.kv_lora_rank
+    return n
+
+
+def expected_lm_launches(m, calls):
+    """Kernel launches of the LM engines' calls: one attention launch per
+    layer per admission (flash) and per decode step (the dense or paged
+    decode kernel of the attention kind; MLA's dense decode has none),
+    one router launch per MoE layer per admission and per step."""
+    L = m.num_layers
+    moe_layers = L - m.moe.first_dense_layers if m.moe else 0
+    mla = m.attention.kind == "mla"
+    admits = calls["dense"]["admit"] + calls["paged"]["admit"]
+    dense, paged = calls["dense"]["decode"], calls["paged"]["decode"]
+    return {"gru_seq": 0, "fedavg_reduce": 0,
+            "flash_attention": L * admits,
+            "decode_attention": 0 if mla else L * dense,
+            "paged_decode_attention": 0 if mla else L * paged,
+            "paged_mla_decode_attention": L * paged if mla else 0,
+            "topk_router": moe_layers * (admits + dense + paged)}
+
+
+def phase_lm(torch, arch, phase):
+    """An LM main path: ``arch`` at full width in bf16, weights drawn on
+    the card from a seed, one weight tree shared by a dense and a paged
+    pool, through the entry points a user calls."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import make_model
@@ -604,20 +769,19 @@ def phase_lm(torch):
     from repro_torch.routing import LatencyModel
     from repro_torch.serving import ReplicaPool, lm_tiers, paged_lm_tiers
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     m = cfg.model
     api = make_model(cfg)
     t0 = time.perf_counter()
-    params = api.init_params(torch.Generator().manual_seed(SEED), DEVICE)
+    params = api.init_params(
+        torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for _, x in flatten_with_path(params))
-    # ModelConfig.param_count() leaves out the norms' scales and biases
-    norm_params = ((2 * m.num_layers + 1) * m.d_model
-                   * (2 if m.norm == "layernorm" else 1))
-    dense = ReplicaPool(full_width_tiers(lm_tiers(LM_ARCH)),
+    leaves = dict(flatten_with_path(params))
+    n_params = sum(x.numel() for x in leaves.values())
+    dense = ReplicaPool(full_width_tiers(lm_tiers(arch)),
                         shared_params=params, device=DEVICE)
-    paged = ReplicaPool(full_width_tiers(paged_lm_tiers(LM_ARCH)),
+    paged = ReplicaPool(full_width_tiers(paged_lm_tiers(arch)),
                         shared_params=params, device=DEVICE)
     counts = {kind: {t: {"admit": 0, "decode": 0} for t in dense.tiers}
               for kind in ("dense", "paged")}
@@ -667,11 +831,7 @@ def phase_lm(torch):
                               torch.tensor([LM_PROMPT], device=DEVICE), cache)
     calls = {k: {c: sum(v[t][c] for t in v) for c in ("admit", "decode")}
              for k, v in counts.items()}
-    want = {"flash_attention": m.num_layers * (calls["dense"]["admit"]
-                                               + calls["paged"]["admit"]),
-            "decode_attention": m.num_layers * calls["dense"]["decode"],
-            "paged_decode_attention": m.num_layers * calls["paged"]["decode"],
-            "gru_seq": 0, "fedavg_reduce": 0}
+    want = expected_lm_launches(m, calls)
     all_out = [o for k in outs for t in outs[k] for o in outs[k][t]]
     first_same = all(
         torch.equal(d[:, 0], p[:d.shape[0], 0])
@@ -680,12 +840,15 @@ def phase_lm(torch):
     later = [(d[:, 1:] == p[:d.shape[0], 1:]).float().mean().item()
              for t in dense.tiers
              for d, p in zip(outs["dense"][t], outs["paged"][t])]
+    routers_fp32 = all(x.dtype == torch.float32 for path, x in leaves.items()
+                       if path[-1] == "router")
     checks = {
-        "full_width": (m.num_layers == 24 and m.d_model == 2048
-                       and tuple(params["layers"]["attn"]["wq"].shape)
-                       == (24, 2048, 32, 64)
+        "full_width": (m.d_model == 2048
+                       and all(tuple(leaves[k].shape) == v
+                               for k, v in FULL_WIDTH[arch].items())
                        and params["embed"]["table"].dtype == torch.bfloat16
-                       and n_params == m.param_count() + norm_params),
+                       and routers_fp32
+                       and n_params == m.param_count() + norm_params(m)),
         "finite_logits": bool(logits.isfinite().all()
                               and step.isfinite().all()),
         "shapes": all(
@@ -702,11 +865,10 @@ def phase_lm(torch):
                              lat[k].infer_ms(t) > 0
                              for k in lat for t in dense.tiers),
         "launches": launches == want and all(
-            launches[k] > 0 for k in ("flash_attention", "decode_attention",
-                                      "paged_decode_attention")),
+            launches[k] > 0 for k, v in want.items() if v),
     }
-    emit({"phase": "lm_slice", "arch": LM_ARCH, "params": n_params,
-          "config_param_count": m.param_count(), "norm_params": norm_params,
+    emit({"phase": phase, "arch": arch, "params": n_params,
+          "config_param_count": m.param_count(), "norm_params": norm_params(m),
           "layers": m.num_layers, "d_model": m.d_model,
           "init_seconds": init_s, "seconds": seconds,
           "engine_calls": counts, "launches": launches,
@@ -718,12 +880,12 @@ def phase_lm(torch):
                                       for t in dense.tiers} for k in lat},
           "checks": checks})
     if not all(checks.values()):
-        raise AssertionError(f"LM slice checks failed: "
+        raise AssertionError(f"{phase} checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return launches, dense, paged, batches
 
 
-def phase_lm_profile(torch, dense, paged, batches):
+def phase_lm_profile(torch, dense, paged, batches, phase):
     """One decode step per LM tier with every row admitted: device time
     by kernel (``torch.profiler``) against the step's wall time."""
     from torch.autograd import DeviceType
@@ -755,7 +917,7 @@ def phase_lm_profile(torch, dense, paged, batches):
                                       if dev_ms else None),
                 "kernels_ms": dict(sorted(kernels.items(),
                                           key=lambda kv: -kv[1])[:8])}
-    emit({"phase": "lm_profile", "per_decode_step": out})
+    emit({"phase": phase, "per_decode_step": out})
 
 
 def numpy_lm_params(rng, m):
@@ -787,21 +949,72 @@ def numpy_lm_params(rng, m):
                         "wo": draw((L, f, d), f ** -0.5)}}}
 
 
-def phase_lm_parity(torch):
-    """Full-width stablelm cut to 2 layers, fp32, weights from a numpy
-    seed: the same entry points on the card (kernels) and on the CPU
-    (plain attention), for both engines."""
+def numpy_moe_params(rng, m):
+    """deepseek-v2-lite weights cut to one lead dense layer and
+    ``m.num_layers - 1`` stacked MoE layers, in the JAX package's tree and
+    statistics (``ParamBuilder``: embedding normal 0.02, fan-in normal
+    elsewhere, RMS norm scales 1, fp32 routers), drawn with numpy."""
+    a, mo, d, V = m.attention, m.moe, m.d_model, m.padded_vocab
+    ml, H, E = a.mla, a.num_heads, mo.num_experts
+    L = m.num_layers - mo.first_dense_layers
+
+    def draw(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    def mlp(f, *lead):
+        return {"wi_gate": draw(lead + (d, f), d ** -0.5),
+                "wi_up": draw(lead + (d, f), d ** -0.5),
+                "wo": draw(lead + (f, d), f ** -0.5)}
+
+    def layer(*lead):
+        qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
+        R = ml.kv_lora_rank
+        return {"ln1": {"scale": ones(*lead, d)},
+                "ln2": {"scale": ones(*lead, d)},
+                "attn": {"wq": draw(lead + (d, H, qk), H ** -0.5),
+                         "w_dkv": draw(lead + (d, R), d ** -0.5),
+                         "w_krope": draw(lead + (d, ml.qk_rope_head_dim),
+                                         d ** -0.5),
+                         "kv_norm": ones(*lead, R),
+                         "w_uk": draw(lead + (R, H, ml.qk_nope_head_dim),
+                                      H ** -0.5),
+                         "w_uv": draw(lead + (R, H, ml.v_head_dim),
+                                      H ** -0.5),
+                         "wo": draw(lead + (H, ml.v_head_dim, d),
+                                    ml.v_head_dim ** -0.5)}}
+
+    moe = {"router": draw((L, d, E), d ** -0.5),
+           "wi_gate": draw((L, E, d, mo.d_expert), d ** -0.5),
+           "wi_up": draw((L, E, d, mo.d_expert), d ** -0.5),
+           "wo": draw((L, E, mo.d_expert, d), mo.d_expert ** -0.5),
+           "shared": mlp(mo.d_shared, L)}
+    return {"embed": {"table": draw((V, d), 0.02)},
+            "lm_head": {"w": draw((d, V), d ** -0.5)},
+            "final_norm": {"scale": ones(d)},
+            "lead": {str(i): {**layer(), "mlp": mlp(mo.dense_d_ff)}
+                     for i in range(mo.first_dense_layers)},
+            "layers": {**layer(L), "moe": moe}}
+
+
+def phase_lm_parity(torch, arch, phase, numpy_params):
+    """Full-width ``arch`` cut to 2 layers, fp32, weights from a numpy
+    seed (``numpy_params``): the same entry points on the card (kernels)
+    and on the CPU (plain versions), for both engines."""
     from repro_torch.configs import get_config
     from repro_torch.models import make_model
     from repro_torch.params import from_numpy_tree
     from repro_torch.serving import PagedServeEngine, ServeEngine
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     m = dataclasses.replace(cfg.model, num_layers=PARITY_LAYERS,
                             dtype="float32", param_dtype="float32")
     pcfg = dataclasses.replace(cfg, model=m)
     rng = np.random.default_rng(SEED + 6)
-    tree = numpy_lm_params(rng, m)
+    tree = numpy_params(rng, m)
     prompts = rng.integers(0, m.vocab_size, (2, LM_PROMPT))
     api = make_model(pcfg)
     logits, tokens = {}, {}
@@ -824,13 +1037,14 @@ def phase_lm_parity(torch):
                                                     tokens[("dense", "cpu")]),
               "paged_tokens_match_cpu": torch.equal(tokens[("paged", DEVICE)],
                                                     tokens[("paged", "cpu")])}
-    emit({"phase": "lm_parity", "layers": m.num_layers, "d_model": m.d_model,
+    emit({"phase": phase, "arch": arch, "layers": m.num_layers,
+          "d_model": m.d_model,
           "dtype": m.dtype, "prefill_logits_max_abs_err": err,
           "tol": PARITY_LOGIT_TOL,
           "tokens": {f"{k}/{d}": v.tolist() for (k, d), v in tokens.items()},
           "checks": checks})
     if not all(checks.values()):
-        raise AssertionError(f"LM parity checks failed: "
+        raise AssertionError(f"{phase} checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
 
 
@@ -885,33 +1099,61 @@ def main() -> int:
         phase_profile(torch, pool, measured)
         del pool
         phase = "lm_slice"
-        lm_launches, dense, paged, batches = phase_lm(torch)
+        lm_launches, dense, paged, batches = phase_lm(torch, LM_ARCH, phase)
         phase = "lm_profile"
-        phase_lm_profile(torch, dense, paged, batches)
+        phase_lm_profile(torch, dense, paged, batches, phase)
         del dense, paged
         torch.cuda.empty_cache()
         phase = "lm_parity"
-        phase_lm_parity(torch)
+        phase_lm_parity(torch, LM_ARCH, phase, numpy_lm_params)
+        phase = "moe_kernels"
+        moe_rows = phase_moe_kernels(torch)
+        phase = "moe_slice"
+        moe_launches, dense, paged, batches = phase_lm(torch, MOE_ARCH,
+                                                       phase)
+        phase = "moe_profile"
+        phase_lm_profile(torch, dense, paged, batches, phase)
+        del dense, paged
+        torch.cuda.empty_cache()
+        phase = "moe_parity"
+        phase_lm_parity(torch, MOE_ARCH, phase, numpy_moe_params)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
         return 1
 
+    # each main path's launches, counted from 0 just before it ran
+    paths = {"slice": launches, "lm_slice": lm_launches,
+             "moe_slice": moe_launches}
+    total = {k: sum(p[k] for p in paths.values()) for k in launches}
+    csrc = "src/repro_torch/kernels/csrc"
+    emit({"phase": "launches", "by_path": paths, "total": total,
+          "flash_attention_mla": kernel_entry(
+              "flash_attention", f"{csrc}/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              moe_launches["flash_attention"], moe_rows["flash_attention"])})
     print(smi, flush=True)
     emit({"kernels": [
-        kernel_entry("gru_seq", "src/repro_torch/kernels/csrc/gru_seq.cu",
+        kernel_entry("gru_seq", f"{csrc}/gru_seq.cu",
                      "src/repro/kernels/gru_cell.py:41",
-                     launches["gru_seq"], gru_rows[2]),
-        kernel_entry("fedavg_reduce",
-                     "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
+                     total["gru_seq"], gru_rows[2]),
+        kernel_entry("fedavg_reduce", f"{csrc}/fedavg_reduce.cu",
                      "src/repro/kernels/fedavg_reduce.py:26",
-                     launches["fedavg_reduce"], fed_rows[0]),
-        *(kernel_entry(name, f"src/repro_torch/kernels/csrc/{name}.cu",
+                     total["fedavg_reduce"], fed_rows[0]),
+        *(kernel_entry(name, f"{csrc}/{name}.cu",
                        f"src/repro/kernels/{name}.py:{line}",
-                       lm_launches[name], attn_rows[name])
+                       total[name], attn_rows[name])
           for name, line in (("flash_attention", 70),
                              ("decode_attention", 57),
                              ("paged_decode_attention", 89))),
+        kernel_entry("paged_mla_decode_attention",
+                     f"{csrc}/paged_mla_decode_attention.cu",
+                     "src/repro/kernels/paged_decode_attention.py:183",
+                     total["paged_mla_decode_attention"],
+                     moe_rows["paged_mla_decode_attention"]),
+        kernel_entry("topk_router", f"{csrc}/topk_router.cu",
+                     "src/repro/kernels/topk_router.py:32",
+                     total["topk_router"], moe_rows["topk_router"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Registry of the configurations the port can run so far.
 
-The paper's own GRU and the dense transformer the LM tiers serve by
-default are ported; every other architecture of
+The paper's own GRU, the dense transformer the LM tiers serve by
+default, and the MoE transformers (deepseek-v2-lite with MLA, qwen2-moe
+with GQA) are ported; every other architecture of
 ``repro/configs/registry.py`` waits for its slice (ROADMAP.md)."""
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from repro_torch.configs.base import ArchConfig
 _MODULES = {
     "gru-traffic": "repro_torch.configs.gru_traffic",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1p6b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
 }
 
 

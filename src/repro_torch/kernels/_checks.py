@@ -3,9 +3,12 @@ from __future__ import annotations
 
 import torch
 
-#: largest head_dim / value dim the attention kernels take: each lane of
-#: a warp owns 4 output dims
+#: largest value dim the attention kernels take (each lane of a warp owns
+#: 4 output dims), and the decode kernels' head dim
 MAX_HEAD_DIM = 128
+#: largest score (query/key) dim of ``flash_attention``, which only loops
+#: over it in shared memory: MLA prefill scores over nope + rope = 192
+MAX_SCORE_DIM = 256
 ENTRY_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -22,8 +25,8 @@ def kernel_inputs(name: str, **tensors: torch.Tensor) -> str:
     return ENTRY_SUFFIX[dtypes.pop()]
 
 
-def head_dims(name: str, *dims: int) -> None:
+def head_dims(name: str, *dims: int, limit: int = MAX_HEAD_DIM) -> None:
     for d in dims:
-        if not 1 <= d <= MAX_HEAD_DIM:
-            raise ValueError(f"{name} kernel takes head dims 1..{MAX_HEAD_DIM}, "
+        if not 1 <= d <= limit:
+            raise ValueError(f"{name} kernel takes head dims 1..{limit}, "
                              f"got {d}")

@@ -39,6 +39,9 @@ SIGNATURES = {
        for t in ("f32", "bf16")},
     **{f"paged_decode_attention_{t}": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
        for t in ("f32", "bf16")},
+    **{f"paged_mla_decode_attention_{t}": (_P,) * 7 + (_I,) * 6 + (_F, _P)
+       for t in ("f32", "bf16")},
+    "topk_router_f32": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

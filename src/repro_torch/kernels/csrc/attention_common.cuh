@@ -1,7 +1,9 @@
 // Pieces shared by the port's attention kernels (flash_attention.cu,
-// decode_attention.cu, paged_decode_attention.cu): element conversion,
-// warp reductions, the online-softmax fold of one 32-key chunk, and the
-// opt-in to more than 48 KB of dynamic shared memory.
+// decode_attention.cu, paged_decode_attention.cu,
+// paged_mla_decode_attention.cu): element conversion, warp reductions,
+// the online-softmax fold of one 32-key chunk, and the opt-in to more than
+// 48 KB of dynamic shared memory.  topk_router.cu uses the warp
+// reductions and the opt-in.
 //
 // Every kernel computes in fp32 whatever its input type (fp32 or bf16),
 // masks with -1e30 as the JAX kernels do, and clamps the softmax
@@ -17,8 +19,8 @@ namespace attn {
 constexpr float kNegInf = -1e30f;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-// head_dim and value dim are at most kMaxDim: each lane owns
-// kDimChunks output dims (lane, lane + 32, ...)
+// value dims (and the decode kernels' head dims) are at most kMaxDim:
+// each lane owns kDimChunks output dims (lane, lane + 32, ...)
 constexpr int kMaxDim = 128;
 constexpr int kDimChunks = kMaxDim / kWarp;
 

@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
-from repro_torch.kernels._checks import head_dims, kernel_inputs
+from repro_torch.kernels._checks import (MAX_SCORE_DIM, head_dims,
+                                         kernel_inputs)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -18,7 +19,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (BH,T,D); k/v (BHkv,T,D) -> (BH,T,Dv) in q's dtype.  BHkv = BH
     is the JAX signature; a GQA caller may instead pass each kv head once
     (BHkv dividing BH, query row bh reads kv row bh // (BH // BHkv)).
-    ``window <= 0`` means no window; any T."""
+    ``window <= 0`` means no window; any T.  The kernel takes D up to
+    256 and Dv up to 128 (MLA prefill: D 192, Dv 128)."""
     dev = common_device(q, k, v)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("flash_attention takes (BH,T,D) q, k and v")
@@ -33,7 +35,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
     suffix = kernel_inputs("flash_attention", q=q, k=k, v=v)
-    head_dims("flash_attention", D, Dv)
+    head_dims("flash_attention", D, limit=MAX_SCORE_DIM)
+    head_dims("flash_attention", Dv)
     out = torch.empty((BH, T, Dv), dtype=q.dtype, device=dev)
     if BH == 0 or T == 0:
         return out

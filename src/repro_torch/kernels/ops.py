@@ -8,10 +8,12 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gru_cell import gru_seq
-from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention, paged_mla_decode_attention)
+from repro_torch.kernels.topk_router import topk_router
 
 KERNELS = (gru_seq, fedavg_reduce, flash_attention, decode_attention,
-           paged_decode_attention)
+           paged_decode_attention, paged_mla_decode_attention, topk_router)
 
 
 def reset_launches() -> None:
@@ -25,4 +27,4 @@ def launch_counts() -> dict:
 
 __all__ = ["decode_attention", "fedavg_reduce", "flash_attention",
            "gru_seq", "launch_counts", "paged_decode_attention",
-           "reset_launches"]
+           "paged_mla_decode_attention", "reset_launches", "topk_router"]

@@ -1,11 +1,13 @@
-"""Wrapper of the hand-written CUDA kernel
-``csrc/paged_decode_attention.cu``: one query token per sequence against
-a paged KV cache read through block tables, the paged engine's decode
-step.  Counterpart of ``repro/kernels/paged_decode_attention.py``
-(the GQA variant; the MLA variant waits for its slice, ROADMAP.md).
+"""Wrappers of the hand-written CUDA kernels
+``csrc/paged_decode_attention.cu`` (GQA) and
+``csrc/paged_mla_decode_attention.cu`` (absorbed MLA): one query token
+per sequence against a paged cache read through block tables, the paged
+engine's decode step.  Counterpart of
+``repro/kernels/paged_decode_attention.py``, which holds both variants.
 
 A CPU tensor takes the plain version
-(:func:`ref.paged_decode_attention_ref`); a CUDA tensor launches the
+(:func:`ref.paged_decode_attention_ref`,
+:func:`ref.paged_mla_decode_attention_ref`); a CUDA tensor launches the
 kernel or raises."""
 from __future__ import annotations
 
@@ -75,3 +77,76 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+#: largest latent rank R of the MLA kernel (16 accumulators a lane) and
+#: largest R + Dr (16 query rows and 16 tokens of it in shared memory)
+MAX_RANK = 512
+MAX_LATENT_WIDTH = 1024
+
+
+def paged_mla_decode_attention(q_c: torch.Tensor, q_rope: torch.Tensor,
+                               ckv_pages: torch.Tensor,
+                               krope_pages: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               lengths: torch.Tensor, *,
+                               scale: float) -> torch.Tensor:
+    """Absorbed-MLA paged decode.  q_c (B,H,R) latent-space queries;
+    q_rope (B,H,Dr); ckv/krope_pages (P, ps, R|Dr); block_tables (B,
+    Pseq) int32; lengths (B,) int32 valid tokens; ``scale`` the full
+    1/sqrt(nope + rope).  Returns the latent context (B,H,R) in q_c's
+    dtype (apply ``w_uv`` outside).  The kernel reads only a row's first
+    ceil(lengths[b] / ps) table entries, whose ids must lie in the pool,
+    and gives zeros for a row with lengths[b] = 0 (the plain version
+    averages its gathered latents)."""
+    dev = common_device(q_c, q_rope, ckv_pages, krope_pages, block_tables,
+                        lengths)
+    if q_c.dim() != 3 or q_rope.dim() != 3 or ckv_pages.dim() != 3 \
+            or krope_pages.dim() != 3:
+        raise ValueError("paged_mla_decode_attention takes q_c (B,H,R), "
+                         "q_rope (B,H,Dr) and ckv/krope_pages (P,ps,R|Dr)")
+    B, H, R = q_c.shape
+    Dr = q_rope.shape[2]
+    P, ps = ckv_pages.shape[:2]
+    if (tuple(q_rope.shape[:2]) != (B, H) or ckv_pages.shape[2] != R
+            or tuple(krope_pages.shape) != (P, ps, Dr)
+            or block_tables.dim() != 2 or block_tables.shape[0] != B
+            or tuple(lengths.shape) != (B,)):
+        raise ValueError(f"shapes q_c {tuple(q_c.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, pages "
+                         f"{tuple(ckv_pages.shape)} / "
+                         f"{tuple(krope_pages.shape)}, block_tables "
+                         f"{tuple(block_tables.shape)}, lengths "
+                         f"{tuple(lengths.shape)} do not agree")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("block_tables and lengths must be int32")
+    if dev.type == "cpu":
+        return ref.paged_mla_decode_attention_ref(
+            q_c, q_rope, ckv_pages, krope_pages, block_tables, lengths,
+            scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"paged_mla_decode_attention runs on cpu or cuda, "
+                         f"not {dev}")
+    suffix = kernel_inputs("paged_mla_decode_attention", q_c=q_c,
+                           q_rope=q_rope, ckv_pages=ckv_pages,
+                           krope_pages=krope_pages,
+                           block_tables=block_tables, lengths=lengths)
+    if not 1 <= R <= MAX_RANK or R + Dr > MAX_LATENT_WIDTH:
+        raise ValueError(f"paged_mla_decode_attention kernel takes R in "
+                         f"1..{MAX_RANK} and R + Dr <= {MAX_LATENT_WIDTH}, "
+                         f"got R={R}, Dr={Dr}")
+    out = torch.empty((B, H, R), dtype=q_c.dtype, device=dev)
+    if B == 0 or H == 0:
+        return out
+    with torch.cuda.device(dev):
+        build.launch(f"paged_mla_decode_attention_{suffix}", q_c.data_ptr(),
+                     q_rope.data_ptr(), ckv_pages.data_ptr(),
+                     krope_pages.data_ptr(), block_tables.data_ptr(),
+                     lengths.data_ptr(), out.data_ptr(), B, H, R, Dr, ps,
+                     block_tables.shape[1], float(scale),
+                     torch.cuda.current_stream().cuda_stream)
+    paged_mla_decode_attention.launches += 1
+    return out
+
+
+paged_mla_decode_attention.launches = 0

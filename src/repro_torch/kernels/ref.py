@@ -6,7 +6,7 @@ The wrappers in this package run these for tensors on the CPU, and
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -109,3 +109,48 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
     return o.reshape(B, H, v.shape[-1]).to(q.dtype)
+
+
+def paged_mla_decode_attention_ref(q_c: torch.Tensor, q_rope: torch.Tensor,
+                                   ckv_pages: torch.Tensor,
+                                   krope_pages: torch.Tensor,
+                                   block_tables: torch.Tensor,
+                                   lengths: torch.Tensor, *,
+                                   scale: float) -> torch.Tensor:
+    """Absorbed-MLA paged decode: q_c (B,H,R) latent-space queries;
+    q_rope (B,H,Dr); ckv/krope_pages (P, ps, R|Dr); block_tables (B,
+    Pseq); lengths (B,) -> latent context (B,H,R) in q_c's dtype.  Scores
+    are ``(q_c . c_kv + q_rope . k_rope) * scale`` (``scale`` the full
+    1/sqrt(nope + rope)); token t of row b counts iff t < lengths[b]."""
+    B, H, R = q_c.shape
+    ps = ckv_pages.shape[1]
+    C = block_tables.shape[1] * ps
+    bt = block_tables.long()
+    ckv = ckv_pages[bt].reshape(B, C, R).float()
+    kr = krope_pages[bt].reshape(B, C, krope_pages.shape[-1]).float()
+    valid = torch.arange(C, device=q_c.device)[None, :] \
+        < lengths.long()[:, None]
+    s = (torch.einsum("bhr,bcr->bhc", q_c.float(), ckv)
+         + torch.einsum("bhd,bcd->bhc", q_rope.float(), kr)) * scale
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhc,bcr->bhr", p, ckv).to(q_c.dtype)
+
+
+def topk_router_ref(logits: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (T,E) -> (weights (T,k) f32, idx (T,k) int32): the fp32
+    softmax over experts, then ``k`` rounds of argmax with the winner
+    masked to -1, as the TPU kernel picks them.  A tie goes to the lowest
+    index (``torch.argmax`` returns the first maximum; ``torch.topk``
+    promises no order among equal values)."""
+    x = logits.float()
+    e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    cur = e / e.sum(dim=-1, keepdim=True)
+    ws, ids = [], []
+    for _ in range(k):
+        i = torch.argmax(cur, dim=-1, keepdim=True)
+        ws.append(torch.gather(cur, -1, i))
+        ids.append(i)
+        cur = cur.scatter(-1, i, -1.0)
+    return torch.cat(ws, dim=-1), torch.cat(ids, dim=-1).int()

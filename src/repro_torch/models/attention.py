@@ -1,14 +1,19 @@
-"""Grouped-query attention for training, prefill and single-token decode,
-over a dense ring cache or a paged cache: the GQA half of
-``repro/models/attention.py``, with the same functions and cache
-layouts.
+"""Attention for training, prefill and single-token decode, over a dense
+ring cache or a paged cache: grouped-query attention (GQA) and DeepSeek's
+multi-head latent attention (MLA) of ``repro/models/attention.py``, with
+the same functions and cache layouts.
 
 On CUDA tensors the attention itself goes through the port's kernels:
-prefill and forward through ``ops.flash_attention``, dense decode through
-``ops.decode_attention``, paged decode through
-``ops.paged_decode_attention``.  On CPU tensors it is :func:`_sdpa`, the
-plain counterpart of the JAX module's XLA path, which the JAX models run.
-The projections, rope and cache writes are the same code on both.
+prefill and forward through ``ops.flash_attention`` (GQA, and MLA with
+score dim nope + rope and value dim v), GQA dense decode through
+``ops.decode_attention``, GQA paged decode through
+``ops.paged_decode_attention``, and MLA paged decode through
+``ops.paged_mla_decode_attention`` (absorbed: scores against the latent
+cache itself).  MLA dense decode has no TPU kernel (the JAX module
+computes it with einsums), so it stays PyTorch ops on the card too.  On
+CPU tensors the attention is :func:`_sdpa` or those einsums, the plain
+counterpart of the JAX module's XLA path, which the JAX models run.  The
+projections, rope and cache writes are the same code on both.
 
 Two departures from the JAX module, both about state:
 
@@ -16,13 +21,14 @@ Two departures from the JAX module, both about state:
   still return the cache, so callers read like the reference; a caller
   that needs the old contents clones them first (the engines'
   ``measure()`` does).
-- :class:`KVCache` keeps one ring ``index`` per batch row, shape (B,),
-  where JAX keeps a scalar and vmaps a batch-1 cache over slots; the
-  dense engine's batched decode step is then one call with per-row
-  positions.
+- :class:`KVCache` and :class:`MLACache` keep one ring ``index`` per
+  batch row, shape (B,), where JAX keeps a scalar and vmaps a batch-1
+  cache over slots; the dense engine's batched decode step is then one
+  call with per-row positions.
 
-MLA, cross attention, ``qk_norm`` and ``logit_soft_cap`` are not ported
-yet (ROADMAP.md) and raise.
+Cross attention, ``local_global``, ``qk_norm``, ``logit_soft_cap`` and
+MLA's query compression (``q_lora_rank > 0``) are not ported yet
+(ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -42,8 +48,8 @@ NOT_PORTED = "is not ported to PyTorch yet; see ROADMAP.md"
 
 def check_supported(a: AttentionConfig) -> None:
     """Raise for the attention features this slice does not port."""
-    if a.kind == "mla":
-        raise NotImplementedError(f"MLA attention {NOT_PORTED}")
+    if a.kind == "mla" and a.mla.q_lora_rank:
+        raise NotImplementedError(f"MLA query compression {NOT_PORTED}")
     if a.kind == "local_global":
         raise NotImplementedError(f"local:global attention {NOT_PORTED}")
     if a.qk_norm:
@@ -365,4 +371,249 @@ def paged_gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
         zeros = torch.zeros((C,), dtype=torch.long, device=x.device)
         out = _sdpa(q, kg, vg, zeros[:1], zeros, False, None, 0.0,
                     k_valid=valid)
+    return _out_proj(out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): forward, dense ring cache, paged latent cache
+# ---------------------------------------------------------------------------
+
+def init_mla(pi: ParamInit, path: str, d_model: int, a: AttentionConfig,
+             stack: int = 0) -> None:
+    check_supported(a)
+    m = a.mla
+    H = a.num_heads
+    pi.param(f"{path}/wq", (d_model, H, m.qk_nope_head_dim
+                            + m.qk_rope_head_dim), stack=stack)
+    pi.param(f"{path}/w_dkv", (d_model, m.kv_lora_rank), stack=stack)
+    pi.param(f"{path}/w_krope", (d_model, m.qk_rope_head_dim), stack=stack)
+    pi.param(f"{path}/kv_norm", (m.kv_lora_rank,), init="ones", stack=stack)
+    pi.param(f"{path}/w_uk", (m.kv_lora_rank, H, m.qk_nope_head_dim),
+             stack=stack)
+    pi.param(f"{path}/w_uv", (m.kv_lora_rank, H, m.v_head_dim), stack=stack)
+    pi.param(f"{path}/wo", (H, m.v_head_dim, d_model), stack=stack)
+
+
+def _rms_head_norm(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _mla_latents(p, a: AttentionConfig, x: torch.Tensor,
+                 positions: torch.Tensor, inv_freq: Optional[torch.Tensor]):
+    """The compressed KV of ``x``: ``c_kv`` (B,S,R) after the ``kv_norm``
+    RMS norm, and the roped ``k_rope`` (B,S,Dr) shared by all heads."""
+    c_kv = _rms_head_norm(torch.matmul(x, p["w_dkv"]), p["kv_norm"])
+    k_rope = torch.matmul(x, p["w_krope"])
+    if inv_freq is not None:
+        k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                            inv_freq)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_query(p, a: AttentionConfig, x: torch.Tensor,
+               positions: torch.Tensor, inv_freq: Optional[torch.Tensor]):
+    """(q_nope (B,S,H,nope), roped q_rope (B,S,H,rope))."""
+    q = _project(x, p["wq"])
+    nope = a.mla.qk_nope_head_dim
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    if inv_freq is not None:
+        q_rope = apply_rope(q_rope, positions, inv_freq)
+    return q_nope, q_rope
+
+
+def _mla_attend(p, a: AttentionConfig, x: torch.Tensor,
+                positions: torch.Tensor, inv_freq: Optional[torch.Tensor]):
+    """Full-sequence MLA over positions 0..S-1: per-head keys and values
+    expanded from the latents, attention at score dim nope + rope (scale
+    1/sqrt(nope + rope)) and value dim v.  Returns (out (B,S,d), c_kv,
+    k_rope) for the callers that write a cache."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_query(p, a, x, positions, inv_freq)
+    c_kv, k_rope = _mla_latents(p, a, x, positions, inv_freq)
+    k_nope = _project(c_kv, p["w_uk"])
+    v = _project(c_kv, p["w_uv"])
+    k_rope_h = k_rope[:, :, None, :].expand(B, S, a.num_heads,
+                                            k_rope.shape[-1])
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = _causal_attention(q_full, k_full, v, positions, True, None)
+    return _out_proj(out, p["wo"]), c_kv, k_rope
+
+
+def _mla_scale(a: AttentionConfig) -> float:
+    return 1.0 / math.sqrt(a.mla.qk_nope_head_dim + a.mla.qk_rope_head_dim)
+
+
+def _absorbed(p, a: AttentionConfig, q_c, q_rope, c_kv, k_rope, valid):
+    """The JAX module's absorbed decode over gathered latents, step for
+    step: q_c (B,1,H,R), q_rope (B,1,H,Dr), c_kv (B,C,R), k_rope (B,C,Dr)
+    in the activations' dtype, valid (B,C) -> per-head values
+    (B,1,H,v)."""
+    s_nope = torch.einsum("bshr,bcr->bhsc", q_c, c_kv)
+    s_rope = torch.einsum("bshr,bcr->bhsc", q_rope, k_rope)
+    scores = (s_nope + s_rope).float() * _mla_scale(a)
+    scores = torch.where(valid[:, None, None, :], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    ctx = torch.einsum("bhsc,bcr->bshr", probs, c_kv)
+    return torch.einsum("bshr,rhk->bshk", ctx, p["w_uv"])
+
+
+def mla_forward(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
+                positions: torch.Tensor, inv_freq: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """x (B,S,d), positions 0..S-1 -> (B,S,d)."""
+    check_supported(a)
+    return _mla_attend(p, a, x, positions, inv_freq)[0]
+
+
+class MLACache(NamedTuple):
+    """Compressed ring cache: ``c_kv`` (B,C,R) latents, ``k_rope``
+    (B,C,Dr), ``pos`` (B,C) absolute position of each slot (-1 = empty),
+    ``index`` (B,) next write slot of each row (mod C)."""
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+    pos: torch.Tensor
+    index: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.c_kv.shape[-2]
+
+
+def init_mla_cache(batch: int, capacity: int, a: AttentionConfig,
+                   dtype=torch.bfloat16,
+                   device: Optional[torch.device] = None) -> MLACache:
+    m = a.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, capacity, m.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, capacity, m.qk_rope_head_dim),
+                           dtype=dtype, device=device),
+        pos=torch.full((batch, capacity), -1, dtype=torch.int32,
+                       device=device),
+        index=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def mla_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
+                positions: torch.Tensor, length: int, cache: MLACache,
+                inv_freq: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, MLACache]:
+    """:func:`mla_forward` plus a one-shot ring write of the latents of
+    positions ``[0, length)``."""
+    check_supported(a)
+    out, c_kv, k_rope = _mla_attend(p, a, x, positions, inv_freq)
+    slots = prefill_slots(cache.capacity, positions, length)
+    _ring_write(cache.c_kv, c_kv, slots)
+    _ring_write(cache.k_rope, k_rope, slots)
+    _ring_write(cache.pos, positions.to(cache.pos.dtype)[None].expand(
+        x.shape[0], -1), slots)
+    cache.index.fill_(length)
+    return out, cache
+
+
+def mla_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
+               pos: torch.Tensor, cache: MLACache,
+               inv_freq: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed single-token decode: the query is projected into latent
+    space (``q_c = q_nope . w_uk``) and scored against the compressed
+    cache directly.  x (B,1,d); pos () or (B,) absolute position of each
+    row; row b writes ring slot ``index[b] % C``.  There is no TPU kernel
+    for this step (the JAX module runs einsums), so it is PyTorch ops on
+    every device."""
+    check_supported(a)
+    B = x.shape[0]
+    pos = pos.long().expand(B) if pos.dim() == 0 else pos.long()
+    q_nope, q_rope = _mla_query(p, a, x, pos[:, None], inv_freq)
+    c_new, kr_new = _mla_latents(p, a, x, pos[:, None], inv_freq)
+    rows = torch.arange(B, device=x.device)
+    slot = cache.index.long() % cache.capacity
+    cache.c_kv[rows, slot] = c_new[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[rows, slot] = kr_new[:, 0].to(cache.k_rope.dtype)
+    cache.pos[rows, slot] = pos.to(cache.pos.dtype)
+    cache.index.add_(1)
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    out = _absorbed(p, a, q_c, q_rope, cache.c_kv.to(x.dtype),
+                    cache.k_rope.to(x.dtype), cache.pos >= 0)
+    return _out_proj(out, p["wo"]), cache
+
+
+class PagedMLACache(NamedTuple):
+    """Paged compressed-latent cache: ``ckv_pages`` (P+1, page_size, R),
+    ``krope_pages`` (P+1, page_size, Dr).  Same scratch-page convention
+    as :class:`PagedKVCache`."""
+    ckv_pages: torch.Tensor
+    krope_pages: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.ckv_pages.shape[-2]
+
+
+def init_paged_mla_cache(num_pages: int, page_size: int, a: AttentionConfig,
+                         dtype=torch.bfloat16,
+                         device: Optional[torch.device] = None
+                         ) -> PagedMLACache:
+    m = a.mla
+    return PagedMLACache(
+        ckv_pages=torch.zeros((num_pages + 1, page_size, m.kv_lora_rank),
+                              dtype=dtype, device=device),
+        krope_pages=torch.zeros((num_pages + 1, page_size,
+                                 m.qk_rope_head_dim), dtype=dtype,
+                                device=device))
+
+
+def paged_mla_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
+                      positions: torch.Tensor, length: int,
+                      cache: PagedMLACache, block_tables: torch.Tensor,
+                      inv_freq: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, PagedMLACache]:
+    """:func:`mla_prefill` math with the latent write paged."""
+    check_supported(a)
+    out, c_kv, k_rope = _mla_attend(p, a, x, positions, inv_freq)
+    num_pages = cache.ckv_pages.shape[0] - 1
+    pages, slots = prefill_page_ids(block_tables, positions, length,
+                                    cache.page_size, num_pages)
+    _page_write(cache.ckv_pages, c_kv, pages, slots)
+    _page_write(cache.krope_pages, k_rope, pages, slots)
+    return out, cache
+
+
+def paged_mla_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
+                     pos: torch.Tensor, cache: PagedMLACache,
+                     block_tables: torch.Tensor,
+                     inv_freq: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, PagedMLACache]:
+    """Absorbed MLA decode over the paged latent cache; ``pos`` (B,) per
+    row, token t of row b counting iff t <= pos[b]: the math of
+    :func:`mla_decode`.  On the card the scores, softmax and latent
+    context are ``ops.paged_mla_decode_attention`` with ``lengths = pos +
+    1``; ``w_uv`` and ``wo`` follow."""
+    check_supported(a)
+    B = x.shape[0]
+    pos = pos.long()
+    q_nope, q_rope = _mla_query(p, a, x, pos[:, None], inv_freq)
+    c_new, kr_new = _mla_latents(p, a, x, pos[:, None], inv_freq)
+    ps = cache.page_size
+    bt = block_tables.long()
+    pidx = torch.gather(bt, 1, (pos // ps)[:, None])
+    slot = (pos % ps)[:, None]
+    _page_write(cache.ckv_pages, c_new, pidx, slot)
+    _page_write(cache.krope_pages, kr_new, pidx, slot)
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    ckv, kr = cache.ckv_pages.to(x.dtype), cache.krope_pages.to(x.dtype)
+    if x.is_cuda:
+        ctx = ops.paged_mla_decode_attention(
+            q_c[:, 0].contiguous(), q_rope[:, 0].contiguous(), ckv, kr,
+            block_tables.int().contiguous(), (pos + 1).int(),
+            scale=_mla_scale(a))[:, None]
+        out = torch.einsum("bshr,rhk->bshk", ctx, p["w_uv"])
+    else:
+        C = bt.shape[1] * ps
+        valid = torch.arange(C, device=x.device)[None, :] <= pos[:, None]
+        out = _absorbed(p, a, q_c, q_rope, ckv[bt].reshape(B, C, -1),
+                        kr[bt].reshape(B, C, -1), valid)
     return _out_proj(out, p["wo"]), cache

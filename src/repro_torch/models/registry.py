@@ -3,7 +3,11 @@ family.  Counterpart of ``repro/models/registry.py``; the families
 ported so far:
 
   - rnn (paper):   batch = {"windows": (B,T,1) f32, "targets": (B,1) f32}
-  - dense:         batch = {"tokens": (B,S) int, "labels": (B,S) int}
+  - dense, moe:    batch = {"tokens": (B,S) int, "labels": (B,S) int};
+                   the moe family's loss adds the routers' aux loss
+
+The ssm, hybrid, vlm and audio families wait for their slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -90,8 +94,9 @@ def _transformer_api(cfg: ArchConfig) -> ModelApi:
         loss=loss,
         init_cache=lambda b, n, device=None: transformer.init_cache(
             m, b, n, dtype=cache_dtype, device=device),
-        decode_step=lambda params, tokens, pos, cache:
-            transformer.decode_step(params, m, tokens, pos, cache),
+        decode_step=lambda params, tokens, pos, cache, moe_per_row=False:
+            transformer.decode_step(params, m, tokens, pos, cache,
+                                    moe_per_row=moe_per_row),
         prefill=lambda params, tokens, cache, length=None:
             transformer.prefill(params, m, tokens, cache, length=length),
         init_paged_cache=lambda num_pages, page_size, device=None:
@@ -110,7 +115,7 @@ def make_model(cfg: ArchConfig) -> ModelApi:
     family = cfg.model.family
     if family == "rnn":
         return _rnn_api(cfg)
-    if family == "dense":
+    if family in ("dense", "moe"):
         return _transformer_api(cfg)
     raise NotImplementedError(
         f"family {family!r} is not ported to PyTorch yet; see ROADMAP.md "

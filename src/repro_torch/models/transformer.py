@@ -1,13 +1,17 @@
-"""Decoder-only transformer of the dense family (stablelm, h2o-danube):
-the counterpart of ``repro/models/transformer.py`` for configs whose
-every layer has the same cache geometry (attention kind ``full`` or
-``swa``).
+"""Decoder-only transformer of the dense and moe families (stablelm,
+h2o-danube, deepseek-v2-lite, qwen2-moe): the counterpart of
+``repro/models/transformer.py`` for configs whose every layer has the
+same cache geometry (attention kind ``full``, ``swa`` or ``mla``).
 
 Parameters keep the JAX tree: ``embed/table``, ``lm_head/w``,
-``final_norm``, and ``layers/...`` with a leading layer axis.  A python
-loop over the layers replaces ``lax.scan``; caches are stacked along the
-same leading axis and written in place (see ``models/attention.py``).
-MoE, ``lead/`` dense layers, ``local_global`` and ``rope_theta == 0``
+``final_norm``, the unstacked leading dense layers ``lead/{i}`` of an MoE
+config (deepseek's first layer, FFN width ``dense_d_ff``), and
+``layers/...`` with a leading layer axis (MoE layers when the config has
+``moe``).  A python loop over the layers replaces ``lax.scan``; caches
+keep the same ``{"lead": {...}, "layers": stacked}`` layout and are
+written in place (see ``models/attention.py``).  MLA layers rotate
+``qk_rope_head_dim`` dims, as JAX's ``stacked_rope`` does.
+``local_global``, ``qk_norm``, ``logit_soft_cap`` and ``rope_theta == 0``
 are not ported yet (ROADMAP.md) and raise.
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ from repro_torch.models.common import ParamInit, to_dtype
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        logits_from_hidden)
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.rope import rope_frequencies
 
 FULL_WINDOW = 1 << 30
@@ -30,12 +35,10 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE layers {attn.NOT_PORTED}")
     if cfg.attention.rope_theta == 0.0:
         raise NotImplementedError(
             f"sinusoidal positions (rope_theta == 0) {attn.NOT_PORTED}")
-    if cfg.attention.kind not in ("full", "swa"):
+    if cfg.attention.kind not in ("full", "swa", "mla"):
         raise NotImplementedError(
             f"attention kind {cfg.attention.kind!r} {attn.NOT_PORTED}")
     attn.check_supported(cfg.attention)
@@ -54,13 +57,22 @@ def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, w) if w != FULL_WINDOW else max_len
 
 
+def _n_lead(cfg: ModelConfig) -> int:
+    return cfg.moe.first_dense_layers if cfg.moe else 0
+
+
+def _is_mla(cfg: ModelConfig) -> bool:
+    return cfg.attention.kind == "mla"
+
+
 def _inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
     a = cfg.attention
+    dim = a.mla.qk_rope_head_dim if _is_mla(cfg) else a.head_dim
     return torch.from_numpy(rope_frequencies(
-        a.head_dim, a.rope_theta, a.rope_fraction)).to(device)
+        dim, a.rope_theta, a.rope_fraction)).to(device)
 
 
-def _layer(params: Params, i: int) -> Params:
+def _stacked_layer(params: Params, i: int) -> Params:
     def take(tree):
         if isinstance(tree, dict):
             return {k: take(v) for k, v in tree.items()}
@@ -68,31 +80,82 @@ def _layer(params: Params, i: int) -> Params:
     return take(params["layers"])
 
 
+def _at(cache, i: int):
+    """Layer ``i`` of a stacked cache, as views (writes go through)."""
+    return type(cache)(*(x[i] for x in cache))
+
+
+def _layers(params: Params, cfg: ModelConfig, cache=None):
+    """Every layer in order, the ``lead/{i}`` dense layers first: (its
+    params, whether it is an MoE layer, its cache or None)."""
+    n_lead = _n_lead(cfg)
+    for i in range(n_lead):
+        yield (params["lead"][str(i)], False,
+               None if cache is None else cache["lead"][str(i)])
+    for i in range(cfg.num_layers - n_lead):
+        yield (_stacked_layer(params, i), cfg.moe is not None,
+               None if cache is None else _at(cache["layers"], i))
+
+
+def _block(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
+           moe_layer: bool, groups: int = 1, with_aux: bool = False
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rest of a layer after its attention output ``y``: residual,
+    norm and the MLP or MoE, plus the layer's aux loss."""
+    x = x + y
+    h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
+    if moe_layer:
+        y, aux = apply_moe(p["moe"], cfg.moe, h, cfg.act, groups=groups,
+                           with_aux=with_aux)
+    else:
+        y, aux = apply_mlp(p["mlp"], h, cfg.act), x.new_zeros(
+            (), dtype=torch.float32)
+    return x + y, aux
+
+
+def _ln1(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
+def _init_layer(pi: ParamInit, cfg: ModelConfig, path: str, moe_layer: bool,
+                d_ff: int, stack: int = 0) -> None:
+    init_norm(pi, f"{path}/ln1", cfg.d_model, cfg.norm, stack=stack)
+    if _is_mla(cfg):
+        attn.init_mla(pi, f"{path}/attn", cfg.d_model, cfg.attention,
+                      stack=stack)
+    else:
+        attn.init_gqa(pi, f"{path}/attn", cfg.d_model, cfg.attention,
+                      stack=stack)
+    init_norm(pi, f"{path}/ln2", cfg.d_model, cfg.norm, stack=stack)
+    if moe_layer:
+        init_moe(pi, f"{path}/moe", cfg.d_model, cfg.moe, cfg.act,
+                 stack=stack)
+    else:
+        init_mlp(pi, f"{path}/mlp", cfg.d_model, d_ff, cfg.act, stack=stack)
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = None) -> Params:
-    """Fresh parameters in ``cfg.param_dtype``; ``generator`` is a CPU
-    generator, and each leaf is drawn on the host and moved to ``device``
-    before the next (``models/common.py``)."""
+    """Fresh parameters in ``cfg.param_dtype`` (MoE routers in fp32).
+    Each leaf is drawn where ``generator`` lives (a CPU generator draws
+    on the host, a CUDA one on the card) and moved to ``device`` before
+    the next (``models/common.py``)."""
     check_supported(cfg)
     pi = ParamInit(generator, to_dtype(cfg.param_dtype),
                    resolve_device(device))
-    L = cfg.num_layers
+    n_lead = _n_lead(cfg)
     init_embedding(pi, cfg)
-    init_norm(pi, "layers/ln1", cfg.d_model, cfg.norm, stack=L)
-    attn.init_gqa(pi, "layers/attn", cfg.d_model, cfg.attention, stack=L)
-    init_norm(pi, "layers/ln2", cfg.d_model, cfg.norm, stack=L)
-    init_mlp(pi, "layers/mlp", cfg.d_model, cfg.d_ff, cfg.act, stack=L)
+    for i in range(n_lead):
+        _init_layer(pi, cfg, f"lead/{i}", False,
+                    cfg.moe.dense_d_ff or cfg.d_ff)
+    _init_layer(pi, cfg, "layers", cfg.moe is not None, cfg.d_ff,
+                stack=cfg.num_layers - n_lead)
     init_norm(pi, "final_norm", cfg.d_model, cfg.norm)
     return pi.params
-
-
-def _mlp_block(cfg, p, x):
-    h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.act)
 
 
 def _head(params, cfg, x):
@@ -106,19 +169,25 @@ def _head(params, cfg, x):
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (logits (B,S,V), aux loss 0)."""
+    """tokens (B,S) -> (logits (B,S,V), aux loss summed over the MoE
+    layers; 0 without MoE)."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
-    for i in range(cfg.num_layers):
-        p = _layer(params, i)
-        h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-        x = x + attn.gqa_forward(p["attn"], cfg.attention, h, positions,
-                                 inv_freq, window=window)
-        x = _mlp_block(cfg, p, x)
-    return _head(params, cfg, x), x.new_zeros((), dtype=torch.float32)
+    a = cfg.attention
+    aux_total = x.new_zeros((), dtype=torch.float32)
+    for p, moe_layer, _ in _layers(params, cfg):
+        h = _ln1(cfg, p, x)
+        if _is_mla(cfg):
+            y = attn.mla_forward(p["attn"], a, h, positions, inv_freq)
+        else:
+            y = attn.gqa_forward(p["attn"], a, h, positions, inv_freq,
+                                 window=window)
+        x, aux = _block(cfg, p, x, y, moe_layer, with_aux=True)
+        aux_total = aux_total + aux
+    return _head(params, cfg, x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -131,59 +200,73 @@ def _stacked(make, n: int):
     return type(per[0])(*(torch.stack(xs) for xs in zip(*per)))
 
 
-def _at(cache, i: int):
-    """Layer ``i`` of a stacked cache, as views (writes go through)."""
-    return type(cache)(*(x[i] for x in cache))
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None):
-    """{"lead": {}, "layers": KVCache with a leading layer axis}."""
+    """{"lead": {str(i): cache of lead layer i}, "layers": cache with a
+    leading layer axis}: a ring :class:`~attention.KVCache` per GQA
+    layer, a latent :class:`~attention.MLACache` per MLA layer."""
     check_supported(cfg)
     dtype = dtype or to_dtype(cfg.dtype)
     a, dev = cfg.attention, resolve_device(device)
     cap = cache_capacity(cfg, max_len)
-    return {"lead": {}, "layers": _stacked(
-        lambda: attn.init_kv_cache(batch, cap, a.num_kv_heads, a.head_dim,
-                                   dtype, dev), cfg.num_layers)}
+
+    def one():
+        if _is_mla(cfg):
+            return attn.init_mla_cache(batch, cap, a, dtype, dev)
+        return attn.init_kv_cache(batch, cap, a.num_kv_heads, a.head_dim,
+                                  dtype, dev)
+
+    n_lead = _n_lead(cfg)
+    return {"lead": {str(i): one() for i in range(n_lead)},
+            "layers": _stacked(one, cfg.num_layers - n_lead)}
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
             length: Optional[int] = None):
     """One-shot prefill: the full-sequence pass of :func:`forward`, and
-    every layer writes its KV cache for positions ``[0, length)`` in one
-    scatter.  ``tokens`` (B,S) may be right-padded beyond ``length``;
-    returns (logits (B,S,V), cache ready for decode at ``length``)."""
+    every layer writes its cache for positions ``[0, length)`` in one
+    scatter.  ``tokens`` (B,S) may be right-padded beyond ``length`` (pad
+    tokens still enter the MoE dispatch, as in JAX); returns (logits
+    (B,S,V), cache ready for decode at ``length``)."""
     check_supported(cfg)
     length = tokens.shape[1] if length is None else int(length)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
-    for i in range(cfg.num_layers):
-        p = _layer(params, i)
-        h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-        y, _ = attn.gqa_prefill(p["attn"], cfg.attention, h, positions,
-                                length, _at(cache["layers"], i), inv_freq,
-                                window=window)
-        x = _mlp_block(cfg, p, x + y)
+    a = cfg.attention
+    for p, moe_layer, c in _layers(params, cfg, cache):
+        h = _ln1(cfg, p, x)
+        if _is_mla(cfg):
+            y, _ = attn.mla_prefill(p["attn"], a, h, positions, length, c,
+                                    inv_freq)
+        else:
+            y, _ = attn.gqa_prefill(p["attn"], a, h, positions, length, c,
+                                    inv_freq, window=window)
+        x, _ = _block(cfg, p, x, y, moe_layer)
     return _head(params, cfg, x), cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                pos: torch.Tensor, cache):
+                pos: torch.Tensor, cache, moe_per_row: bool = False):
     """tokens (B,1); pos () or (B,) absolute position of each row.
-    Returns (logits (B,1,V), cache)."""
+    Returns (logits (B,1,V), cache).  With ``moe_per_row`` every row's
+    MoE dispatch gets its own capacity, as a batch-1 step vmapped over
+    the rows would (the dense engine's decode); without it the B tokens
+    share one capacity, as in one JAX call at batch B."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
-    for i in range(cfg.num_layers):
-        p = _layer(params, i)
-        h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-        y, _ = attn.gqa_decode(p["attn"], cfg.attention, h, pos,
-                               _at(cache["layers"], i), inv_freq,
-                               window=window)
-        x = _mlp_block(cfg, p, x + y)
+    a = cfg.attention
+    groups = x.shape[0] if moe_per_row else 1
+    for p, moe_layer, c in _layers(params, cfg, cache):
+        h = _ln1(cfg, p, x)
+        if _is_mla(cfg):
+            y, _ = attn.mla_decode(p["attn"], a, h, pos, c, inv_freq)
+        else:
+            y, _ = attn.gqa_decode(p["attn"], a, h, pos, c, inv_freq,
+                                   window=window)
+        x, _ = _block(cfg, p, x, y, moe_layer, groups=groups)
     return _head(params, cfg, x), cache
 
 
@@ -193,15 +276,22 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      dtype=None, device: DeviceLike = None):
-    """Paged cache for every layer, stacked along a leading layer axis
-    and indexed by the same pool-issued page ids."""
+    """Paged cache for every layer, in :func:`init_cache`'s layout and
+    indexed by the same page ids the pool hands out."""
     check_supported(cfg)
     dtype = dtype or to_dtype(cfg.dtype)
     a, dev = cfg.attention, resolve_device(device)
-    return {"lead": {}, "layers": _stacked(
-        lambda: attn.init_paged_kv_cache(num_pages, page_size,
-                                         a.num_kv_heads, a.head_dim, dtype,
-                                         dev), cfg.num_layers)}
+
+    def one():
+        if _is_mla(cfg):
+            return attn.init_paged_mla_cache(num_pages, page_size, a, dtype,
+                                             dev)
+        return attn.init_paged_kv_cache(num_pages, page_size, a.num_kv_heads,
+                                        a.head_dim, dtype, dev)
+
+    n_lead = _n_lead(cfg)
+    return {"lead": {str(i): one() for i in range(n_lead)},
+            "layers": _stacked(one, cfg.num_layers - n_lead)}
 
 
 def paged_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -216,31 +306,39 @@ def paged_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
-    for i in range(cfg.num_layers):
-        p = _layer(params, i)
-        h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-        y, _ = attn.paged_gqa_prefill(p["attn"], cfg.attention, h,
-                                      positions, length,
-                                      _at(cache["layers"], i), block_tables,
-                                      inv_freq, window=window)
-        x = _mlp_block(cfg, p, x + y)
+    a = cfg.attention
+    for p, moe_layer, c in _layers(params, cfg, cache):
+        h = _ln1(cfg, p, x)
+        if _is_mla(cfg):
+            y, _ = attn.paged_mla_prefill(p["attn"], a, h, positions, length,
+                                          c, block_tables, inv_freq)
+        else:
+            y, _ = attn.paged_gqa_prefill(p["attn"], a, h, positions, length,
+                                          c, block_tables, inv_freq,
+                                          window=window)
+        x, _ = _block(cfg, p, x, y, moe_layer)
     return _head(params, cfg, x), cache
 
 
 def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                       pos: torch.Tensor, cache, block_tables: torch.Tensor):
-    """Batched paged decode: one pass advances every row.  ``tokens``
-    (B,1); ``pos`` (B,) per-row positions (free rows point their block
-    table at the scratch page).  Returns (logits (B,1,V), cache)."""
+    """Batched paged decode: one pass advances every row, and the rows
+    share one MoE capacity (free rows too, which point their block table
+    at the scratch page), as in JAX's one program.  ``tokens`` (B,1);
+    ``pos`` (B,) per-row positions.  Returns (logits (B,1,V), cache)."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
-    for i in range(cfg.num_layers):
-        p = _layer(params, i)
-        h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-        y, _ = attn.paged_gqa_decode(p["attn"], cfg.attention, h, pos,
-                                     _at(cache["layers"], i), block_tables,
-                                     inv_freq, window=window)
-        x = _mlp_block(cfg, p, x + y)
+    a = cfg.attention
+    for p, moe_layer, c in _layers(params, cfg, cache):
+        h = _ln1(cfg, p, x)
+        if _is_mla(cfg):
+            y, _ = attn.paged_mla_decode(p["attn"], a, h, pos, c,
+                                         block_tables, inv_freq)
+        else:
+            y, _ = attn.paged_gqa_decode(p["attn"], a, h, pos, c,
+                                         block_tables, inv_freq,
+                                         window=window)
+        x, _ = _block(cfg, p, x, y, moe_layer)
     return _head(params, cfg, x), cache

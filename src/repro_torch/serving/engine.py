@@ -3,16 +3,22 @@ decode over the port's model API.  Counterpart of
 ``repro/serving/engine.py``, with the same API.
 
 :class:`ServeEngine` owns ``batch_size`` slots, each with a private dense
-``max_len`` ring cache: admission prefills into a slot, and one batched
-decode step advances every slot under its own position.  JAX vmaps a
-batch-1 ``decode_step`` over the slots; the port writes that as one call
-with per-slot ``pos (B,)`` and ring ``index (B,)``, since a kernel
-launched through ctypes cannot be vmapped.
+``max_len`` ring (or MLA latent) cache: admission prefills into a slot,
+and one batched decode step advances every slot under its own position.
+JAX vmaps a batch-1 ``decode_step`` over the slots; the port writes that
+as one call with per-slot ``pos (B,)`` and ring ``index (B,)``, since a
+kernel launched through ctypes cannot be vmapped.  For an MoE model the
+vmap gives every slot's token its own expert capacity, so the port's
+step asks for per-row capacity (``moe_per_row``): with more slots than
+an expert's pooled capacity, rows would otherwise compete for it and
+tokens would change.
 
 :class:`PagedServeEngine` replaces the per-slot reservation with a
 shared :class:`~repro_torch.serving.page_pool.PagePool`: sequences hold
 ``ceil(tokens / page_size)`` pages, admission is gated on pages, decode
-extends page by page and eviction reclaims them.
+extends page by page and eviction reclaims them.  Its decode step is one
+program over all rows in JAX too, so there an MoE layer's capacity is
+pooled over the rows, free rows included.
 
 Caches are written in place (``models/attention.py``), so ``measure()``
 clones them before it admits its probe sequences and puts the clones
@@ -70,6 +76,14 @@ def _restore(cache, saved) -> None:
     for (_, dst), (_, src) in zip(flatten_with_path(cache),
                                   flatten_with_path(saved)):
         dst.copy_(src)
+
+
+def _emptied(cache):
+    """A dense cache view reset in place to a fresh cache: positions -1
+    (empty slots), everything else 0."""
+    for name, x in zip(cache._fields, cache):
+        x.fill_(-1 if name == "pos" else 0)
+    return cache
 
 
 def _argmax(logits: torch.Tensor) -> torch.Tensor:
@@ -221,16 +235,14 @@ class ServeEngine(_EngineBase):
                                     device=self.device)
 
     def _slot_cache(self, slot: int):
-        """Slot ``slot`` of every layer's cache, as views, emptied as a
-        fresh batch-1 cache is (the JAX engine prefills a fresh template
-        and inserts it)."""
+        """Slot ``slot`` of every layer's cache (lead layers and the
+        stacked ones), as views, emptied as a fresh batch-1 cache is (the
+        JAX engine prefills a fresh template and inserts it)."""
         layers = self.cache["layers"]
-        view = type(layers)(*(x[:, slot:slot + 1] for x in layers))
-        view.k.zero_()
-        view.v.zero_()
-        view.pos.fill_(-1)
-        view.index.zero_()
-        return {"lead": {}, "layers": view}
+        return {"lead": {k: _emptied(type(c)(*(x[slot:slot + 1] for x in c)))
+                         for k, c in self.cache["lead"].items()},
+                "layers": _emptied(type(layers)(
+                    *(x[:, slot:slot + 1] for x in layers)))}
 
     # -- slot management ----------------------------------------------------
 
@@ -275,9 +287,11 @@ class ServeEngine(_EngineBase):
     def decode(self) -> np.ndarray:
         """One continuous-batching step: every slot advances one token
         under its own position (free slots too, as in JAX; their entries
-        are meaningless).  Returns (batch_size,) token ids."""
+        are meaningless), each slot's MoE token with its own capacity.
+        Returns (batch_size,) token ids."""
         logits, _ = self.api.decode_step(self.params, self.next_tok,
-                                         self.pos, self.cache)
+                                         self.pos, self.cache,
+                                         moe_per_row=True)
         toks = _argmax(logits[:, -1])
         self.pos += 1
         self.next_tok = toks[:, None]

@@ -11,7 +11,9 @@ has no token decode loop — each request is one forward over a history
 window — so it is served per request batch; the forward's recurrence
 runs in the ``gru_seq`` CUDA kernel on the card.  The LM engines' prefill
 and decode attention run in the ``flash_attention``, ``decode_attention``
-and ``paged_decode_attention`` kernels.
+and ``paged_decode_attention`` kernels (MLA models: ``flash_attention``
+and ``paged_mla_decode_attention``), and every MoE layer routes its
+tokens through ``topk_router``.
 
 ``measure()`` produces the per-tier timings that
 ``LatencyModel.from_measurements`` turns into a calibrated latency model

@@ -51,6 +51,56 @@ def test_stablelm_config_is_the_same(reduced):
         assert m.param_count() == 1_644_167_168
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("reduced", [False, True])
+def test_moe_configs_are_the_same(arch, reduced):
+    j, t = jax_get_config(arch), get_config(arch)
+    if reduced:
+        j, t = j.reduced(), t.reduced()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.param_count() == j.model.param_count()
+    assert t.model.active_param_count() == j.model.active_param_count()
+
+
+def test_deepseek_config_is_the_published_shape():
+    m = get_config("deepseek-v2-lite-16b").model
+    a, mo = m.attention, m.moe
+    assert (m.family, m.num_layers, m.d_model, m.vocab_size) == \
+        ("moe", 27, 2048, 102_400)
+    assert (a.kind, a.num_heads, a.mla.kv_lora_rank, a.mla.q_lora_rank,
+            a.mla.qk_nope_head_dim, a.mla.qk_rope_head_dim,
+            a.mla.v_head_dim) == ("mla", 16, 512, 0, 128, 64, 128)
+    assert (mo.num_experts, mo.top_k, mo.d_expert, mo.num_shared,
+            mo.d_shared, mo.first_dense_layers, mo.dense_d_ff,
+            mo.capacity_factor) == (64, 6, 1408, 2, 2816, 1, 10_944, 1.25)
+    assert m.param_count() == 15_706_357_760
+    # the reduced variant the CPU tests run
+    r = get_config("deepseek-v2-lite-16b").reduced().model
+    assert (r.num_layers, r.d_model, r.moe.num_experts, r.moe.top_k,
+            r.attention.mla.kv_lora_rank) == (2, 256, 4, 2, 32)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "deepseek-v2-lite-16b",
+                                  "qwen2-moe-a2.7b"])
+def test_tree_counts_param_count_plus_norms(arch):
+    """The port's tree holds ``param_count()`` weights plus the norms'
+    scales (and LayerNorm biases, and MLA's kv_norm), which the count
+    leaves out: the check chip_smoke.py makes at full width."""
+    import torch
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path
+    cfg = get_config(arch).reduced()
+    m = cfg.model
+    tree = make_model(cfg).init_params(torch.Generator().manual_seed(0),
+                                       "cpu")
+    norms = (2 * m.num_layers + 1) * m.d_model * (
+        2 if m.norm == "layernorm" else 1)
+    if m.attention.kind == "mla":
+        norms += m.num_layers * m.attention.mla.kv_lora_rank
+    assert sum(x.numel() for _, x in flatten_with_path(tree)) == \
+        m.param_count() + norms
+
+
 def test_registry_knows_only_ported_configs():
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("xlstm-125m")

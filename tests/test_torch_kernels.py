@@ -100,7 +100,8 @@ def test_cpu_calls_do_not_count_launches():
     ops.fedavg_reduce(torch.from_numpy(x), torch.from_numpy(w))
     assert ops.launch_counts() == {
         "gru_seq": 0, "fedavg_reduce": 0, "flash_attention": 0,
-        "decode_attention": 0, "paged_decode_attention": 0}
+        "decode_attention": 0, "paged_decode_attention": 0,
+        "paged_mla_decode_attention": 0, "topk_router": 0}
 
 
 def test_wrappers_check_shapes_and_devices():
@@ -129,7 +130,8 @@ def test_build_raises_without_nvcc(monkeypatch):
 def test_every_kernel_source_is_built_and_bound():
     names = {p.name for p in build.sources()}
     assert names == {"gru_seq.cu", "fedavg_reduce.cu", "flash_attention.cu",
-                     "decode_attention.cu", "paged_decode_attention.cu"}
+                     "decode_attention.cu", "paged_decode_attention.cu",
+                     "paged_mla_decode_attention.cu", "topk_router.cu"}
     assert {p.name for p in build.headers()} == {"attention_common.cuh"}
     text = "".join(p.read_text() for p in build.sources())
     for entry in build.SIGNATURES:
@@ -137,6 +139,9 @@ def test_every_kernel_source_is_built_and_bound():
     # each source names the TPU kernel it replaces
     assert "src/repro/kernels/gru_cell.py:gru_seq" in text
     assert "src/repro/kernels/fedavg_reduce.py:fedavg_reduce" in text
+    assert "src/repro/kernels/topk_router.py:topk_router" in text
+    assert ("src/repro/kernels/paged_decode_attention.py:\n"
+            "// paged_mla_decode_attention ") in text
     assert len(build.source_hash()) == 16
 
 
