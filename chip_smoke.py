@@ -23,7 +23,14 @@ paths through the entry points a user calls:
   and 2 shared, bf16, 15.7 B random weights drawn on the card from a
   seed), through the same entry points and checks, and its own 2-layer
   fp32 cut (the lead dense layer and one MoE layer) on the card and on
-  the CPU.
+  the CPU;
+- the zamba2-1.2b hybrid at its published width (38 Mamba2 layers, d
+  2048, 64 SSD heads, one shared attention block after every 6 layers,
+  bf16, 1.1 B random weights drawn on the card from a seed): its
+  full-sequence forward and loss on a (2, 1024) token batch, whose
+  Mamba2 scans run in ``mamba_chunk_scan``, and dense-tier serving, whose
+  prompts are fed token by token through the decode step; then a 6-layer
+  fp32 cut (one shared block) on the card and on the CPU.
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -35,6 +42,7 @@ without CUDA, outside a checkout of the repo, or when a phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -90,6 +98,37 @@ MOE_ARCH = "deepseek-v2-lite-16b"
 #: topk_router against its plain version: tests/test_kernels.py's weight
 #: tolerance, and indices identical
 ROUTER_TOL = 1e-6
+#: the hybrid slice: zamba2-1.2b at full width.  Its weight count is
+#: the JAX tree's (``param_count()`` is coarse for the hybrid); the
+#: forward scores 2 sequences of 1024 tokens (8 chunks of 128 a layer)
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_PARAMS = 1_104_937_856
+HYBRID_BATCH = (2, 1024)
+#: mamba_chunk_scan against its plain version: tests/test_kernels.py's
+#: 5e-4 for fp32 and bf16's 3e-2 for y.  The fp32 state takes 5e-4 from
+#: bf16 inputs too: kernel and plain version read the same bf16 values
+#: and do fp32 arithmetic, so only the order of fp32 sums differs.
+SCAN_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+SCAN_STATE_TOL = 5e-4
+#: the hybrid's parity cut: full width, 6 layers (one complete segment,
+#: so the shared block runs once), fp32, a (2, 256) batch (2 chunks);
+#: stepwise decode against the forward within
+#: tests/test_decode_consistency.py's 2e-3, and the card's forward
+#: against the CPU's within the same 2e-3, not the LM cuts' 1e-3: the
+#: phase also reports each side's distance from an fp64 forward of the
+#: same code, and on an H100 the card's fp32 logits lie about 1.1e-3 from
+#: it (the plain scan in place of the kernel does no better), the CPU's
+#: about 4e-4, so fp32 on the card does not reach 1e-3 on this cut
+HYBRID_PARITY_LAYERS = 6
+HYBRID_PARITY_SEQ = 256
+HYBRID_PARITY_LOGIT_TOL = 2e-3
+DECODE_TOL = 2e-3
+#: the hybrid admits a prompt token by token, one ~40-layer decode step
+#: each, so its measure() probes with 16-token prompts and its profile
+#: admits 8-token prompts (a step's cost does not depend on the prompt)
+HYBRID_MEASURE = dict(prompt_len=16, decode_steps=8,
+                      occupancy_levels=(1, 4, 8))
+HYBRID_PROFILE_PROMPT = 8
 #: served trees at full width: leaf -> shape
 FULL_WIDTH = {
     LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
@@ -100,6 +139,12 @@ FULL_WIDTH = {
                ("layers", "moe", "router"): (26, 2048, 64),
                ("layers", "moe", "wi_gate"): (26, 64, 2048, 1408),
                ("layers", "moe", "shared", "wi_gate"): (26, 2048, 2816)},
+    HYBRID_ARCH: {("mamba_layers", "mamba", "in_proj"): (38, 2048, 8384),
+                  ("mamba_layers", "mamba", "conv_w"): (38, 4, 4224),
+                  ("mamba_layers", "mamba", "A_log"): (38, 64),
+                  ("mamba_layers", "mamba", "out_proj"): (38, 4096, 2048),
+                  ("shared", "attn", "wq"): (2048, 32, 64),
+                  ("shared", "mlp", "wi_gate"): (2048, 8192)},
 }
 
 
@@ -652,7 +697,7 @@ def phase_slice(torch):
             "fedavg_reduce": 1 + 2 * len(np.unique(CLUSTER_IDS)) + 1,
             "flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "paged_mla_decode_attention": 0,
-            "topk_router": 0}
+            "topk_router": 0, "mamba_chunk_scan": 0}
     checks = {
         "full_width": (rep.cfg.model.rnn_hidden == 128
                        and tuple(rep.params["gru"]["1"]["w_h"].shape)
@@ -718,10 +763,13 @@ def phase_profile(torch, pool, measured, batches: int = 20):
 def count_calls(engine, counts) -> None:
     """Count the engine's admissions and decode steps as the main path
     makes them (``generate`` and ``measure`` call both through the
-    instance), independently of the kernels' launch counters."""
+    instance), independently of the kernels' launch counters; with a
+    ``prompt_tokens`` key, also the admitted prompts' tokens."""
     for name in ("admit", "decode"):
         def counted(*args, _fn=getattr(engine, name), _name=name, **kw):
             counts[_name] += 1
+            if _name == "admit" and "prompt_tokens" in counts:
+                counts["prompt_tokens"] += len(args[0])
             return _fn(*args, **kw)
         setattr(engine, name, counted)
 
@@ -755,7 +803,8 @@ def expected_lm_launches(m, calls):
             "decode_attention": 0 if mla else L * dense,
             "paged_decode_attention": 0 if mla else L * paged,
             "paged_mla_decode_attention": L * paged if mla else 0,
-            "topk_router": moe_layers * (admits + dense + paged)}
+            "topk_router": moe_layers * (admits + dense + paged),
+            "mamba_chunk_scan": 0}
 
 
 def phase_lm(torch, arch, phase):
@@ -885,39 +934,50 @@ def phase_lm(torch, arch, phase):
     return launches, dense, paged, batches
 
 
-def phase_lm_profile(torch, dense, paged, batches, phase):
-    """One decode step per LM tier with every row admitted: device time
-    by kernel (``torch.profiler``) against the step's wall time."""
+def profile_once(torch, fn, top: int = 8):
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
+    device time by kernel and the share of the wall time the device was
+    idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {e.key[:80]: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    dev_ms = sum(kernels.values())
+    return {"wall_ms": wall_ms, "device_ms": dev_ms or None,
+            "device_idle_share": (1.0 - dev_ms / wall_ms
+                                  if dev_ms else None),
+            "kernels_ms": dict(sorted(kernels.items(),
+                                      key=lambda kv: -kv[1])[:top])}
+
+
+def profile_decode_steps(torch, pools, batches):
+    """One decode step per LM tier with every row admitted: device time
+    by kernel (``torch.profiler``) against the step's wall time."""
     out = {}
-    for kind, pool in (("dense", dense), ("paged", paged)):
+    for kind, pool in pools.items():
         for tier in pool.tiers:
             eng = pool.engine(tier)
             for prompt in batches[tier][0][:eng.batch_size]:
                 eng.admit(prompt, slot=eng.acquire_slot(),
                           reserve_tokens=LM_STEPS)
             eng.decode()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                eng.decode()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
+            out[f"{kind}/{tier}"] = {"rows": eng.batch_size,
+                                     **profile_once(torch, eng.decode)}
             eng.drain()
-            kernels = {e.key[:80]: e.self_device_time_total / 1e3
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA}
-            dev_ms = sum(kernels.values())
-            out[f"{kind}/{tier}"] = {
-                "rows": eng.batch_size, "wall_ms": wall_ms,
-                "device_ms": dev_ms or None,
-                "device_idle_share": (1.0 - dev_ms / wall_ms
-                                      if dev_ms else None),
-                "kernels_ms": dict(sorted(kernels.items(),
-                                          key=lambda kv: -kv[1])[:8])}
-    emit({"phase": phase, "per_decode_step": out})
+    return out
+
+
+def phase_lm_profile(torch, dense, paged, batches, phase):
+    emit({"phase": phase, "per_decode_step": profile_decode_steps(
+        torch, {"dense": dense, "paged": paged}, batches)})
 
 
 def numpy_lm_params(rng, m):
@@ -1048,6 +1108,346 @@ def phase_lm_parity(torch, arch, phase, numpy_params):
                              f"{[k for k, v in checks.items() if not v]}")
 
 
+def check_mamba_scan(torch, rng, B, L, H, P, N, Q, dtype_name):
+    """mamba_chunk_scan at one shape: sweep-style inputs (normal x, B,
+    C; dt uniform in [0.01, 0.2); A in -[0.5, 2)), error of y and of the
+    final state against the plain version, times, and the bound of the
+    work: C.B^T once per batch and chunk (causal, Q(Q+1)/2 pairs), and
+    per head the causal scores . u, C . S and the B (x) u update."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    dtype = getattr(torch, dtype_name)
+    x = _randn(torch, rng, (B, L, H, P), dtype)
+    dt = torch.as_tensor(rng.uniform(0.01, 0.2, (B, L, H)),
+                         dtype=torch.float32, device=DEVICE)
+    A = torch.as_tensor(-rng.uniform(0.5, 2.0, H), dtype=torch.float32,
+                        device=DEVICE)
+    Bm, Cm = (_randn(torch, rng, (B, L, N), dtype) for _ in range(2))
+    y, st = ms.mamba_chunk_scan(x, dt, A, Bm, Cm, chunk=Q)
+    yr, sr = ref.mamba_chunk_scan_ref(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[dtype_name]
+    err = (y.float() - yr.float()).abs().max().item()
+    state_err = (st - sr).abs().max().item()
+    ok = bool(y.dtype == dtype and st.dtype == torch.float32
+              and torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol)
+              and torch.allclose(st, sr, atol=SCAN_STATE_TOL,
+                                 rtol=SCAN_STATE_TOL))
+    it = x.element_size()
+    nbytes = it * (2 * B * L * H * P + 2 * B * L * N) \
+        + 4 * (B * L * H + H + B * H * N * P)
+    pairs = Q * (Q + 1)          # 2 x the causal pairs of a chunk
+    flops = B * (L // Q) * (pairs * N + H * (pairs * P + 4 * Q * N * P))
+    bound_ms, bound_by = bound(nbytes, flops)
+    row = {"kernel": "mamba_chunk_scan", "shape": [B, L, H, P, N, Q],
+           "dtype": dtype_name, "max_abs_err": err, "tol": tol,
+           "state_max_abs_err": state_err, "state_tol": SCAN_STATE_TOL,
+           "ok": ok,
+           **timings(torch, lambda: ms.mamba_chunk_scan(x, dt, A, Bm, Cm,
+                                                        chunk=Q),
+                     lambda: ref.mamba_chunk_scan_ref(x, dt, A, Bm, Cm, Q),
+                     None, 50, 10),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": flops}
+    emit({"phase": "kernel_check", **row})
+    return row
+
+
+def phase_ssm_kernels(torch):
+    """mamba_chunk_scan at the zamba2-1.2b forward's shape in bf16 (B 2,
+    L 1024, 64 heads of P 64, N 64, chunk 128), then the sweep shapes
+    of tests/test_kernels.py in fp32."""
+    rng = np.random.default_rng(SEED + 9)
+    B, L = HYBRID_BATCH
+    rows = [check_mamba_scan(torch, rng, B, L, 64, 64, 64, 128, "bfloat16")]
+    rows += [check_mamba_scan(torch, rng, 2, *shape, "float32")
+             for shape in ((128, 4, 16, 8, 32), (64, 2, 32, 16, 64),
+                           (96, 8, 8, 8, 32))]
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"mamba_chunk_scan disagrees with its plain "
+                             f"version: {bad}")
+    return rows[0]
+
+
+def expected_hybrid_launches(m, forwards, prompt_tokens, steps):
+    """Per forward one mamba_chunk_scan per Mamba2 layer and one
+    flash_attention per complete segment; serving one decode_attention
+    per complete segment per prompt token (the recurrent prefill runs
+    the decode step) and per decode step, and no other kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.hybrid import _segments
+    shared = sum(complete for _, _, complete in _segments(m))
+    zero = {k: 0 for k in ops.launch_counts()}
+    return ({**zero, "mamba_chunk_scan": m.num_layers * forwards,
+             "flash_attention": shared * forwards},
+            {**zero, "decode_attention": shared * (prompt_tokens + steps)})
+
+
+def phase_hybrid(torch):
+    """The hybrid's main paths: zamba2-1.2b at full width in bf16,
+    weights drawn on the card from a seed, (a) forward and loss on a
+    (2, 1024) batch, (b) the dense tiers of ``lm_tiers`` serving request
+    batches, one failover and ``measure()``.  Launches are counted from
+    0 before (a) and read after (a) and after (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path
+    from repro_torch.routing import LatencyModel
+    from repro_torch.serving import ReplicaPool, lm_tiers
+
+    cfg = get_config(HYBRID_ARCH)
+    m = cfg.model
+    api = make_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(
+        torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = dict(flatten_with_path(params))
+    n_params = sum(x.numel() for x in leaves.values())
+    pool = ReplicaPool(full_width_tiers(lm_tiers(HYBRID_ARCH)),
+                       shared_params=params, device=DEVICE)
+    counts = {t: {"admit": 0, "decode": 0, "prompt_tokens": 0}
+              for t in pool.tiers}
+    for tier in pool.tiers:
+        count_calls(pool.engine(tier), counts[tier])
+    rng = np.random.default_rng(SEED + 10)
+    toks = torch.as_tensor(rng.integers(0, m.vocab_size, HYBRID_BATCH),
+                           device=DEVICE)
+    labels = torch.as_tensor(rng.integers(0, m.vocab_size, HYBRID_BATCH),
+                             device=DEVICE)
+    batches = {t: [rng.integers(0, m.vocab_size,
+                                (pool.specs[t].batch_size, LM_PROMPT))
+                   for _ in range(LM_BATCHES_PER_TIER)] for t in pool.tiers}
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, aux = api.forward(params, {"tokens": toks})
+        loss = api.loss(params, {"tokens": toks, "labels": labels})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    after_forward = ops.launch_counts()
+    t0 = time.perf_counter()
+    outs = {t: [pool.dispatch(t, b, steps=LM_STEPS) for b in bs]
+            for t, bs in batches.items()}
+    pool.mark_down("edge")
+    before = (pool.failovers, counts["edge"]["admit"],
+              counts["cloud"]["admit"])
+    failover_out = pool.dispatch("edge", batches["edge"][0], steps=LM_STEPS)
+    failovers = pool.failovers - before[0]
+    served_by_cloud = (counts["edge"]["admit"] == before[1]
+                       and counts["cloud"]["admit"] - before[2]
+                       == len(batches["edge"][0]))
+    pool.mark_up("edge")
+    measured = pool.measure(**HYBRID_MEASURE)
+    torch.cuda.synchronize()
+    serving_s = time.perf_counter() - t0
+    total = ops.launch_counts()
+    serving = {k: total[k] - after_forward[k] for k in total}
+
+    lat = LatencyModel.from_measurements(measured, decode_tokens=LM_STEPS)
+    calls = {c: sum(v[c] for v in counts.values())
+             for c in ("admit", "decode", "prompt_tokens")}
+    want_forward, want_serving = expected_hybrid_launches(
+        m, 2, calls["prompt_tokens"], calls["decode"])
+    all_out = [o for os_ in outs.values() for o in os_]
+    fp32_leaves = {k[-1] for k, x in leaves.items()
+                   if x.dtype == torch.float32}
+    checks = {
+        "full_width": (m.d_model == 2048 and m.num_layers == 38
+                       and all(tuple(leaves[k].shape) == v
+                               for k, v in FULL_WIDTH[HYBRID_ARCH].items())
+                       and params["embed"]["table"].dtype == torch.bfloat16
+                       and fp32_leaves == {"A_log", "D", "dt_bias"}
+                       and n_params == HYBRID_PARAMS),
+        "forward_finite": bool(logits.isfinite().all()
+                               and loss.isfinite().all()),
+        "forward_shape": (tuple(logits.shape) == HYBRID_BATCH
+                          + (m.padded_vocab,)
+                          and logits.dtype == torch.bfloat16
+                          and float(aux) == 0.0),
+        "shapes": all(tuple(o.shape) == (pool.specs[t].batch_size, LM_STEPS)
+                      for t, os_ in outs.items() for o in os_),
+        "token_ids": all(bool(((o >= 0) & (o < m.vocab_size)).all())
+                         for o in all_out + [failover_out]),
+        "failover_to_cloud": (failovers == 1 and served_by_cloud
+                              and torch.equal(failover_out[:, 0],
+                                              outs["edge"][0][:, 0])),
+        "latency_model": all(np.isfinite(lat.infer_ms(t))
+                             and lat.infer_ms(t) > 0 for t in pool.tiers),
+        "forward_launches": after_forward == want_forward,
+        "serving_launches": serving == want_serving
+        and serving["decode_attention"] > 0,
+    }
+    emit({"phase": "hybrid_slice", "arch": HYBRID_ARCH, "params": n_params,
+          "config_param_count": m.param_count(), "layers": m.num_layers,
+          "d_model": m.d_model, "init_seconds": init_s,
+          "forward_seconds": forward_s, "serving_seconds": serving_s,
+          "loss": float(loss), "engine_calls": counts,
+          "launches": total, "forward_launches": after_forward,
+          "expected_forward_launches": want_forward,
+          "serving_launches": serving,
+          "expected_serving_launches": want_serving,
+          "measured": {t: dataclasses.asdict(mm)
+                       for t, mm in measured.items()},
+          "calibrated_infer_ms": {t: lat.infer_ms(t) for t in pool.tiers},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"hybrid_slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return total, pool, batches, params, toks
+
+
+def phase_hybrid_profile(torch, pool, batches, params, toks):
+    """One decode step per dense tier with every row admitted (8-token
+    prompts), and one forward of the (2, 1024) batch: device ms by kernel
+    and idle share."""
+    from repro_torch.models import make_model
+    api = make_model(pool.engine("device").cfg)
+
+    def forward():
+        with torch.no_grad():
+            api.forward(params, {"tokens": toks})
+
+    forward()
+    short = {t: [b[:, :HYBRID_PROFILE_PROMPT] for b in bs]
+             for t, bs in batches.items()}
+    emit({"phase": "hybrid_profile",
+          "per_decode_step": profile_decode_steps(torch, {"dense": pool},
+                                                  short),
+          "forward": {"batch": list(HYBRID_BATCH),
+                      **profile_once(torch, forward)}})
+
+
+def numpy_hybrid_params(rng, m):
+    """zamba2 weights in the JAX package's tree and statistics
+    (``ParamBuilder``: embedding normal 0.02, fan-in normal elsewhere,
+    RMS norm scales 1, conv bias 0), drawn with numpy; A_log, dt_bias
+    and D are drawn away from their 0 / 0 / 1 init so every head's decay
+    and skip differ."""
+    a, s, L, d, f, V = (m.attention, m.ssm, m.num_layers, m.d_model,
+                        m.d_ff, m.padded_vocab)
+    H, Hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
+    d_in = d * s.expand
+    Hs = d_in // s.head_dim
+    ch = d_in + 2 * s.ngroups * s.state_dim
+    e = 2 * d_in + 2 * s.ngroups * s.state_dim + Hs
+
+    def draw(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    return {"embed": {"table": draw((V, d), 0.02)},
+            "final_norm": {"scale": ones(d)},
+            "mamba_layers": {
+                "ln": {"scale": ones(L, d)},
+                "mamba": {"in_proj": draw((L, d, e), d ** -0.5),
+                          "conv_w": draw((L, s.conv_width, ch),
+                                         s.conv_width ** -0.5),
+                          "conv_b": np.zeros((L, ch), np.float32),
+                          "A_log": draw((L, Hs), 0.5),
+                          "D": 1.0 + draw((L, Hs), 0.2),
+                          "dt_bias": draw((L, Hs), 0.5),
+                          "norm_scale": ones(L, d_in),
+                          "out_proj": draw((L, d_in, d), d_in ** -0.5)}},
+            "shared": {"ln1": {"scale": ones(d)}, "ln2": {"scale": ones(d)},
+                       "attn": {"wq": draw((d, H, hd), H ** -0.5),
+                                "wk": draw((d, Hkv, hd), Hkv ** -0.5),
+                                "wv": draw((d, Hkv, hd), Hkv ** -0.5),
+                                "wo": draw((H, hd, d), hd ** -0.5)},
+                       "mlp": {"wi_gate": draw((d, f), d ** -0.5),
+                               "wi_up": draw((d, f), d ** -0.5),
+                               "wo": draw((f, d), f ** -0.5)}}}
+
+
+@contextlib.contextmanager
+def fp64_upcasts(torch):
+    """The port takes norms, activations and the SSD scan in fp32 through
+    ``Tensor.float()``; inside this block that returns fp64, so fp64
+    weights on the CPU run the same code in fp64: the reference the
+    parity phase measures both fp32 forwards against."""
+    orig = torch.Tensor.float
+    torch.Tensor.float = lambda self: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+def phase_hybrid_parity(torch):
+    """Full-width zamba2 cut to 6 layers (one complete segment), fp32,
+    numpy weights: the forward on the card (kernels) against the CPU
+    (plain versions), stepwise decode on the card against the card's
+    forward, and the dense engine's greedy tokens on both; each forward's
+    distance from an fp64 forward of the same code is reported."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.params import from_numpy_tree, tree_map
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(HYBRID_ARCH)
+    m = dataclasses.replace(cfg.model, num_layers=HYBRID_PARITY_LAYERS,
+                            dtype="float32", param_dtype="float32")
+    pcfg = dataclasses.replace(cfg, model=m)
+    rng = np.random.default_rng(SEED + 11)
+    tree = numpy_hybrid_params(rng, m)
+    toks = rng.integers(0, m.vocab_size, (2, HYBRID_PARITY_SEQ))
+    prompts = rng.integers(0, m.vocab_size, (2, LM_PROMPT))
+    api = make_model(pcfg)
+    logits, tokens = {}, {}
+    with torch.no_grad():
+        for dev in (DEVICE, "cpu"):
+            params = from_numpy_tree(tree, dev)
+            logits[dev] = api.forward(params, {"tokens": torch.as_tensor(
+                toks, device=dev)})[0].cpu()
+            tokens[dev] = ServeEngine(pcfg, params, batch_size=2,
+                                      max_len=256,
+                                      device=dev).generate(prompts,
+                                                           LM_STEPS).cpu()
+            if dev == DEVICE:
+                cache = api.init_cache(2, HYBRID_PARITY_SEQ, device=dev)
+                t_dev = torch.as_tensor(toks, device=dev)
+                steps = []
+                for t in range(HYBRID_PARITY_SEQ):
+                    lg, cache = api.decode_step(params, t_dev[:, t:t + 1],
+                                                torch.tensor(t, device=dev),
+                                                cache)
+                    steps.append(lg[:, 0].cpu())
+                stepwise = torch.stack(steps, 1)
+            del params
+        p64 = tree_map(lambda a: torch.as_tensor(a, dtype=torch.float64),
+                       tree)
+        with fp64_upcasts(torch):
+            exact = api.forward(p64, {"tokens": torch.as_tensor(toks)})[0]
+        del p64
+    err = (logits[DEVICE] - logits["cpu"]).abs().max().item()
+    decode_err = (stepwise - logits[DEVICE]).abs().max().item()
+    checks = {"forward_logits_match_cpu": err <= HYBRID_PARITY_LOGIT_TOL,
+              "decode_matches_forward": bool(torch.allclose(
+                  stepwise, logits[DEVICE], atol=DECODE_TOL,
+                  rtol=DECODE_TOL)),
+              "tokens_match_cpu": torch.equal(tokens[DEVICE],
+                                              tokens["cpu"])}
+    emit({"phase": "hybrid_parity", "arch": HYBRID_ARCH,
+          "layers": m.num_layers, "d_model": m.d_model, "dtype": m.dtype,
+          "seq": HYBRID_PARITY_SEQ, "forward_logits_max_abs_err": err,
+          "fp64_max_abs_err": {d: (v.double() - exact).abs().max().item()
+                               for d, v in logits.items()},
+          "tol": HYBRID_PARITY_LOGIT_TOL, "decode_max_abs_err": decode_err,
+          "decode_tol": DECODE_TOL,
+          "tokens": {d: v.tolist() for d, v in tokens.items()},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"hybrid_parity checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1081,6 +1481,7 @@ def main() -> int:
         return 1
 
     phase = "device"
+    t_start = time.perf_counter()
     try:
         smi = phase_device(torch)
         phase = "build"
@@ -1117,6 +1518,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "moe_parity"
         phase_lm_parity(torch, MOE_ARCH, phase, numpy_moe_params)
+        phase = "ssm_kernels"
+        ssm_row = phase_ssm_kernels(torch)
+        phase = "hybrid_slice"
+        hybrid_launches, pool, batches, params, toks = phase_hybrid(torch)
+        phase = "hybrid_profile"
+        phase_hybrid_profile(torch, pool, batches, params, toks)
+        del pool, params, toks
+        torch.cuda.empty_cache()
+        phase = "hybrid_parity"
+        phase_hybrid_parity(torch)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
@@ -1124,10 +1535,11 @@ def main() -> int:
 
     # each main path's launches, counted from 0 just before it ran
     paths = {"slice": launches, "lm_slice": lm_launches,
-             "moe_slice": moe_launches}
+             "moe_slice": moe_launches, "hybrid_slice": hybrid_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     csrc = "src/repro_torch/kernels/csrc"
     emit({"phase": "launches", "by_path": paths, "total": total,
+          "seconds": time.perf_counter() - t_start,
           "flash_attention_mla": kernel_entry(
               "flash_attention", f"{csrc}/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
@@ -1154,6 +1566,9 @@ def main() -> int:
         kernel_entry("topk_router", f"{csrc}/topk_router.cu",
                      "src/repro/kernels/topk_router.py:32",
                      total["topk_router"], moe_rows["topk_router"]),
+        kernel_entry("mamba_chunk_scan", f"{csrc}/mamba_chunk_scan.cu",
+                     "src/repro/kernels/mamba_scan.py:66",
+                     total["mamba_chunk_scan"], ssm_row),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Registry of the configurations the port can run so far.
 
 The paper's own GRU, the dense transformer the LM tiers serve by
-default, and the MoE transformers (deepseek-v2-lite with MLA, qwen2-moe
-with GQA) are ported; every other architecture of
-``repro/configs/registry.py`` waits for its slice (ROADMAP.md)."""
+default, the MoE transformers (deepseek-v2-lite with MLA, qwen2-moe
+with GQA) and the Mamba2 + shared-attention hybrid (zamba2) are ported;
+every other architecture of ``repro/configs/registry.py`` waits for its
+slice (ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +16,7 @@ _MODULES = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1p6b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
 }
 
 

@@ -3,7 +3,8 @@
 // paged_mla_decode_attention.cu): element conversion, warp reductions,
 // the online-softmax fold of one 32-key chunk, and the opt-in to more than
 // 48 KB of dynamic shared memory.  topk_router.cu uses the warp
-// reductions and the opt-in.
+// reductions and the opt-in, mamba_chunk_scan.cu the element conversion
+// and the opt-in.
 //
 // Every kernel computes in fp32 whatever its input type (fp32 or bf16),
 // masks with -1e30 as the JAX kernels do, and clamps the softmax

@@ -1,5 +1,5 @@
 """Public wrappers of the port's kernels, the counterpart of
-``repro/kernels/ops.py`` for the kernels ported so far.
+``repro/kernels/ops.py``: every TPU kernel of the JAX package has one.
 
 Each wrapper counts its kernel launches in a plain integer
 (``gru_seq.launches``), so a run can show that its path went through
@@ -8,12 +8,14 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gru_cell import gru_seq
+from repro_torch.kernels.mamba_scan import mamba_chunk_scan
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_mla_decode_attention)
 from repro_torch.kernels.topk_router import topk_router
 
 KERNELS = (gru_seq, fedavg_reduce, flash_attention, decode_attention,
-           paged_decode_attention, paged_mla_decode_attention, topk_router)
+           paged_decode_attention, paged_mla_decode_attention, topk_router,
+           mamba_chunk_scan)
 
 
 def reset_launches() -> None:
@@ -26,5 +28,6 @@ def launch_counts() -> dict:
 
 
 __all__ = ["decode_attention", "fedavg_reduce", "flash_attention",
-           "gru_seq", "launch_counts", "paged_decode_attention",
-           "paged_mla_decode_attention", "reset_launches", "topk_router"]
+           "gru_seq", "launch_counts", "mamba_chunk_scan",
+           "paged_decode_attention", "paged_mla_decode_attention",
+           "reset_launches", "topk_router"]

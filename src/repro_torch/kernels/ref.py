@@ -154,3 +154,15 @@ def topk_router_ref(logits: torch.Tensor, k: int
         ids.append(i)
         cur = cur.scatter(-1, i, -1.0)
     return torch.cat(ws, dim=-1), torch.cat(ids, dim=-1).int()
+
+
+def mamba_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,L,H,P); dt (B,L,H) post-softplus; A (H,) negative; Bm/Cm
+    (B,L,N) (ngroups 1) -> (y (B,L,H,P) in x's dtype, final state
+    (B,H,N,P) fp32).  Delegates to the model's plain SSD scan with a
+    group axis of 1, as ``repro/kernels/ref.py`` delegates to the XLA
+    path."""
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, dt, A, Bm[:, :, None, :], Cm[:, :, None, :], chunk)

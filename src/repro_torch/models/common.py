@@ -82,3 +82,11 @@ class ParamInit:
             raise ValueError(f"duplicate param {path}")
         node[leaf] = val
         return val
+
+
+def layer_slice(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a parameter tree whose leaves carry a leading layer
+    axis, as views."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]

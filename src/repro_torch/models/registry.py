@@ -5,9 +5,12 @@ ported so far:
   - rnn (paper):   batch = {"windows": (B,T,1) f32, "targets": (B,1) f32}
   - dense, moe:    batch = {"tokens": (B,S) int, "labels": (B,S) int};
                    the moe family's loss adds the routers' aux loss
+  - hybrid:        the same batch; plain CE loss.  Like the JAX
+                   package's, it has no one-shot ``prefill`` and no paged
+                   entries: the serving engine prefills it token by token
+                   through ``decode_step``
 
-The ssm, hybrid, vlm and audio families wait for their slices
-(ROADMAP.md).
+The ssm, vlm and audio families wait for their slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import gru, transformer
+from repro_torch.models import gru, hybrid, transformer
 from repro_torch.models.common import to_dtype
 
 
@@ -73,11 +76,15 @@ def _rnn_api(cfg: ArchConfig) -> ModelApi:
     )
 
 
+def _cache_dtype(cfg: ArchConfig):
+    """The run's cache dtype, or None for the model's."""
+    return to_dtype(cfg.run.cache_dtype) if cfg.run.cache_dtype else None
+
+
 def _transformer_api(cfg: ArchConfig) -> ModelApi:
     m = cfg.model
     transformer.check_supported(m)
-    cache_dtype = to_dtype(cfg.run.cache_dtype) if cfg.run.cache_dtype \
-        else None
+    cache_dtype = _cache_dtype(cfg)
 
     def fwd(params, batch):
         return transformer.forward(params, m, batch["tokens"])
@@ -111,12 +118,40 @@ def _transformer_api(cfg: ArchConfig) -> ModelApi:
     )
 
 
+def _hybrid_api(cfg: ArchConfig) -> ModelApi:
+    m = cfg.model
+    cache_dtype = _cache_dtype(cfg)
+
+    def fwd(params, batch):
+        return hybrid.forward(params, m, batch["tokens"])
+
+    def loss(params, batch):
+        logits, _ = fwd(params, batch)
+        return cross_entropy_loss(logits, batch["labels"], m.vocab_size)
+
+    return ModelApi(
+        cfg=cfg,
+        init_params=lambda generator, device=None:
+            hybrid.init_params(generator, m, device),
+        forward=fwd,
+        loss=loss,
+        init_cache=lambda b, n, device=None: hybrid.init_cache(
+            m, b, n, dtype=cache_dtype, device=device),
+        # the dense engine asks every family for per-row MoE capacity; a
+        # hybrid has no MoE layer, so the flag changes nothing
+        decode_step=lambda params, tokens, pos, cache, moe_per_row=False:
+            hybrid.decode_step(params, m, tokens, pos, cache),
+    )
+
+
 def make_model(cfg: ArchConfig) -> ModelApi:
     family = cfg.model.family
     if family == "rnn":
         return _rnn_api(cfg)
     if family in ("dense", "moe"):
         return _transformer_api(cfg)
+    if family == "hybrid":
+        return _hybrid_api(cfg)
     raise NotImplementedError(
         f"family {family!r} is not ported to PyTorch yet; see ROADMAP.md "
         "for the order of slices")

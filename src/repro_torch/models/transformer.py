@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamInit, to_dtype
+from repro_torch.models.common import ParamInit, layer_slice, to_dtype
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        logits_from_hidden)
@@ -72,14 +72,6 @@ def _inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
         dim, a.rope_theta, a.rope_fraction)).to(device)
 
 
-def _stacked_layer(params: Params, i: int) -> Params:
-    def take(tree):
-        if isinstance(tree, dict):
-            return {k: take(v) for k, v in tree.items()}
-        return tree[i]
-    return take(params["layers"])
-
-
 def _at(cache, i: int):
     """Layer ``i`` of a stacked cache, as views (writes go through)."""
     return type(cache)(*(x[i] for x in cache))
@@ -93,7 +85,7 @@ def _layers(params: Params, cfg: ModelConfig, cache=None):
         yield (params["lead"][str(i)], False,
                None if cache is None else cache["lead"][str(i)])
     for i in range(cfg.num_layers - n_lead):
-        yield (_stacked_layer(params, i), cfg.moe is not None,
+        yield (layer_slice(params["layers"], i), cfg.moe is not None,
                None if cache is None else _at(cache["layers"], i))
 
 

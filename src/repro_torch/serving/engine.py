@@ -20,12 +20,16 @@ extends page by page and eviction reclaims them.  Its decode step is one
 program over all rows in JAX too, so there an MoE layer's capacity is
 pooled over the rows, free rows included.
 
+A family without a one-shot ``prefill`` (the zamba2 hybrid, whose state
+is recurrent) is admitted token by token through ``decode_step`` on the
+slot's batch-1 cache, as the JAX engine's scan over decode steps does;
+only :class:`ServeEngine` serves it (recurrent state is O(1) per
+sequence, so there is nothing to page).
+
 Caches are written in place (``models/attention.py``), so ``measure()``
 clones them before it admits its probe sequences and puts the clones
-back after: in-flight sequences resume where they were.  Recurrent
-families (the JAX engine's scan-over-decode prefill) are not ported yet
-(ROADMAP.md) and raise.  Both engines run on the GPU unless the caller
-passes ``device="cpu"``.
+back after: in-flight sequences resume where they were.  Both engines
+run on the GPU unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -79,11 +83,24 @@ def _restore(cache, saved) -> None:
 
 
 def _emptied(cache):
-    """A dense cache view reset in place to a fresh cache: positions -1
-    (empty slots), everything else 0."""
+    """A cache view (a ring :class:`~repro_torch.models.attention.KVCache`
+    or MLA cache, or an :class:`~repro_torch.models.ssm.SSMState`) reset
+    in place to a fresh cache: positions -1 (empty slots), everything
+    else 0 (a fresh SSM state is all zeros)."""
     for name, x in zip(cache._fields, cache):
         x.fill_(-1 if name == "pos" else 0)
     return cache
+
+
+#: top-level cache entries whose leaves carry a leading layer axis (the
+#: batch axis is then 1); the other entries are dicts of per-layer caches
+_STACKED = ("layers", "mamba")
+
+
+def _slot_view(cache, slot: int, axis: int):
+    """Batch row ``slot`` of every leaf (views: writes go through),
+    emptied as a fresh batch-1 cache is."""
+    return _emptied(type(cache)(*(x.narrow(axis, slot, 1) for x in cache)))
 
 
 def _argmax(logits: torch.Tensor) -> torch.Tensor:
@@ -223,26 +240,26 @@ class ServeEngine(_EngineBase):
     def __init__(self, cfg: ArchConfig, params: Any, batch_size: int,
                  max_len: Optional[int] = None, device: DeviceLike = None):
         self._setup(cfg, params, batch_size, max_len, device)
-        if self.api.prefill is None:
+        self.cache = self.api.init_cache(batch_size, self.max_len,
+                                         device=self.device)
+        if self.cache is None:
             raise ValueError(
                 f"{cfg.name}: family {cfg.model.family!r} has no decode "
                 "cache — serve it per-request via ReplicaPool instead")
-        self.cache = self.api.init_cache(batch_size, self.max_len,
-                                         device=self.device)
         self.pos = torch.zeros((batch_size,), dtype=torch.int64,
                                device=self.device)
         self.next_tok = torch.zeros((batch_size, 1), dtype=torch.int64,
                                     device=self.device)
 
     def _slot_cache(self, slot: int):
-        """Slot ``slot`` of every layer's cache (lead layers and the
-        stacked ones), as views, emptied as a fresh batch-1 cache is (the
-        JAX engine prefills a fresh template and inserts it)."""
-        layers = self.cache["layers"]
-        return {"lead": {k: _emptied(type(c)(*(x[slot:slot + 1] for x in c)))
-                         for k, c in self.cache["lead"].items()},
-                "layers": _emptied(type(layers)(
-                    *(x[:, slot:slot + 1] for x in layers)))}
+        """Slot ``slot`` of every layer's cache, as views, emptied as a
+        fresh batch-1 cache is (the JAX engine prefills a fresh template
+        and inserts it): the transformer's ``lead`` caches and stacked
+        ``layers``, the hybrid's stacked ``mamba`` states and ``shared``
+        rings."""
+        return {key: (_slot_view(c, slot, 1) if key in _STACKED else
+                      {k: _slot_view(ck, slot, 0) for k, ck in c.items()})
+                for key, c in self.cache.items()}
 
     # -- slot management ----------------------------------------------------
 
@@ -257,11 +274,29 @@ class ServeEngine(_EngineBase):
         """Prefill ``prompt`` (S,) into ``slot``; return the first greedy
         token.  ``reserve_tokens`` is accepted for signature parity with
         :class:`PagedServeEngine` (a dense slot always reserves
-        ``max_len``)."""
+        ``max_len``).
+
+        A family without ``prefill`` runs the prompt token by token
+        through ``decode_step`` on the slot's batch-1 cache and takes the
+        greedy token of position S-1.  The JAX engine scans the whole
+        padded bucket and keeps the cache of step t only where ``t <
+        length``, so its padded steps leave the cache as it was; the
+        port stops after the S-th token, with the same cache and token."""
         padded, S = self._padded(prompt)
-        logits, _ = self.api.prefill(self.params, padded,
-                                     self._slot_cache(slot), length=S)
-        first = _argmax(logits[:, S - 1])
+        cache = self._slot_cache(slot)
+        if self.api.prefill is None:
+            if S == 0:
+                raise ValueError("a recurrent prefill needs a prompt of at "
+                                 "least one token")
+            for t in range(S):
+                logits, _ = self.api.decode_step(
+                    self.params, padded[:, t:t + 1],
+                    torch.tensor(t, device=self.device), cache)
+            first = _argmax(logits[:, -1])
+        else:
+            logits, _ = self.api.prefill(self.params, padded, cache,
+                                         length=S)
+            first = _argmax(logits[:, S - 1])
         self.pos[slot] = S
         self.next_tok[slot, 0] = first[0]
         self._claim(slot)

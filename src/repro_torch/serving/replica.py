@@ -13,7 +13,10 @@ runs in the ``gru_seq`` CUDA kernel on the card.  The LM engines' prefill
 and decode attention run in the ``flash_attention``, ``decode_attention``
 and ``paged_decode_attention`` kernels (MLA models: ``flash_attention``
 and ``paged_mla_decode_attention``), and every MoE layer routes its
-tokens through ``topk_router``.
+tokens through ``topk_router``.  The zamba2 hybrid is served by dense
+engines only, its prompt fed token by token through the decode step, so
+its serving path runs ``decode_attention`` in the shared block and never
+the ``mamba_chunk_scan`` of its full-sequence forward.
 
 ``measure()`` produces the per-tier timings that
 ``LatencyModel.from_measurements`` turns into a calibrated latency model
@@ -79,8 +82,9 @@ DEFAULT_TIERS: Tuple[TierSpec, ...] = (
 def lm_tiers(arch: str = "xlstm-125m", max_len: int = 256,
              ) -> Tuple[TierSpec, ...]:
     """Tier layout for a token-decoding LM: dense engines with 1, 4 and 8
-    slots.  (The default arch is the JAX package's; xlstm is not ported
-    yet, so building its tiers raises.)"""
+    slots, for a transformer or the zamba2 hybrid.  (The default arch is
+    the JAX package's; xlstm is not ported yet, so building its tiers
+    raises.)"""
     return (TierSpec("device", arch=arch, batch_size=1, max_len=max_len),
             TierSpec("edge", arch=arch, batch_size=4, max_len=max_len),
             TierSpec("cloud", arch=arch, batch_size=8, max_len=max_len))
@@ -90,7 +94,8 @@ def paged_lm_tiers(arch: str = "stablelm-1.6b", max_len: int = 256,
                    page_size: int = 16) -> Tuple[TierSpec, ...]:
     """Paged tier layout: each tier keeps the page budget a dense tier of
     :func:`lm_tiers` would hold but admits by actual token footprint, so
-    it runs 4, 16 and 32 rows."""
+    it runs 4, 16 and 32 rows.  Transformer families only: building a
+    tier of a recurrent or hybrid arch (zamba2) raises, as in JAX."""
     pages_dense = -(-max_len // page_size)
     return tuple(TierSpec(t, arch=arch, batch_size=b, max_len=max_len,
                           paged=True, page_size=page_size,

@@ -80,6 +80,66 @@ def test_deepseek_config_is_the_published_shape():
             r.attention.mla.kv_lora_rank) == (2, 256, 4, 2, 32)
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+def test_zamba2_config_is_the_same(reduced):
+    j, t = jax_get_config("zamba2-1.2b"), get_config("zamba2-1.2b")
+    if reduced:
+        j, t = j.reduced(), t.reduced()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.param_count() == j.model.param_count()
+
+
+def test_zamba2_config_is_the_published_shape():
+    m = get_config("zamba2-1.2b").model
+    a, s = m.attention, m.ssm
+    assert (m.family, m.num_layers, m.d_model, m.d_ff, m.padded_vocab,
+            m.shared_attn_every, m.tie_embeddings) == \
+        ("hybrid", 38, 2048, 8192, 32_000, 6, True)
+    assert (a.kind, a.num_heads, a.num_kv_heads, a.head_dim, a.window) == \
+        ("full", 32, 32, 64, 4096)
+    assert (s.state_dim, s.head_dim, s.expand, s.conv_width, s.chunk,
+            s.ngroups) == (64, 64, 2, 4, 128, 1)
+    # the reduced variant the CPU tests run: ArchConfig.reduced() cuts
+    # ssm and shared_attn_every as the JAX one does
+    r = get_config("zamba2-1.2b").reduced().model
+    assert (r.num_layers, r.d_model, r.ssm.state_dim, r.ssm.head_dim,
+            r.ssm.chunk, r.shared_attn_every) == (2, 256, 16, 16, 32, 2)
+    assert (r.attention.num_heads, r.attention.num_kv_heads,
+            r.attention.head_dim, r.attention.window) == (4, 2, 32, 64)
+
+
+def _tree_size(tree) -> int:
+    from repro_torch.params import flatten_with_path
+    return sum(int(np.prod(x.shape)) for _, x in flatten_with_path(tree))
+
+
+def test_zamba2_tree_size():
+    """``param_count()`` is coarse for the hybrid: the JAX tree at full
+    width holds 1,104,937,856 weights (38 Mamba2 layers of 25,586,496,
+    the shared block's 67,112,960, the tied embedding and the final
+    norm), and the port's tree is the JAX tree leaf for leaf (the reduced
+    tree counted here; chip_smoke.py counts the full one on the card)."""
+    import jax
+    import torch
+    from repro.models import make_model as jax_make_model
+    from repro_torch.models import make_model
+
+    def jax_size(cfg):
+        shapes = jax.eval_shape(
+            lambda k: jax_make_model(cfg).init_params(k)[0],
+            jax.random.key(0))
+        return sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
+
+    full = jax_get_config("zamba2-1.2b")
+    assert jax_size(full) == 1_104_937_856
+    assert full.model.param_count() == 1_109_666_816
+    cfg = get_config("zamba2-1.2b").reduced()
+    tree = make_model(cfg).init_params(torch.Generator().manual_seed(0),
+                                       "cpu")
+    assert _tree_size(tree) == jax_size(jax_get_config("zamba2-1.2b")
+                                        .reduced())
+
+
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "deepseek-v2-lite-16b",
                                   "qwen2-moe-a2.7b"])
 def test_tree_counts_param_count_plus_norms(arch):

@@ -101,7 +101,8 @@ def test_cpu_calls_do_not_count_launches():
     assert ops.launch_counts() == {
         "gru_seq": 0, "fedavg_reduce": 0, "flash_attention": 0,
         "decode_attention": 0, "paged_decode_attention": 0,
-        "paged_mla_decode_attention": 0, "topk_router": 0}
+        "paged_mla_decode_attention": 0, "topk_router": 0,
+        "mamba_chunk_scan": 0}
 
 
 def test_wrappers_check_shapes_and_devices():
@@ -131,7 +132,8 @@ def test_every_kernel_source_is_built_and_bound():
     names = {p.name for p in build.sources()}
     assert names == {"gru_seq.cu", "fedavg_reduce.cu", "flash_attention.cu",
                      "decode_attention.cu", "paged_decode_attention.cu",
-                     "paged_mla_decode_attention.cu", "topk_router.cu"}
+                     "paged_mla_decode_attention.cu", "topk_router.cu",
+                     "mamba_chunk_scan.cu"}
     assert {p.name for p in build.headers()} == {"attention_common.cuh"}
     text = "".join(p.read_text() for p in build.sources())
     for entry in build.SIGNATURES:
@@ -140,6 +142,7 @@ def test_every_kernel_source_is_built_and_bound():
     assert "src/repro/kernels/gru_cell.py:gru_seq" in text
     assert "src/repro/kernels/fedavg_reduce.py:fedavg_reduce" in text
     assert "src/repro/kernels/topk_router.py:topk_router" in text
+    assert "src/repro/kernels/mamba_scan.py:mamba_chunk_scan" in text
     assert ("src/repro/kernels/paged_decode_attention.py:\n"
             "// paged_mla_decode_attention ") in text
     assert len(build.source_hash()) == 16
