@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, then drives two
-paths through the entry points a user calls:
+Builds the port's CUDA kernels from the sources in this checkout,
+reports what the attention kernels compiled to (tensor-core and 16-byte
+load instructions, registers, spills), holds each kernel against its
+plain PyTorch version on the card, then drives these paths through the
+entry points a user calls:
 
 - the paper's GRU replica-serving path at full width (2 layers, hidden
   128): flat, cluster and global FedAvg over 20 client replicas, a
@@ -46,10 +48,12 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -238,6 +242,87 @@ def phase_build():
     print(build.build_log(), file=sys.stderr, flush=True)
 
 
+#: kernel functions whose compiled code the sass phase reports: the
+#: decode kernel, flash's bf16 (tensor-core) and fp32 (CUDA-core) kernels
+SASS_KERNELS = ("decode_attention_kernel", "flash_attention_wgmma_kernel",
+                "flash_attention_kernel")
+#: opcodes the sass phase counts (``LDG.E.128``: 16-byte global loads)
+SASS_OPCODES = ("HGMMA", "HMMA", "LDG.E.128")
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel function, what ``ptxas -v`` said in a build ``log``:
+    registers a thread and bytes of spill stores and loads."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            fn = found.group(1)
+            report[fn] = {}
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if fn and spill:
+            report[fn].update(spill_stores=int(spill.group(1)),
+                              spill_loads=int(spill.group(2)))
+        if fn and regs:
+            report[fn]["registers"] = int(regs.group(1))
+    return report
+
+
+def sass_counts(text: str, opcodes=SASS_OPCODES) -> dict:
+    """Per kernel function of a ``cuobjdump -sass`` listing, how many
+    instructions have an opcode that is or starts with each of
+    ``opcodes``."""
+    counts, fn = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = dict.fromkeys(opcodes, 0)
+            continue
+        if fn is None or not line.startswith("/*") or "*/" not in line:
+            continue
+        words = line.split("*/", 1)[1].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if not words:
+            continue
+        for op in opcodes:
+            if words[0] == op or words[0].startswith(op + "."):
+                counts[fn][op] += 1
+    return counts
+
+
+def phase_sass():
+    """What the compiled attention kernels contain: per function (one per
+    template instance) the tensor-core and 16-byte-load instructions that
+    ``cuobjdump -sass`` lists, and registers and spills from ``ptxas
+    -v``.  Fails unless every bf16 flash instance has tensor-core
+    instructions and the vector decode instances load K/V in 16 bytes."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    listing = subprocess.run([str(cuobjdump), "-sass", str(build.build())],
+                             capture_output=True, text=True,
+                             check=True).stdout
+    sass, regs = sass_counts(listing), ptxas_report(build.build_log())
+    rows = {fn: {**sass[fn], **regs.get(fn, {})} for fn in sass
+            if any(k in fn for k in SASS_KERNELS)}
+    tc = [r for fn, r in rows.items() if "flash_attention_wgmma_kernel" in fn]
+    # template <typename T, bool kVec, ...>: the vector instances are Lb1E
+    vec = [r for fn, r in rows.items()
+           if "decode_attention_kernel" in fn and "Lb1E" in fn]
+    checks = {"flash_bf16_on_tensor_cores": bool(tc) and all(
+                  r["HGMMA"] > 0 for r in tc),
+              "decode_16_byte_loads": bool(vec) and all(
+                  r["LDG.E.128"] > 0 for r in vec)}
+    emit({"phase": "sass", "functions": rows, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"sass checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+
 def check_gru_seq(torch, rng, B, T, h):
     from repro_torch.kernels import gru_cell, ref
     dev = torch.device(DEVICE)
@@ -375,10 +460,15 @@ def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None):
     pairs = BH * int(allowed.sum())
     it = q.element_size()
 
+    # (1, BH, T, D) views: SDPA's fused backends take 4-d inputs only, and
+    # 3-d ones fall to its unfused math path
+    q4, k4, v4 = q[None], kx[None], vx[None]
+
     def library():
         if window > 0:
-            return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
-        return F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  attn_mask=mask)[0]
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0]
 
     shape = (BH, BHkv, T, D, window) + ((Dv,) if Dv != D else ())
     return check_attention(
@@ -389,21 +479,29 @@ def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None):
         pairs * 2 * (D + Dv))
 
 
-def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name):
+def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name,
+                 valid=None):
     """``n_valid`` (B,) leading valid slots per row, as a ring cache
-    holds them before it wraps; None: 80% of the slots at random."""
+    holds them before it wraps; None: 80% of the slots at random; or
+    ``valid``, a (B, C) bool mask as it is.  The bound counts each row's
+    valid slots (K and V, scores and P.V), and for a row with none only
+    the V of all C slots and its mean (every score is -1e30, so the
+    output does not depend on K)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
     q = _randn(torch, rng, (B, H, D), dtype)
     k, v = (_randn(torch, rng, (B, C, Hkv, D), dtype) for _ in range(2))
-    if n_valid is None:
+    if valid is not None:
+        valid = np.asarray(valid, bool)
+    elif n_valid is None:
         valid = rng.uniform(size=(B, C)) < 0.8
         valid[:, 0] = True
     else:
         valid = np.arange(C)[None, :] < np.asarray(n_valid)[:, None]
-    keys = int(valid.sum())
+    keys = int(valid.sum())   # rows with a valid slot: K and V read
+    mean_rows = int((~valid.any(1)).sum())   # rows with none: V read
     valid_t = torch.as_tensor(valid, device=DEVICE)
     it = q.element_size()
 
@@ -416,8 +514,8 @@ def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name):
         torch, "decode_attention", (B, H, Hkv, C, D), dtype_name,
         lambda: da.decode_attention(q, k, v, valid_t),
         lambda: ref.decode_attention_ref(q, k, v, valid_t), library,
-        it * (2 * B * H * D + 2 * keys * Hkv * D) + B * C,
-        keys * H * 4 * D)
+        it * (2 * B * H * D + (2 * keys + mean_rows * C) * Hkv * D) + B * C,
+        (keys * 4 + mean_rows * C * 2) * H * D)
 
 
 def check_paged(torch, rng, B, H, Hkv, ps, Pseq, D, lengths, num_pages,
@@ -465,6 +563,10 @@ def phase_attention_kernels(torch):
         rows.append(check_decode(torch, rng, B, 32, 32, 256, 64, lens(B),
                                  "bfloat16"))
     main["decode_attention"] = rows[-1]
+    # every slot valid: masked slots are not read, so this row's time is
+    # the one to set beside the 57-64-valid row's
+    rows.append(check_decode(torch, rng, 8, 32, 32, 256, 64, [256] * 8,
+                             "bfloat16"))
     for B, pages in ((4, 16), (16, 64), (32, 128)):
         rows.append(check_paged(torch, rng, B, 32, 32, 16, 16, 64, lens(B),
                                 pages, 0.0, None, "bfloat16"))
@@ -478,6 +580,17 @@ def phase_attention_kernels(torch):
                                         dt))
         for H, Hkv, C in ((8, 2, 256), (4, 4, 128), (16, 2, 512)):
             rows.append(check_decode(torch, rng, 2, H, Hkv, C, 64, None, dt))
+        # a row with no valid slot (the mean of every slot's V) and a row
+        # whose only valid slot is the last
+        edge = np.zeros((2, 256), bool)
+        edge[1, -1] = True
+        for H, Hkv in ((8, 2), (32, 32)):
+            rows.append(check_decode(torch, rng, 2, H, Hkv, 256, 64, None, dt,
+                                     valid=edge))
+        # head dims that are no multiple of 16 (zero-padded on the tensor
+        # cores in bf16)
+        for window in (0, 64):
+            rows.append(check_flash(torch, rng, 2, 2, 100, 40, window, dt))
         for H, Hkv, ps, Pseq in ((8, 2, 16, 4), (4, 4, 8, 6)):
             for cap, window in ((0.0, None), (30.0, None), (0.0, 20)):
                 rows.append(check_paged(
@@ -1156,18 +1269,22 @@ def check_mamba_scan(torch, rng, B, L, H, P, N, Q, dtype_name):
 def phase_ssm_kernels(torch):
     """mamba_chunk_scan at the zamba2-1.2b forward's shape in bf16 (B 2,
     L 1024, 64 heads of P 64, N 64, chunk 128), then the sweep shapes
-    of tests/test_kernels.py in fp32."""
+    of tests/test_kernels.py in fp32; then flash_attention at the
+    forward's shape (BH 64, T 1024, D 64, bf16)."""
     rng = np.random.default_rng(SEED + 9)
     B, L = HYBRID_BATCH
     rows = [check_mamba_scan(torch, rng, B, L, 64, 64, 64, 128, "bfloat16")]
     rows += [check_mamba_scan(torch, rng, 2, *shape, "float32")
              for shape in ((128, 4, 16, 8, 32), (64, 2, 32, 16, 64),
                            (96, 8, 8, 8, 32))]
-    bad = [r for r in rows if not r["ok"]]
+    # the forward's shared attention: 2 x 32 heads of 64 over 1024 tokens
+    # (window 4096 > T, so none)
+    flash = check_flash(torch, rng, B * 32, B * 32, L, 64, 0, "bfloat16")
+    bad = [r for r in rows + [flash] if not r["ok"]]
     if bad:
-        raise AssertionError(f"mamba_chunk_scan disagrees with its plain "
-                             f"version: {bad}")
-    return rows[0]
+        raise AssertionError(f"hybrid forward kernels disagree with their "
+                             f"plain versions: {bad}")
+    return rows[0], flash
 
 
 def expected_hybrid_launches(m, forwards, prompt_tokens, steps):
@@ -1486,6 +1603,8 @@ def main() -> int:
         smi = phase_device(torch)
         phase = "build"
         phase_build()
+        phase = "sass"
+        phase_sass()
         from repro_torch.configs import get_config
         one = numpy_clients(np.random.default_rng(SEED),
                             get_config("gru-traffic").model, 1)
@@ -1519,7 +1638,7 @@ def main() -> int:
         phase = "moe_parity"
         phase_lm_parity(torch, MOE_ARCH, phase, numpy_moe_params)
         phase = "ssm_kernels"
-        ssm_row = phase_ssm_kernels(torch)
+        ssm_row, hybrid_flash_row = phase_ssm_kernels(torch)
         phase = "hybrid_slice"
         hybrid_launches, pool, batches, params, toks = phase_hybrid(torch)
         phase = "hybrid_profile"
@@ -1543,7 +1662,11 @@ def main() -> int:
           "flash_attention_mla": kernel_entry(
               "flash_attention", f"{csrc}/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
-              moe_launches["flash_attention"], moe_rows["flash_attention"])})
+              moe_launches["flash_attention"], moe_rows["flash_attention"]),
+          "flash_attention_hybrid": kernel_entry(
+              "flash_attention", f"{csrc}/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              hybrid_launches["flash_attention"], hybrid_flash_row)})
     print(smi, flush=True)
     emit({"kernels": [
         kernel_entry("gru_seq", f"{csrc}/gru_seq.cu",

@@ -1,8 +1,10 @@
 // Pieces shared by the port's attention kernels (flash_attention.cu,
 // decode_attention.cu, paged_decode_attention.cu,
 // paged_mla_decode_attention.cu): element conversion, warp reductions,
-// the online-softmax fold of one 32-key chunk, and the opt-in to more than
-// 48 KB of dynamic shared memory.  topk_router.cu uses the warp
+// the online-softmax fold of one 32-key chunk (the paged kernels and
+// flash's fp32 entry), register-held row pieces loaded as 16-byte vectors
+// (decode_attention.cu), and the opt-in to more than 48 KB of dynamic
+// shared memory.  topk_router.cu uses the warp
 // reductions and the opt-in, mamba_chunk_scan.cu the element conversion
 // and the opt-in.
 //
@@ -14,6 +16,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace attn {
 
@@ -116,12 +120,57 @@ __device__ __forceinline__ void stage_chunk(float* dst, int width, int stride,
   }
 }
 
-// Per-head state of the decode kernels: up to kMaxGroup query heads of
-// one kv head share every K/V chunk a warp stages.
+// Register-held row pieces (decode_attention.cu): a lane loads kEpl
+// consecutive elements of a K or V row at once, as one 16-byte vector
+// (`uint4`, 8 bf16 or 4 fp32) when rows allow it, else one element.
+template <typename T, bool kVec>
+struct RowPiece {
+  static constexpr int kEpl = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  using Raw = typename std::conditional<kVec, uint4, T>::type;
+
+  __device__ __forceinline__ static Raw load(const T* p) {
+    if constexpr (kVec) {
+      return __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      return p[0];
+    }
+  }
+  __device__ __forceinline__ static Raw zero() {
+    if constexpr (kVec) {
+      return make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      return from_float<T>(0.0f);
+    }
+  }
+  // element i < kEpl of the piece, widened to fp32
+  __device__ __forceinline__ static float get(const Raw& r, int i) {
+    if constexpr (!kVec) {
+      return to_float(r);
+    } else if constexpr (sizeof(T) == 4) {
+      const unsigned w[4] = {r.x, r.y, r.z, r.w};
+      return __uint_as_float(w[i]);
+    } else {
+      const unsigned w[4] = {r.x, r.y, r.z, r.w};
+      const unsigned half = (i & 1) ? (w[i >> 1] >> 16) : (w[i >> 1] & 0xffffu);
+      return __uint_as_float(half << 16);  // bf16 -> fp32 is a shift
+    }
+  }
+};
+
+// Sum over the `kLanes` consecutive lanes of a lane group (a power of 2).
+template <int kLanes>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Per-head state of the paged decode kernels: up to kMaxGroup query heads
+// of one kv head share every K/V chunk a warp stages.
 constexpr int kMaxGroup = 8;
 constexpr int kDecodeWarps = 4;
 
-// Shared memory of a decode block: the group's query rows (kMaxGroup, D)
+// Shared memory of a paged decode block: the group's query rows (kMaxGroup, D)
 // and, per warp, one staged chunk of K (32, D + 1) and V (32, Dv).  The
 // cross-warp merge reuses the chunk area.
 inline size_t decode_smem_floats(int D, int Dv) {

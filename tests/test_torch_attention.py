@@ -30,6 +30,14 @@ DTYPES = ["float32", "bfloat16"]
 FLASH = [(2, 2, 128, 64), (2, 2, 256, 32), (2, 2, 256, 128), (2, 2, 100, 64),
          (8, 4, 77, 32)]
 DECODE = [(8, 2, 256), (4, 4, 128), (16, 2, 512)]
+#: decode rows the kernel treats apart: no valid slot (the mean of every
+#: slot's V), only the last slot valid; at G = 1, 4, 8 and 16, and B = 1
+DECODE_EDGE = [(2, 4, 4, 256), (2, 8, 2, 256), (2, 16, 2, 256),
+               (2, 32, 2, 256), (1, 32, 32, 256), (3, 8, 2, 77)]
+#: flash shapes of the tensor-core kernel's edges: head dims no multiple
+#: of 16 (zero-padded), T below one 64-row tile, and the zamba2 forward's
+#: T 1024 (window 64 there crosses many tiles)
+FLASH_EDGE = [(2, 2, 100, 40), (4, 2, 8, 32), (2, 2, 8, 40)]
 PAGED = [(8, 2, 16, 4), (4, 4, 8, 6)]
 PAGED_OPTS = [(0.0, None), (30.0, None), (0.0, 20)]
 
@@ -66,6 +74,19 @@ def decode_inputs(H, Hkv, C, B=2, D=64, seed=0):
     valid[:, 0] = True                  # at least one valid slot
     return (_normal(r, (B, H, D)), _normal(r, (B, C, Hkv, D)),
             _normal(r, (B, C, Hkv, D)), valid)
+
+
+def edge_valid(B, C):
+    """Row b: no valid slot (b % 3 == 0), only slot C - 1 (b % 3 == 1), or
+    80% of the slots at random."""
+    r = np.random.default_rng(1)
+    valid = np.zeros((B, C), bool)
+    for b in range(B):
+        if b % 3 == 1:
+            valid[b, -1] = True
+        elif b % 3 == 2:
+            valid[b] = r.uniform(size=C) < 0.8
+    return valid
 
 
 def paged_inputs(H, Hkv, ps, Pseq, B=2, D=64, seed=0):
@@ -117,6 +138,40 @@ def test_decode_attention_plain_matches_jax(H, Hkv, C, dtype):
               jops.decode_attention(qj, kj, vj, jnp.asarray(valid),
                                     bk=min(128, C))):
         assert_allclose(_to_np(out), np.asarray(w, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("BH,BHkv,T,D", FLASH_EDGE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_plain_matches_jax_at_edge_shapes(BH, BHkv, T, D,
+                                                          dtype):
+    jnp, jops, jref = _jax()
+    q, k, v = flash_inputs(BH, BHkv, T, D)
+    out = flash_attention(*(_tensor(a, dtype) for a in (q, k, v)))
+    G = BH // BHkv
+    qj, kj, vj = (jnp.asarray(a, getattr(jnp, dtype))
+                  for a in (q, np.repeat(k, G, 0), np.repeat(v, G, 0)))
+    for w in (jref.flash_attention_ref(qj, kj, vj),
+              jops.flash_attention(qj, kj, vj, bq=T, bk=T)):
+        assert_allclose(_to_np(out), np.asarray(w, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,Hkv,C", DECODE_EDGE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_plain_matches_jax_on_edge_rows(B, H, Hkv, C, dtype):
+    """A row with no valid slot is the uniform mean of its V in the JAX
+    oracle and the Pallas kernel (every score -1e30), and so here."""
+    jnp, jops, jref = _jax()
+    q, k, v, _ = decode_inputs(H, Hkv, C, B=B)
+    valid = edge_valid(B, C)
+    out = decode_attention(*(_tensor(a, dtype) for a in (q, k, v)),
+                           torch.as_tensor(valid))
+    qj, kj, vj = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))
+    bk = 128 if C % 128 == 0 else C
+    for w in (jref.decode_attention_ref(qj, kj, vj, jnp.asarray(valid)),
+              jops.decode_attention(qj, kj, vj, jnp.asarray(valid), bk=bk)):
+        assert_allclose(_to_np(out), np.asarray(w, np.float32), **TOL[dtype])
+    mean_v = v[0].reshape(C, Hkv, 1, 64).mean(0).repeat(H // Hkv, 1)
+    assert_allclose(_to_np(out)[0], mean_v.reshape(H, 64), **TOL[dtype])
 
 
 @pytest.mark.parametrize("H,Hkv,ps,Pseq", PAGED)
@@ -208,7 +263,8 @@ def _launched_once(fn, kernel):
 #: 64-token bucket, head_dim 64) and of the reduced model (GQA 4/2)
 @pytest.mark.cuda
 @pytest.mark.parametrize("BH,BHkv,T,D", FLASH + [(32, 32, 64, 64),
-                                                 (4, 2, 8, 32)])
+                                                 (4, 2, 8, 32)]
+                         + FLASH_EDGE[::2] + [(8, 8, 1024, 64)])
 @pytest.mark.parametrize("window", [0, 64])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel_matches_plain(cuda_device, BH, BHkv, T, D,
@@ -232,6 +288,61 @@ def test_decode_attention_kernel_matches_plain(cuda_device, B, H, Hkv, C,
     q, k, v, valid = decode_inputs(H, Hkv, C, B=B)
     q, k, v = (_tensor(a, dtype, cuda_device) for a in (q, k, v))
     valid = torch.as_tensor(valid, device=cuda_device)
+    out = _launched_once(lambda: decode_attention(q, k, v, valid),
+                         decode_attention)
+    assert_allclose(_to_np(out), _to_np(ref.decode_attention_ref(q, k, v,
+                                                                 valid)),
+                    **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,BHkv,T,D,Dv", [(4, 2, 100, 64, 64),
+                                            (2, 2, 77, 40, 24),
+                                            (2, 1, 130, 192, 128)])
+@pytest.mark.parametrize("window", [0, 20])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_without_causal_mask(cuda_device, BH, BHkv, T,
+                                                    D, Dv, window, dtype):
+    r = np.random.default_rng(3)
+    q, k, v = (_tensor(_normal(r, s), dtype, cuda_device)
+               for s in ((BH, T, D), (BHkv, T, D), (BHkv, T, Dv)))
+    out = _launched_once(
+        lambda: flash_attention(q, k, v, causal=False, window=window),
+        flash_attention)
+    want = ref.flash_attention_ref(q, k, v, causal=False, window=window)
+    assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,C", DECODE_EDGE)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_on_edge_rows(cuda_device, B, H, Hkv, C,
+                                              dtype):
+    q, k, v, _ = decode_inputs(H, Hkv, C, B=B)
+    q, k, v = (_tensor(a, dtype, cuda_device) for a in (q, k, v))
+    valid = torch.as_tensor(edge_valid(B, C), device=cuda_device)
+    out = _launched_once(lambda: decode_attention(q, k, v, valid),
+                         decode_attention)
+    assert_allclose(_to_np(out), _to_np(ref.decode_attention_ref(q, k, v,
+                                                                 valid)),
+                    **TOL[dtype])
+
+
+#: head dims of the 16-byte loads (40, 96, 128) and of the one-element
+#: variant (33; 36 in bf16 only), with Dv apart from D
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", [(33, 33), (36, 36), (40, 40), (96, 96),
+                                  (128, 128), (64, 128), (128, 24)])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (16, 2)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_takes_head_dims(cuda_device, D, Dv, H, Hkv,
+                                                 dtype):
+    r = np.random.default_rng(4)
+    B, C = 3, 200
+    q = _tensor(_normal(r, (B, H, D)), dtype, cuda_device)
+    k = _tensor(_normal(r, (B, C, Hkv, D)), dtype, cuda_device)
+    v = _tensor(_normal(r, (B, C, Hkv, Dv)), dtype, cuda_device)
+    valid = torch.as_tensor(r.uniform(size=(B, C)) < 0.5, device=cuda_device)
     out = _launched_once(lambda: decode_attention(q, k, v, valid),
                          decode_attention)
     assert_allclose(_to_np(out), _to_np(ref.decode_attention_ref(q, k, v,

@@ -148,6 +148,47 @@ def test_every_kernel_source_is_built_and_bound():
     assert len(build.source_hash()) == 16
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` (the repo root's) as a module: its parsers of
+    the compiler's reports."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = ("== decode_attention.cu\n"
+           "ptxas info    : Compiling entry function '_Z1fPf' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1fPf\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'\n"
+           "ptxas info    : Used 32 registers\n")
+    assert _chip_smoke().ptxas_report(log) == {
+        "_Z1fPf": {"spill_stores": 8, "spill_loads": 4, "registers": 168},
+        "_Z1gv": {"registers": 32}}
+
+
+def test_sass_counts_reads_opcodes_per_function():
+    listing = (
+        "\t\tFunction : _Z3mmav\n"
+        "        /*0010*/  LDSM.16.M88.4 R4, [R2] ;\n"
+        "        /*0020*/  HMMA.16816.F32.BF16 R8, R4, R12, R8 ;\n"
+        "        /*0030*/  @P0 HMMA.16816.F32.BF16 R8, R4, R14, R8 ;\n"
+        "\t\tFunction : _Z3ldgv\n"
+        "        /*0010*/  @!P1 LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;\n"
+        "        /*0020*/  LDG.E.64 R8, desc[UR4][R2.64] ;\n"
+        "        /*0030*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;\n")
+    assert _chip_smoke().sass_counts(listing) == {
+        "_Z3mmav": {"HGMMA": 0, "HMMA": 2, "LDG.E.128": 0},
+        "_Z3ldgv": {"HGMMA": 1, "HMMA": 0, "LDG.E.128": 1}}
+
+
 # ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------

@@ -39,7 +39,8 @@ ROUTER_PATH = [(64, 64, 6), (32, 64, 6), (1, 64, 6)]
 MLA_PATH = [(1, 16, 512, 64, 16, 16), (4, 16, 512, 64, 16, 16),
             (32, 16, 512, 64, 16, 16)]
 #: flash at MLA prefill: 16 heads of the 64-token bucket, D 192, Dv 128
-FLASH_MLA = [(16, 64, 192, 128), (2, 100, 192, 128), (4, 77, 256, 64)]
+FLASH_MLA = [(16, 64, 192, 128), (2, 100, 192, 128), (4, 77, 256, 64),
+             (2, 8, 192, 128), (2, 100, 200, 72)]
 
 
 def _jax():
