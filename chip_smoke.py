@@ -4,8 +4,9 @@
 Builds the port's CUDA kernels from the sources in this checkout,
 reports what the attention kernels compiled to (tensor-core and 16-byte
 load instructions, registers, spills), holds each kernel against its
-plain PyTorch version on the card, then drives these paths through the
-entry points a user calls:
+plain PyTorch version on the card, differentiates the reduced GRU's loss
+on the card through ``gru_seq`` against the CPU, then drives these paths
+through the entry points a user calls:
 
 - the paper's GRU replica-serving path at full width (2 layers, hidden
   128): flat, cluster and global FedAvg over 20 client replicas, a
@@ -72,6 +73,10 @@ FEDAVG_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 #: end to end, the card and the CPU sum matrix products in other orders;
 #: two stacked layers and the head compound that
 PRED_TOL = 1e-4
+#: the loss gradients of the reduced GRU, card against CPU: the forward's
+#: recurrence is the kernel's on the card, the backward the plain
+#: version's on both, so they differ as the predictions do
+GRAD_TOL = 1e-4
 #: the slice: 20 clients in cluster ids 0, 1 and 3 (id 2 has no members)
 CLUSTER_IDS = np.array([0] * 8 + [1] * 7 + [3] * 5)
 TIER_BATCH = {"device": 1, "edge": 4, "cloud": 16}
@@ -242,10 +247,12 @@ def phase_build():
     print(build.build_log(), file=sys.stderr, flush=True)
 
 
-#: kernel functions whose compiled code the sass phase reports: the
-#: decode kernel, flash's bf16 (tensor-core) and fp32 (CUDA-core) kernels
-SASS_KERNELS = ("decode_attention_kernel", "flash_attention_wgmma_kernel",
-                "flash_attention_kernel")
+#: kernel functions whose compiled code the sass phase reports: the two
+#: GQA decode kernels (dense and paged), flash's bf16 (tensor-core) and
+#: fp32 (CUDA-core) kernels, and the MLA decode's bf16 tensor-core kernel
+SASS_KERNELS = ("decode_attention_kernel", "paged_decode_attention_kernel",
+                "flash_attention_wgmma_kernel", "flash_attention_kernel",
+                "paged_mla_decode_mma_kernel")
 #: opcodes the sass phase counts (``LDG.E.128``: 16-byte global loads)
 SASS_OPCODES = ("HGMMA", "HMMA", "LDG.E.128")
 
@@ -295,12 +302,20 @@ def sass_counts(text: str, opcodes=SASS_OPCODES) -> dict:
     return counts
 
 
+def is_kernel(fn: str, name: str) -> bool:
+    """Whether the mangled function ``fn`` is kernel ``name`` itself (and
+    not another whose name ends in it: ``paged_decode_attention_kernel``
+    is not ``decode_attention_kernel``)."""
+    return re.search(rf"\d{name}[IE]", fn) is not None
+
+
 def phase_sass():
     """What the compiled attention kernels contain: per function (one per
     template instance) the tensor-core and 16-byte-load instructions that
     ``cuobjdump -sass`` lists, and registers and spills from ``ptxas
-    -v``.  Fails unless every bf16 flash instance has tensor-core
-    instructions and the vector decode instances load K/V in 16 bytes."""
+    -v``.  Fails unless every bf16 flash instance and the bf16 MLA decode
+    kernel have tensor-core instructions and the vector instances of both
+    GQA decode kernels load K/V in 16 bytes."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     listing = subprocess.run([str(cuobjdump), "-sass", str(build.build())],
@@ -310,13 +325,24 @@ def phase_sass():
     rows = {fn: {**sass[fn], **regs.get(fn, {})} for fn in sass
             if any(k in fn for k in SASS_KERNELS)}
     tc = [r for fn, r in rows.items() if "flash_attention_wgmma_kernel" in fn]
+    mla = [r for fn, r in rows.items()
+           if is_kernel(fn, "paged_mla_decode_mma_kernel")]
     # template <typename T, bool kVec, ...>: the vector instances are Lb1E
-    vec = [r for fn, r in rows.items()
-           if "decode_attention_kernel" in fn and "Lb1E" in fn]
+    vec = {name: [r for fn, r in rows.items()
+                  if is_kernel(fn, name) and "Lb1E" in fn]
+           for name in ("decode_attention_kernel",
+                        "paged_decode_attention_kernel")}
     checks = {"flash_bf16_on_tensor_cores": bool(tc) and all(
                   r["HGMMA"] > 0 for r in tc),
-              "decode_16_byte_loads": bool(vec) and all(
-                  r["LDG.E.128"] > 0 for r in vec)}
+              "decode_16_byte_loads": bool(vec["decode_attention_kernel"])
+              and all(r["LDG.E.128"] > 0
+                      for r in vec["decode_attention_kernel"]),
+              "paged_decode_16_byte_loads": bool(
+                  vec["paged_decode_attention_kernel"]) and all(
+                  r["LDG.E.128"] > 0
+                  for r in vec["paged_decode_attention_kernel"]),
+              "paged_mla_bf16_on_tensor_cores": bool(mla) and all(
+                  r["HMMA"] > 0 for r in mla)}
     emit({"phase": "sass", "functions": rows, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"sass checks failed: "
@@ -412,6 +438,60 @@ def phase_kernels(torch, n_params):
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
     return gru_rows, fed_rows
+
+
+def phase_autograd(torch):
+    """A loss on the card differentiates through the kernels: the reduced
+    GRU's loss (its recurrence in ``gru_seq``) on the card and on the CPU,
+    on the same numpy weights and windows, ``torch.autograd.grad`` of
+    every leaf: each nonzero and within GRAD_TOL of the CPU's, with the
+    forward launched through the kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.params import (flatten_with_path, from_numpy_tree,
+                                    tree_map)
+    cfg = get_config("gru-traffic").reduced()
+    api = make_model(cfg)
+    rng = np.random.default_rng(SEED + 3)
+    tree = numpy_clients(rng, cfg.model, 1)
+    rows = {}
+    for B in (1, 4):
+        batch = {"windows": rng.normal(size=(B, HISTORY, 1)),
+                 "targets": rng.normal(size=(B, 1))}
+        grads, launches = {}, 0
+        for dev in (DEVICE, "cpu"):
+            params = tree_map(lambda x: x[0].clone().requires_grad_(),
+                              from_numpy_tree(tree, dev))
+            leaves = flatten_with_path(params)
+            b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in batch.items()}
+            ops.reset_launches()
+            loss = api.loss(params, b)
+            if dev == DEVICE:
+                launches = ops.launch_counts()["gru_seq"]
+            got = torch.autograd.grad(loss, [x for _, x in leaves])
+            grads[dev] = {"/".join(k): g.cpu() for (k, _), g in
+                          zip(leaves, got)}
+        errs = {k: (g - grads["cpu"][k]).abs().max().item()
+                for k, g in grads[DEVICE].items()}
+        rows[B] = {"gru_seq_launches": launches,
+                   "max_abs_err": max(errs.values()),
+                   "zero_leaves": [k for k, g in grads[DEVICE].items()
+                                   if not bool(g.abs().max() > 0)],
+                   "err_by_leaf": errs}
+    checks = {
+        "forward_through_kernel": all(
+            r["gru_seq_launches"] == cfg.model.rnn_layers
+            for r in rows.values()),
+        "every_leaf_nonzero": all(not r["zero_leaves"] for r in rows.values()),
+        "gradients_match_cpu": all(r["max_abs_err"] <= GRAD_TOL
+                                   for r in rows.values())}
+    emit({"phase": "autograd", "arch": "gru-traffic (reduced)",
+          "tol": GRAD_TOL, "by_batch": rows, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"autograd checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
 
 
 def check_attention(torch, kernel, shape, dtype_name, call, plain,
@@ -518,35 +598,76 @@ def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name,
         (keys * 4 + mean_rows * C * 2) * H * D)
 
 
+def paged_tables(rng, lengths, ps, Pseq, num_pages):
+    """Block tables of rows holding ``lengths`` tokens: each row's pages
+    are distinct ids of a shuffled pool; entries past a row's last page
+    (every entry of a row with no token) point at the scratch page
+    ``num_pages``."""
+    used = -(-np.asarray(lengths) // ps)
+    ids = rng.permutation(num_pages)
+    bt = np.full((len(used), Pseq), num_pages, np.int32)
+    start = 0
+    for b, u in enumerate(used):
+        bt[b, :u] = ids[start:start + u]
+        start += u
+    return bt
+
+
+def paged_work(lengths, ps, Pseq, window=None):
+    """What a paged decode call must read, from this call's lengths:
+    per row the counted tokens (K and V, scores and P.V) and the table
+    entries of their pages; a row with none (length 0) reads instead the
+    V (latents) of all Pseq * ps slots and every table entry, and sums
+    them into a uniform mean.  Returns (counted tokens, mean slots,
+    table entries)."""
+    lengths = np.asarray(lengths, np.int64)
+    hi = np.minimum(lengths, Pseq * ps)
+    lo = np.maximum(0, lengths - window) if window else np.zeros_like(hi)
+    counted = hi > lo
+    tokens = int(np.where(counted, hi - lo, 0).sum())
+    pages = np.where(counted, -(-hi // ps) - lo // ps, Pseq)
+    return tokens, int((~counted).sum()) * Pseq * ps, int(pages.sum())
+
+
 def check_paged(torch, rng, B, H, Hkv, ps, Pseq, D, lengths, num_pages,
                 soft_cap, window, dtype_name):
-    """Each row's pages are distinct ids of a shuffled pool; entries past
-    a row's last page point at the scratch page ``num_pages``."""
+    """paged_decode_attention on rows of ``lengths`` tokens (see
+    ``paged_tables``).  The yardstick (no soft cap) is two calls: a
+    gather of each row's pages, then SDPA with the row's mask."""
+    import torch.nn.functional as F
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
     lengths = np.asarray(lengths, np.int32)
-    used = -(-lengths // ps)
-    ids = rng.permutation(num_pages)
-    bt = np.full((B, Pseq), num_pages, np.int32)
-    start = 0
-    for b in range(B):
-        bt[b, :used[b]] = ids[start:start + used[b]]
-        start += used[b]
+    bt = paged_tables(rng, lengths, ps, Pseq, num_pages)
     q = _randn(torch, rng, (B, H, D), dtype)
     kp, vp = (_randn(torch, rng, (num_pages + 1, ps, Hkv, D), dtype)
               for _ in range(2))
     bt_t, ln_t = (torch.as_tensor(a, device=DEVICE) for a in (bt, lengths))
-    tokens = int(np.minimum(lengths, window or Pseq * ps).sum())
+    tokens, mean_slots, pages = paged_work(lengths, ps, Pseq, window)
     it = q.element_size()
     kw = dict(soft_cap=soft_cap, window=window)
+    t = np.arange(Pseq * ps)[None, :]
+    allowed = t < lengths[:, None]
+    if window:
+        allowed &= lengths[:, None] - 1 - t < window
+    mask = torch.as_tensor(allowed, device=DEVICE)[:, None, None, :]
+    bt_l = bt_t.long()
+
+    def library():
+        k = kp[bt_l].flatten(1, 2).transpose(1, 2)
+        v = vp[bt_l].flatten(1, 2).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=H != Hkv)[:, :, 0]
+
     return check_attention(
         torch, "paged_decode_attention", (B, H, Hkv, ps, Pseq, D),
         dtype_name, lambda: pda.paged_decode_attention(q, kp, vp, bt_t, ln_t,
                                                        **kw),
         lambda: ref.paged_decode_attention_ref(q, kp, vp, bt_t, ln_t, **kw),
-        None, it * (2 * B * H * D + 2 * tokens * Hkv * D)
-        + 4 * (int(used.sum()) + B), tokens * H * 4 * D)
+        None if soft_cap else library,
+        it * (2 * B * H * D + (2 * tokens + mean_slots) * Hkv * D)
+        + 4 * (pages + B), (tokens * 4 + mean_slots * 2) * H * D)
 
 
 def phase_attention_kernels(torch):
@@ -597,6 +718,12 @@ def phase_attention_kernels(torch):
                     torch, rng, 2, H, Hkv, ps, Pseq, 64,
                     rng.integers(1, Pseq * ps + 1, 2), 2 * Pseq + 3, cap,
                     window, dt))
+                # a row with no token (the mean of every slot's V) beside
+                # one whose last page is partly filled
+                rows.append(check_paged(
+                    torch, rng, 2, H, Hkv, ps, Pseq, 64,
+                    [0, Pseq * ps - ps // 2 - 1], 2 * Pseq + 3, cap,
+                    window, dt))
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"attention kernels disagree with their plain "
@@ -643,27 +770,36 @@ def check_router(torch, rng, T, E, k, tie=False):
 
 def check_paged_mla(torch, rng, B, H, R, Dr, ps, Pseq, lengths, num_pages,
                     dtype_name):
-    """paged_mla_decode_attention; each row's pages are distinct ids of a
-    shuffled pool, entries past a row's last page point at the scratch
-    page ``num_pages``."""
+    """paged_mla_decode_attention on rows of ``lengths`` tokens (see
+    ``paged_tables``).  The yardstick is two calls: a gather of each
+    row's pages of [c_kv | k_rope] latents (one pool, made outside the
+    timing), then SDPA with the row's mask, every head sharing the one
+    latent "kv head"."""
+    import torch.nn.functional as F
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
     lengths = np.asarray(lengths, np.int32)
-    used = -(-lengths // ps)
-    ids = rng.permutation(num_pages)
-    bt = np.full((B, Pseq), num_pages, np.int32)
-    start = 0
-    for b in range(B):
-        bt[b, :used[b]] = ids[start:start + used[b]]
-        start += used[b]
+    bt = paged_tables(rng, lengths, ps, Pseq, num_pages)
     qc, qr = (_randn(torch, rng, (B, H, w), dtype) for w in (R, Dr))
     ckv, kr = (_randn(torch, rng, (num_pages + 1, ps, w), dtype)
                for w in (R, Dr))
     bt_t, ln_t = (torch.as_tensor(a, device=DEVICE) for a in (bt, lengths))
     scale = 1.0 / np.sqrt(128 + Dr)      # deepseek's nope 128 + rope
-    tokens = int(lengths.sum())
+    tokens, mean_slots, pages = paged_work(lengths, ps, Pseq)
     it = qc.element_size()
+    q_cat = torch.cat([qc, qr], -1)[:, :, None]
+    latents = torch.cat([ckv, kr], -1)
+    allowed = np.arange(Pseq * ps)[None, :] < lengths[:, None]
+    mask = torch.as_tensor(allowed, device=DEVICE)[:, None, None, :]
+    bt_l = bt_t.long()
+
+    def library():
+        lat = latents[bt_l].flatten(1, 2)[:, None]
+        return F.scaled_dot_product_attention(
+            q_cat, lat, lat[..., :R], attn_mask=mask, scale=scale,
+            enable_gqa=True)[:, :, 0]
+
     return check_attention(
         torch, "paged_mla_decode_attention", (B, H, R, Dr, ps, Pseq),
         dtype_name,
@@ -671,8 +807,9 @@ def check_paged_mla(torch, rng, B, H, R, Dr, ps, Pseq, lengths, num_pages,
                                                scale=scale),
         lambda: ref.paged_mla_decode_attention_ref(qc, qr, ckv, kr, bt_t,
                                                    ln_t, scale=scale),
-        None, it * (B * H * (2 * R + Dr) + tokens * (R + Dr))
-        + 4 * (int(used.sum()) + B), tokens * H * 2 * (2 * R + Dr))
+        library, it * (B * H * (2 * R + Dr) + tokens * (R + Dr)
+                       + mean_slots * R) + 4 * (pages + B),
+        (tokens * (2 * R + Dr) + mean_slots * R) * H * 2)
 
 
 def phase_moe_kernels(torch):
@@ -702,6 +839,14 @@ def phase_moe_kernels(torch):
             rows.append(check_paged_mla(
                 torch, rng, 2, H, R, Dr, ps, Pseq,
                 rng.integers(1, Pseq * ps + 1, 2), 2 * Pseq + 2, dt))
+            # a row with no token (the mean of every slot's latent) beside
+            # one whose last page is partly filled
+            rows.append(check_paged_mla(
+                torch, rng, 2, H, R, Dr, ps, Pseq,
+                [0, Pseq * ps - ps // 2 - 1], 2 * Pseq + 2, dt))
+        # deepseek's widths: a row with no token among full-width rows
+        rows.append(check_paged_mla(torch, rng, 3, 16, 512, 64, 16, 16,
+                                    [0, 61, 9], 20, dt))
         rows.append(check_flash(torch, rng, 2, 2, 100, 192, 0, dt, Dv=128))
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1611,6 +1756,8 @@ def main() -> int:
         n_params = param_count(one)
         phase = "kernels"
         gru_rows, fed_rows = phase_kernels(torch, n_params)
+        phase = "autograd"
+        phase_autograd(torch)
         phase = "attention_kernels"
         attn_rows = phase_attention_kernels(torch)
         phase = "slice"

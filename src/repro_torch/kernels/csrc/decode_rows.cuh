@@ -1,0 +1,297 @@
+// The body shared by the two GQA decode kernels, decode_attention.cu
+// (a contiguous ring cache with a validity mask) and
+// paged_decode_attention.cu (a paged cache read through block tables):
+// one query token per sequence, the query heads of one kv head in one
+// block.  The kernels differ only in where slot s of a row lies and
+// whether it counts; each passes a row-addressing policy `Rows`:
+//
+//   rows.begin(), rows.end()  the slots the block walks, [begin, end);
+//                             begin is a multiple of 32
+//   rows.counts(s)            slot s < end counts (is not masked)
+//   rows.row(s)               its K/V row: K at k + row * D, V at
+//                             v + row * Dv
+//
+// `any` says whether some slot of the row counts.  When none does, every
+// score is -1e30 in the plain versions and the JAX kernels, so their
+// output is the uniform mean of V over the walked slots; the body then
+// reads every walked slot's V and no K, and gives the same.
+//
+// What bounds it on this card: bytes (each counted K/V row once).  The
+// design is about keeping enough of them in flight:
+// - A key row is spread over a group of 8 lanes, each holding D / 8 of
+//   its elements: as one 16-byte vector load (8 bf16, or 4 fp32 twice)
+//   at D 64, so one load instruction of the warp covers 4 keys.  Where a
+//   row is no multiple of 16 bytes (or a pointer is not 16-byte aligned)
+//   a compile-time variant (kVec false) loads one element at a time.
+//   The pre-scaled fp32 query sits in registers; a score is the lane
+//   group's partial dot reduced with 3 shuffles, and P.V accumulates each
+//   lane's own output dims.  K/V go straight to registers, with no
+//   staging copy in shared memory.
+// - Each warp takes 32-slot windows in turn and takes a ballot of the
+//   slots that count: a window, or a sub-chunk of it, with none is
+//   skipped without touching K/V, and masked slots inside a sub-chunk
+//   are not loaded.  Skipping is exact, since a masked key adds
+//   exp(-1e30 - m) = 0 once an unmasked one is seen.
+// - Each lane issues the loads of U keys (U = 8 at D <= 64 in bf16: 16
+//   vector loads of 16 bytes) before it uses the first, so a sub-chunk's
+//   whole K and V are in flight at once.
+// - Each lane group keeps its own online softmax (max, sum, output); at
+//   the end the 4 groups of a warp are merged by shuffles and the warps
+//   through shared memory, rescaled to their common max.
+// fp32 arithmetic, expf and tanhf without fast math; D, Dv <= 128.
+#pragma once
+
+#include <type_traits>
+
+#include "attention_common.cuh"
+
+namespace attn {
+
+// Register-held row pieces: a lane loads kEpl consecutive elements of a
+// K or V row at once, as one 16-byte vector (`uint4`, 8 bf16 or 4 fp32)
+// when rows allow it, else one element.
+template <typename T, bool kVec>
+struct RowPiece {
+  static constexpr int kEpl = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  using Raw = typename std::conditional<kVec, uint4, T>::type;
+
+  __device__ __forceinline__ static Raw load(const T* p) {
+    if constexpr (kVec) {
+      return __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      return p[0];
+    }
+  }
+  __device__ __forceinline__ static Raw zero() {
+    if constexpr (kVec) {
+      return make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      return from_float<T>(0.0f);
+    }
+  }
+  // element i < kEpl of the piece, widened to fp32
+  __device__ __forceinline__ static float get(const Raw& r, int i) {
+    if constexpr (!kVec) {
+      return to_float(r);
+    } else if constexpr (sizeof(T) == 4) {
+      const unsigned w[4] = {r.x, r.y, r.z, r.w};
+      return __uint_as_float(w[i]);
+    } else {
+      const unsigned w[4] = {r.x, r.y, r.z, r.w};
+      const unsigned half = (i & 1) ? (w[i >> 1] >> 16) : (w[i >> 1] & 0xffffu);
+      return __uint_as_float(half << 16);  // bf16 -> fp32 is a shift
+    }
+  }
+};
+
+// Sum over the `kLanes` consecutive lanes of a lane group (a power of 2).
+template <int kLanes>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+constexpr int kGroupLanes = 8;                // lanes a key row is spread over
+constexpr int kGroups = kWarp / kGroupLanes;  // keys a warp loads at once
+
+// Shared memory of a decode block with `warps` warps taking kGB query
+// heads: the pre-scaled query rows (kGB, D) and the cross-warp merge
+// area (warps, kGB, 2 + Dv).
+inline size_t decode_smem_bytes(int kGB, int warps, int D, int Dv) {
+  return sizeof(float) * (static_cast<size_t>(kGB) * D +
+                          static_cast<size_t>(warps) * kGB * (2 + Dv));
+}
+
+// Stage the block's ng query rows (ng * D elements from `q`) as fp32,
+// multiplied by `scale`.  The caller synchronises.
+template <typename T>
+__device__ __forceinline__ void load_query(float* qs, const T* q, int n, float scale) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) qs[i] = to_float(q[i]) * scale;
+}
+
+// kDims: elements of a row a lane holds (8 for D, Dv <= 64, 16 up to
+// 128); kGB: query heads a block takes, of which the first ng are real;
+// kWarps: the block's warps, fixed at compile time (6-8% faster at the
+// dense kernel's shapes than a count read at run time).
+// `qs` holds the pre-scaled query rows (published by a barrier), `red`
+// the merge area; `out` points at the block's first output row.
+template <typename T, bool kVec, int kDims, int kGB, int kWarps, class Rows>
+__device__ __forceinline__ void decode_rows(const T* __restrict__ k,
+                                            const T* __restrict__ v,
+                                            T* __restrict__ out, const float* qs,
+                                            float* red, const Rows& rows, bool any,
+                                            int ng, int D, int Dv, float soft_cap) {
+  using P = RowPiece<T, kVec>;
+  constexpr int kEpl = P::kEpl;
+  constexpr int kPieces = kDims / kEpl;  // loads a lane makes a row
+  constexpr int kRowRegs = kPieces * (sizeof(typename P::Raw) < 4
+                                          ? 1 : sizeof(typename P::Raw) / 4);
+  // keys per lane group per sub-chunk: about 32 registers each of K and V
+  constexpr int kU = kRowRegs >= 32 ? 1 : (32 / kRowRegs > 8 ? 8 : 32 / kRowRegs);
+  constexpr int kSub = kGroups * kU;  // keys per sub-chunk
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int grp = lane / kGroupLanes, j = lane % kGroupLanes;
+
+  // element e of a lane's piece p: (p * 8 + j) * kEpl + e
+  float qr[kGB][kDims];
+#pragma unroll
+  for (int g = 0; g < kGB; ++g)
+#pragma unroll
+    for (int p = 0; p < kPieces; ++p)
+#pragma unroll
+      for (int e = 0; e < kEpl; ++e) {
+        const int d = (p * kGroupLanes + j) * kEpl + e;
+        qr[g][p * kEpl + e] = g < ng && d < D ? qs[g * D + d] : 0.0f;
+      }
+  float m[kGB], l[kGB], acc[kGB][kDims];
+#pragma unroll
+  for (int g = 0; g < kGB; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kDims; ++i) acc[g][i] = 0.0f;
+  }
+
+  const int end = rows.end();
+  for (int w0 = rows.begin() + warp * kWarp; w0 < end; w0 += kWarps * kWarp) {
+    const bool in = w0 + lane < end;
+    const unsigned ok = __ballot_sync(kFull, in && rows.counts(w0 + lane));
+    const unsigned inm = __ballot_sync(kFull, in);
+    const unsigned take = any ? ok : inm;  // slots to read
+    if (!take) continue;
+#pragma unroll
+    for (int s0 = 0; s0 < kWarp; s0 += kSub) {
+      unsigned sub = take;
+      if constexpr (kSub < kWarp) sub = (take >> s0) & ((1u << (kSub % kWarp)) - 1u);
+      if (!sub) continue;
+      typename P::Raw kr[kU][kPieces], vr[kU][kPieces];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int slot = s0 + u * kGroups + grp;  // within the window
+        const bool t = (take >> slot) & 1u;
+        const size_t row = t ? rows.row(w0 + slot) : 0;
+#pragma unroll
+        for (int p = 0; p < kPieces; ++p) {
+          const int d = (p * kGroupLanes + j) * kEpl;
+          // a row with no counted slot needs no K: its scores are all -1e30
+          kr[u][p] = t && any && d < D ? P::load(k + row * D + d) : P::zero();
+          vr[u][p] = t && d < Dv ? P::load(v + row * Dv + d) : P::zero();
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kGB; ++g) {
+        if (g >= ng) continue;
+        float s[kU];
+        float mx = m[g];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          float part = 0.0f;
+#pragma unroll
+          for (int p = 0; p < kPieces; ++p)
+#pragma unroll
+            for (int e = 0; e < kEpl; ++e)
+              part = fmaf(qr[g][p * kEpl + e], P::get(kr[u][p], e), part);
+          const int slot = s0 + u * kGroups + grp;
+          float sc = group_sum<kGroupLanes>(part);
+          if (soft_cap > 0.0f) sc = tanhf(sc / soft_cap) * soft_cap;
+          // a slot past the walk weighs nothing even in a row with no
+          // counted slot
+          s[u] = (ok >> slot) & 1u ? sc : ((inm >> slot) & 1u ? kNegInf : -INFINITY);
+          mx = fmaxf(mx, s[u]);
+        }
+        const float alpha = expf(m[g] - mx);
+        l[g] *= alpha;
+#pragma unroll
+        for (int i = 0; i < kDims; ++i) acc[g][i] *= alpha;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const float pu = expf(s[u] - mx);
+          l[g] += pu;
+#pragma unroll
+          for (int p = 0; p < kPieces; ++p)
+#pragma unroll
+            for (int e = 0; e < kEpl; ++e)
+              acc[g][p * kEpl + e] = fmaf(pu, P::get(vr[u][p], e), acc[g][p * kEpl + e]);
+        }
+        m[g] = mx;
+      }
+    }
+  }
+
+  // merge the warp's 4 lane groups (same dims in lanes j, j + 8, ...),
+  // then the warps through shared memory
+#pragma unroll
+  for (int g = 0; g < kGB; ++g) {
+    if (g >= ng) continue;
+    float mx = m[g];
+#pragma unroll
+    for (int o = kGroupLanes; o < kWarp; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    const float f = expf(m[g] - mx);
+    float lsum = l[g] * f;
+#pragma unroll
+    for (int o = kGroupLanes; o < kWarp; o <<= 1) lsum += __shfl_xor_sync(kFull, lsum, o);
+    float* e0 = red + (warp * kGB + g) * (2 + Dv);
+    if (lane == 0) {
+      e0[0] = mx;
+      e0[1] = lsum;
+    }
+#pragma unroll
+    for (int p = 0; p < kPieces; ++p)
+#pragma unroll
+      for (int e = 0; e < kEpl; ++e) {
+        float a = acc[g][p * kEpl + e] * f;
+#pragma unroll
+        for (int o = kGroupLanes; o < kWarp; o <<= 1) a += __shfl_xor_sync(kFull, a, o);
+        const int d = (p * kGroupLanes + j) * kEpl + e;
+        if (grp == 0 && d < Dv) e0[2 + d] = a;
+      }
+  }
+  __syncthreads();
+  // unrolled over the warps, so that each thread's loads of the warps'
+  // partials are in flight together
+  for (int i = threadIdx.x; i < ng * Dv; i += blockDim.x) {
+    const int g = i / Dv, d = i - g * Dv;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red[(w * kGB + g) * (2 + Dv)]);
+    float lsum = 0.0f, o = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* e0 = red + (w * kGB + g) * (2 + Dv);
+      const float f = expf(e0[0] - mx);
+      lsum = fmaf(e0[1], f, lsum);
+      o = fmaf(e0[2 + d], f, o);
+    }
+    out[static_cast<size_t>(g) * Dv + d] = from_float<T>(o / fmaxf(lsum, 1e-30f));
+  }
+}
+
+// Host side: pick the instance for the row widths and the group size.
+// `launch_one<T, kVec, kDims, kGB>()` launches one instance; a row of 16
+// bytes or more at every pointer takes the vector loads.  Heads a block
+// takes: all G of a kv head up to 8 at D, Dv <= 64 (4 at wider rows,
+// whose accumulators take twice the registers).
+template <typename T, bool kVec, int kDims, class Launch>
+inline int decode_dispatch_group(int G, Launch& launch_one) {
+  if (G == 1) return launch_one.template run<T, kVec, kDims, 1>();
+  if constexpr (kDims == 8) {
+    if (G > 4) return launch_one.template run<T, kVec, kDims, 8>();
+  }
+  return launch_one.template run<T, kVec, kDims, 4>();
+}
+
+template <typename T, class Launch>
+inline int decode_dispatch(int D, int Dv, bool aligned, int G, Launch& launch_one) {
+  const bool vec = aligned && (D * sizeof(T)) % 16 == 0 && (Dv * sizeof(T)) % 16 == 0;
+  if (vec) {
+    if (D <= 64 && Dv <= 64) return decode_dispatch_group<T, true, 8>(G, launch_one);
+    return decode_dispatch_group<T, true, 16>(G, launch_one);
+  }
+  if (D <= 64 && Dv <= 64) return decode_dispatch_group<T, false, 8>(G, launch_one);
+  return decode_dispatch_group<T, false, 16>(G, launch_one);
+}
+
+}  // namespace attn

@@ -11,33 +11,64 @@
 // of row b lies at page block_tables[b, t / ps], slot t % ps, and counts
 // iff t < lengths[b] and, with a window, lengths[b] - 1 - t < window;
 // with soft_cap > 0 a score s becomes tanh(s / cap) * cap before the
-// mask.  A row with no such token gives zeros.
+// mask.  A row with no such token (lengths[b] = 0) gives the uniform
+// mean of V over all Pseq * ps gathered slots, as the JAX kernel does
+// (every score there is -1e30, so every weight is exp(0)).
 //
 // What bounds it on this card: bytes.  At the serving shape (B = 32,
-// H = Hkv = 32, D = 64, bf16, 65 to 72 tokens a row) one call reads
-// 19 MB of K and V for 19 MFLOP: 5.7 us at the HBM rate against 0.02 us
+// H = Hkv = 32, D = 64, bf16, 57 to 64 tokens a row) one call reads
+// 16 MB of K and V for 16 MFLOP: 4.8 us at the HBM rate against 0.02 us
 // at the bf16 tensor-core rate.
 //
-// Design (simple and right first): the block and warp layout of
-// decode_attention.cu (one block of 4 warps per (b, kv head, group of up
-// to 8 query heads); the warps take 32-token chunks in turn, stage them
-// in shared memory and fold them into per-head online-softmax state in
-// registers; a merge through shared memory at the end).  Where the TPU
-// kernel's grid walks every entry of the block table, a block here loads
-// its row's length and visits only the tokens that can count: from
-// lengths[b] - window (or 0) to lengths[b] - 1.  Each lane gathers
-// through the block table itself, so the pages may lie anywhere in the
-// pool; ids past a row's last page are never read.  fp32 throughout,
-// expf and tanhf without fast math; D, Dv <= 128.
+// Design: the body of the dense decode kernel (decode_rows.cuh: 8-lane
+// groups reading K/V rows as 16-byte vectors straight into registers, U
+// keys in flight a lane, per-group online softmax merged by shuffles),
+// with a paged row-addressing policy.  One block per (b, kv head, group
+// of up to kGB query heads):
+// - The block reads lengths[b] once and walks only the tokens that can
+//   count, from max(0, len - window) to min(len, Pseq * ps) - 1, in
+//   32-token windows aligned to 32.  It loads the block-table entries of
+//   those tokens into shared memory once (every entry for a row with no
+//   counted token, which reads every slot's V and no K); a lane group
+//   then computes one row address per key, not per element, so the pages
+//   may lie anywhere in the pool and ids past a row's last page are
+//   never read.
+// - Two warps a block.  The row's tokens are split into 32-token
+//   windows taken by the warps in turn; at the served 57 to 64 tokens a
+//   row has two windows, so more warps would only hold registers idle,
+//   and at the serving shape (1,024 blocks) two warps keep the grid one
+//   wave.
+// - A compile-time variant loads one element at a time where rows are no
+//   multiple of 16 bytes or a pointer is not 16-byte aligned.
+// fp32 arithmetic, expf and tanhf without fast math; D, Dv <= 128.
 
-#include "attention_common.cuh"
+#include <cstdint>
+
+#include "decode_rows.cuh"
 
 namespace {
 
 using namespace attn;
 
-template <typename T>
-__global__ void __launch_bounds__(kDecodeWarps * kWarp)
+constexpr int kWarps = 2;  // warps a block
+
+// Tokens of row b walked by a block: [begin, end), 32-aligned begin;
+// token t counts iff lo <= t < hi, and lies at cache row
+// (table[t / ps] * ps + t % ps) * Hkv + kvh.
+struct PagedRows {
+  const int* table;  // the row's block table, staged in shared memory
+  int ps, Hkv, kvh, lo, hi, first, last;
+  __device__ __forceinline__ int begin() const { return first; }
+  __device__ __forceinline__ int end() const { return last; }
+  __device__ __forceinline__ bool counts(int t) const { return t >= lo && t < hi; }
+  __device__ __forceinline__ size_t row(int t) const {
+    const int p = t / ps;
+    return (static_cast<size_t>(table[p]) * ps + (t - p * ps)) * Hkv + kvh;
+  }
+};
+
+template <typename T, bool kVec, int kDims, int kGB>
+__global__ void __launch_bounds__(kWarps * kWarp)
 paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                               const T* __restrict__ v_pages,
                               const int* __restrict__ block_tables,
@@ -47,76 +78,76 @@ paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
   extern __shared__ float smem[];
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int G = H / Hkv;
-  const int h0 = kvh * G + blockIdx.z * kMaxGroup;
-  const int ng = min(kMaxGroup, kvh * G + G - h0);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  float* qs = smem;
-  float* chunks = qs + kMaxGroup * D;
-  float* ks = chunks + warp * (kWarp * (D + 1) + kWarp * Dv);
-  float* vs = ks + kWarp * (D + 1);
+  const int h0 = kvh * G + blockIdx.z * kGB;  // first query head
+  const int ng = min(kGB, kvh * G + G - h0);
+  float* qs = smem;                                           // (kGB, D)
+  float* red = qs + kGB * D;                                  // (kWarps, kGB, 2 + Dv)
+  int* table = reinterpret_cast<int*>(red + kWarps * kGB * (2 + Dv));  // (Pseq,)
 
-  for (int i = threadIdx.x; i < ng * D; i += blockDim.x)
-    qs[i] = to_float(q[(static_cast<size_t>(b) * H + h0) * D + i]);
+  const int len = lengths[b];
+  const int slots = Pseq * ps;
+  const int hi = min(len, slots);
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const bool any = lo < hi;
+  // the table entries the walk reads: a counted row's pages, else all
+  const int p_lo = any ? lo / ps : 0;
+  const int p_hi = any ? (hi - 1) / ps + 1 : Pseq;
+  const int* bt = block_tables + static_cast<size_t>(b) * Pseq;
+  for (int p = p_lo + threadIdx.x; p < p_hi; p += blockDim.x) table[p] = bt[p];
+  load_query(qs, q + (static_cast<size_t>(b) * H + h0) * D, ng * D, scale);
   __syncthreads();
-
-  RowState st[kMaxGroup];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) st[g].init();
-
-  const int n_tok = min(lengths[b], Pseq * ps);
-  const int t_lo = window > 0 ? max(0, n_tok - window) : 0;
-  const int* table = block_tables + static_cast<size_t>(b) * Pseq;
-  // (page * ps + slot) * Hkv + kvh: the K/V row of token t
-  auto kv_row = [&](int t) {
-    return (static_cast<size_t>(table[t / ps]) * ps + t % ps) * Hkv + kvh;
-  };
-  for (int c0 = (t_lo / kWarp) * kWarp + warp * kWarp; c0 < n_tok;
-       c0 += kDecodeWarps * kWarp) {
-    auto have = [&](int j) { return c0 + j < n_tok; };
-    stage_chunk(ks, D, D + 1,
-                [&](int j, int d) { return to_float(k_pages[kv_row(c0 + j) * D + d]); },
-                have, lane);
-    stage_chunk(vs, Dv, Dv,
-                [&](int j, int d) { return to_float(v_pages[kv_row(c0 + j) * Dv + d]); },
-                have, lane);
-    __syncwarp();
-    const int t = c0 + lane;
-    const bool ok = t >= t_lo && t < n_tok;
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < ng)
-        fold_chunk(st[g], qs + g * D, ks, vs, D, Dv, scale, soft_cap, ok, lane);
-    __syncwarp();
-  }
-  merge_warps(st, ng, Dv, chunks, out,
-              [&](int g) { return static_cast<size_t>(b) * H + h0 + g; });
+  const PagedRows rows{table, ps, Hkv, kvh, lo, hi, any ? lo & ~(kWarp - 1) : 0,
+                       any ? hi : slots};
+  T* o = out + (static_cast<size_t>(b) * H + h0) * Dv;
+  decode_rows<T, kVec, kDims, kGB, kWarps>(k_pages, v_pages, o, qs, red, rows, any, ng, D,
+                                           Dv, soft_cap);
 }
+
+struct Launch {
+  const void *q, *k_pages, *v_pages, *block_tables, *lengths;
+  void* out;
+  int B, H, Hkv, ps, Pseq, D, Dv;
+  float soft_cap;
+  int window;
+  cudaStream_t stream;
+
+  template <typename T, bool kVec, int kDims, int kGB>
+  int run() {
+    constexpr auto kernel = &paged_decode_attention_kernel<T, kVec, kDims, kGB>;
+    const int G = H / Hkv;
+    const dim3 grid(Hkv, B, (G + kGB - 1) / kGB);
+    const size_t smem = decode_smem_bytes(kGB, kWarps, D, Dv) + sizeof(int) * Pseq;
+    cudaError_t err = allow_smem<kernel>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kWarps * kWarp, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_pages),
+        static_cast<const T*>(v_pages), static_cast<const int*>(block_tables),
+        static_cast<const int*>(lengths), static_cast<T*>(out), H, Hkv, ps, Pseq, D, Dv,
+        1.0f / sqrtf(static_cast<float>(D)), soft_cap, window);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
 
 template <typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* block_tables, const void* lengths, void* out, int B, int H,
            int Hkv, int ps, int Pseq, int D, int Dv, float soft_cap, int window,
            void* stream) {
-  const size_t smem = sizeof(float) * decode_smem_floats(D, Dv);
-  cudaError_t err = allow_smem<&paged_decode_attention_kernel<T>>(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int G = H / Hkv;
-  const dim3 grid(Hkv, B, (G + kMaxGroup - 1) / kMaxGroup);
-  paged_decode_attention_kernel<T><<<grid, kDecodeWarps * kWarp, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(block_tables),
-      static_cast<const int*>(lengths), static_cast<T*>(out), H, Hkv, ps, Pseq, D, Dv,
-      1.0f / sqrtf(static_cast<float>(D)), soft_cap, window);
-  return static_cast<int>(cudaGetLastError());
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  Launch one{q, k_pages, v_pages, block_tables, lengths, out, B, H, Hkv, ps, Pseq, D,
+             Dv, soft_cap, window, static_cast<cudaStream_t>(stream)};
+  return decode_dispatch<T>(D, Dv, aligned(k_pages) && aligned(v_pages), H / Hkv, one);
 }
 
 }  // namespace
 
 // Launch on `stream`; return cudaGetLastError() (0 when accepted).  The
 // caller checks shapes: Hkv divides H, B >= 1, D and Dv in 1..128,
-// window 0 (none) or >= 1, soft_cap 0 (none) or > 0; every page id of a
-// row's first ceil(lengths[b] / ps) table entries lies in the pool.
+// window 0 (none) or >= 1, soft_cap 0 (none) or > 0; every page id of a row's first
+// ceil(lengths[b] / ps) table entries (of every entry where lengths[b]
+// is 0) lies in the pool.
 extern "C" int paged_decode_attention_f32(const void* q, const void* k_pages,
                                           const void* v_pages, const void* block_tables,
                                           const void* lengths, void* out, int B, int H,

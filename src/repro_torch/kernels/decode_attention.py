@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
+from repro_torch.kernels._grad import with_grad
 from repro_torch.kernels._checks import head_dims, kernel_inputs
 
 
@@ -34,15 +35,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention runs on cpu or cuda, not {dev}")
     suffix = kernel_inputs("decode_attention", q=q, k=k, v=v, valid=valid)
     head_dims("decode_attention", D, Dv)
-    out = torch.empty((B, H, Dv), dtype=q.dtype, device=dev)
-    if B == 0 or H == 0 or C == 0:
-        return out.zero_()
-    with torch.cuda.device(dev):
-        build.launch(f"decode_attention_{suffix}", q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), valid.data_ptr(), out.data_ptr(), B, H, Hkv,
-                     C, D, Dv, torch.cuda.current_stream().cuda_stream)
-    decode_attention.launches += 1
-    return out
+
+    def launch(q, k, v, valid):
+        out = torch.empty((B, H, Dv), dtype=q.dtype, device=dev)
+        if B == 0 or H == 0 or C == 0:
+            return out.zero_()
+        with torch.cuda.device(dev):
+            build.launch(f"decode_attention_{suffix}", q.data_ptr(),
+                         k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                         out.data_ptr(), B, H, Hkv, C, D, Dv,
+                         torch.cuda.current_stream().cuda_stream)
+        decode_attention.launches += 1
+        return out
+
+    return with_grad(launch, ref.decode_attention_ref, q, k, v, valid)
 
 
 decode_attention.launches = 0

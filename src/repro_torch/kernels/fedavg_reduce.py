@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
+from repro_torch.kernels._grad import with_grad
 
 #: largest replica count: C normalised weights in 48 KB of shared memory
 MAX_REPLICAS = 12288
@@ -39,15 +40,19 @@ def fedavg_reduce(stacked: torch.Tensor,
     C, N = stacked.shape
     if not 1 <= C <= MAX_REPLICAS:
         raise ValueError(f"replica count {C} outside 1..{MAX_REPLICAS}")
-    out = torch.empty((N,), dtype=stacked.dtype, device=dev)
-    if N == 0:
+
+    def launch(stacked, weights):
+        out = torch.empty((N,), dtype=stacked.dtype, device=dev)
+        if N == 0:
+            return out
+        with torch.cuda.device(dev):
+            build.launch(_ENTRY[stacked.dtype], stacked.data_ptr(),
+                         weights.data_ptr(), out.data_ptr(), C, N,
+                         torch.cuda.current_stream().cuda_stream)
+        fedavg_reduce.launches += 1
         return out
-    with torch.cuda.device(dev):
-        build.launch(_ENTRY[stacked.dtype], stacked.data_ptr(),
-                     weights.data_ptr(), out.data_ptr(), C, N,
-                     torch.cuda.current_stream().cuda_stream)
-    fedavg_reduce.launches += 1
-    return out
+
+    return with_grad(launch, ref.fedavg_reduce_ref, stacked, weights)
 
 
 fedavg_reduce.launches = 0

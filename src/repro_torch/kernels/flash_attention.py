@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
+from repro_torch.kernels._grad import with_grad
 from repro_torch.kernels._checks import (MAX_SCORE_DIM, head_dims,
                                          kernel_inputs)
 
@@ -37,19 +38,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     suffix = kernel_inputs("flash_attention", q=q, k=k, v=v)
     head_dims("flash_attention", D, limit=MAX_SCORE_DIM)
     head_dims("flash_attention", Dv)
-    out = torch.empty((BH, T, Dv), dtype=q.dtype, device=dev)
-    if BH == 0 or T == 0:
-        return out
     # a window that reaches past every key is no window (and the kernel
     # then never forms q_pos - window)
     win = int(window) if 0 < window < T else 0
-    with torch.cuda.device(dev):
-        build.launch(f"flash_attention_{suffix}", q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), BH, BHkv, T, D, Dv,
-                     int(bool(causal)), win,
-                     torch.cuda.current_stream().cuda_stream)
-    flash_attention.launches += 1
-    return out
+
+    def launch(q, k, v):
+        out = torch.empty((BH, T, Dv), dtype=q.dtype, device=dev)
+        if BH == 0 or T == 0:
+            return out
+        with torch.cuda.device(dev):
+            build.launch(f"flash_attention_{suffix}", q.data_ptr(),
+                         k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                         BHkv, T, D, Dv, int(bool(causal)), win,
+                         torch.cuda.current_stream().cuda_stream)
+        flash_attention.launches += 1
+        return out
+
+    return with_grad(launch, lambda q, k, v: ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window), q, k, v)
 
 
 flash_attention.launches = 0

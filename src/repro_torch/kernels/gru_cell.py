@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
+from repro_torch.kernels._grad import with_grad
 
 #: largest hidden size: 4h floats of shared memory within 48 KB
 MAX_HIDDEN = 3072
@@ -41,15 +42,19 @@ def gru_seq(xw: torch.Tensor, h0: torch.Tensor,
     if h > MAX_HIDDEN:
         raise ValueError(f"hidden {h} > {MAX_HIDDEN}: the state does not fit "
                          "one block's shared memory")
-    out = torch.empty((B, T, h), dtype=xw.dtype, device=dev)
-    if B == 0 or T == 0:
+
+    def launch(xw, h0, w_h):
+        out = torch.empty((B, T, h), dtype=xw.dtype, device=dev)
+        if B == 0 or T == 0:
+            return out
+        with torch.cuda.device(dev):
+            build.launch("gru_seq_f32", xw.data_ptr(), h0.data_ptr(),
+                         w_h.data_ptr(), out.data_ptr(), B, T, h,
+                         torch.cuda.current_stream().cuda_stream)
+        gru_seq.launches += 1
         return out
-    with torch.cuda.device(dev):
-        build.launch("gru_seq_f32", xw.data_ptr(), h0.data_ptr(),
-                     w_h.data_ptr(), out.data_ptr(), B, T, h,
-                     torch.cuda.current_stream().cuda_stream)
-    gru_seq.launches += 1
-    return out
+
+    return with_grad(launch, ref.gru_seq_ref, xw, h0, w_h)
 
 
 gru_seq.launches = 0

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
+from repro_torch.kernels._grad import with_grad
 from repro_torch.kernels._checks import ENTRY_SUFFIX
 
 #: the kernel's limits: chunk rows and state / head dims it stages in
@@ -79,18 +80,24 @@ def mamba_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             f"{MAX_STATE_DIM}, P <= {MAX_HEAD_DIM} within "
             f"{MAX_SMEM_BYTES} bytes of shared memory; got chunk {chunk}, "
             f"N {N}, P {P}")
-    y = torch.empty_like(x)
-    state = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
-    if y.numel() == 0:
-        return y, state.zero_()
-    with torch.cuda.device(dev):
-        build.launch(f"mamba_chunk_scan_{ENTRY_SUFFIX[x.dtype]}",
-                     x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                     Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                     state.data_ptr(), B, L, H, P, N, chunk,
-                     torch.cuda.current_stream().cuda_stream)
-    mamba_chunk_scan.launches += 1
-    return y, state
+
+    def launch(x, dt, A, Bm, Cm):
+        y = torch.empty_like(x)
+        state = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
+        if y.numel() == 0:
+            return y, state.zero_()
+        with torch.cuda.device(dev):
+            build.launch(f"mamba_chunk_scan_{ENTRY_SUFFIX[x.dtype]}",
+                         x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                         Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+                         state.data_ptr(), B, L, H, P, N, chunk,
+                         torch.cuda.current_stream().cuda_stream)
+        mamba_chunk_scan.launches += 1
+        return y, state
+
+    # both outputs, y and the final state, carry gradients
+    return with_grad(launch, lambda *t: ref.mamba_chunk_scan_ref(*t, chunk),
+                     x, dt, A, Bm, Cm)
 
 
 mamba_chunk_scan.launches = 0

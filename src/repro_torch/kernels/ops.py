@@ -3,7 +3,9 @@
 
 Each wrapper counts its kernel launches in a plain integer
 (``gru_seq.launches``), so a run can show that its path went through
-the kernel."""
+the kernel.  On the card, with grad mode on and a floating input that
+requires grad, a wrapper's output stays in the graph: the forward is the
+kernel's, the backward its plain version's (``kernels/_grad.py``)."""
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce
 from repro_torch.kernels.flash_attention import flash_attention

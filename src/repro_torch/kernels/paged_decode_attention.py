@@ -8,7 +8,14 @@ engine's decode step.  Counterpart of
 A CPU tensor takes the plain version
 (:func:`ref.paged_decode_attention_ref`,
 :func:`ref.paged_mla_decode_attention_ref`); a CUDA tensor launches the
-kernel or raises."""
+kernel or raises.  With grad on, the kernel's output is differentiable
+through the plain version (``kernels/_grad.py``).
+
+A row with ``lengths[b] = 0`` has no counted token: every score is
+-1e30 in the JAX kernels, so they, the plain versions and the kernels
+here give the uniform mean of V (of the ``c_kv`` latents) over all
+``Pseq * ps`` gathered slots of the row, reading every table entry of
+that row."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,6 +25,11 @@ import torch
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
 from repro_torch.kernels._checks import head_dims, kernel_inputs
+from repro_torch.kernels._grad import with_grad
+
+#: most block-table entries a row may have: the kernels stage a row's
+#: entries in shared memory
+MAX_PAGES_PER_SEQ = 16384
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -26,8 +38,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            window: Optional[int] = None) -> torch.Tensor:
     """q (B,H,D); k/v_pages (P, ps, Hkv, D); block_tables (B, Pseq) int32
     page ids; lengths (B,) int32 valid tokens -> (B,H,Dv).  The kernel
-    reads only a row's first ceil(lengths[b] / ps) table entries, and
-    the ids there must lie in the pool (it does not check them)."""
+    reads only the table entries of a row's counted tokens (every entry
+    of a row with ``lengths[b] = 0``), and the ids there must lie in the
+    pool (it does not check them)."""
     dev = common_device(q, k_pages, v_pages, block_tables, lengths)
     if q.dim() != 3 or k_pages.dim() != 4 or v_pages.dim() != 4:
         raise ValueError("paged_decode_attention takes q (B,H,D) and "
@@ -59,24 +72,38 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages=v_pages, block_tables=block_tables,
                            lengths=lengths)
     head_dims("paged_decode_attention", D, Dv)
-    out = torch.empty((B, H, Dv), dtype=q.dtype, device=dev)
-    if B == 0 or H == 0:
-        return out
-    Pseq = block_tables.shape[1]
+    Pseq = _pages_per_seq("paged_decode_attention", block_tables)
     # a window at least as long as the table reaches every token
     win = int(window) if window is not None and window < Pseq * ps else 0
-    with torch.cuda.device(dev):
-        build.launch(f"paged_decode_attention_{suffix}", q.data_ptr(),
-                     k_pages.data_ptr(), v_pages.data_ptr(),
-                     block_tables.data_ptr(), lengths.data_ptr(),
-                     out.data_ptr(), B, H, Hkv, ps, Pseq, D, Dv,
-                     float(soft_cap), win,
-                     torch.cuda.current_stream().cuda_stream)
-    paged_decode_attention.launches += 1
-    return out
+
+    def launch(q, k_pages, v_pages, block_tables, lengths):
+        out = torch.empty((B, H, Dv), dtype=q.dtype, device=dev)
+        if B == 0 or H == 0:
+            return out
+        with torch.cuda.device(dev):
+            build.launch(f"paged_decode_attention_{suffix}", q.data_ptr(),
+                         k_pages.data_ptr(), v_pages.data_ptr(),
+                         block_tables.data_ptr(), lengths.data_ptr(),
+                         out.data_ptr(), B, H, Hkv, ps, Pseq, D, Dv,
+                         float(soft_cap), win,
+                         torch.cuda.current_stream().cuda_stream)
+        paged_decode_attention.launches += 1
+        return out
+
+    return with_grad(launch, lambda *t: ref.paged_decode_attention_ref(
+        *t, soft_cap=soft_cap, window=window), q, k_pages, v_pages,
+        block_tables, lengths)
 
 
 paged_decode_attention.launches = 0
+
+
+def _pages_per_seq(name: str, block_tables: torch.Tensor) -> int:
+    Pseq = block_tables.shape[1]
+    if Pseq > MAX_PAGES_PER_SEQ:
+        raise ValueError(f"{name} kernel takes at most {MAX_PAGES_PER_SEQ} "
+                         f"block-table entries a row, got {Pseq}")
+    return Pseq
 
 
 #: largest latent rank R of the MLA kernel (16 accumulators a lane) and
@@ -95,10 +122,10 @@ def paged_mla_decode_attention(q_c: torch.Tensor, q_rope: torch.Tensor,
     q_rope (B,H,Dr); ckv/krope_pages (P, ps, R|Dr); block_tables (B,
     Pseq) int32; lengths (B,) int32 valid tokens; ``scale`` the full
     1/sqrt(nope + rope).  Returns the latent context (B,H,R) in q_c's
-    dtype (apply ``w_uv`` outside).  The kernel reads only a row's first
-    ceil(lengths[b] / ps) table entries, whose ids must lie in the pool,
-    and gives zeros for a row with lengths[b] = 0 (the plain version
-    averages its gathered latents)."""
+    dtype (apply ``w_uv`` outside).  The kernel reads only the table
+    entries of a row's first ceil(lengths[b] / ps) pages (every entry of
+    a row with ``lengths[b] = 0``), whose ids must lie in the pool.  One
+    call is one launch."""
     dev = common_device(q_c, q_rope, ckv_pages, krope_pages, block_tables,
                         lengths)
     if q_c.dim() != 3 or q_rope.dim() != 3 or ckv_pages.dim() != 3 \
@@ -135,18 +162,25 @@ def paged_mla_decode_attention(q_c: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError(f"paged_mla_decode_attention kernel takes R in "
                          f"1..{MAX_RANK} and R + Dr <= {MAX_LATENT_WIDTH}, "
                          f"got R={R}, Dr={Dr}")
-    out = torch.empty((B, H, R), dtype=q_c.dtype, device=dev)
-    if B == 0 or H == 0:
+    Pseq = _pages_per_seq("paged_mla_decode_attention", block_tables)
+
+    def launch(q_c, q_rope, ckv_pages, krope_pages, block_tables, lengths):
+        out = torch.empty((B, H, R), dtype=q_c.dtype, device=dev)
+        if B == 0 or H == 0:
+            return out
+        with torch.cuda.device(dev):
+            build.launch(f"paged_mla_decode_attention_{suffix}",
+                         q_c.data_ptr(), q_rope.data_ptr(),
+                         ckv_pages.data_ptr(), krope_pages.data_ptr(),
+                         block_tables.data_ptr(), lengths.data_ptr(),
+                         out.data_ptr(), B, H, R, Dr, ps, Pseq, float(scale),
+                         torch.cuda.current_stream().cuda_stream)
+        paged_mla_decode_attention.launches += 1
         return out
-    with torch.cuda.device(dev):
-        build.launch(f"paged_mla_decode_attention_{suffix}", q_c.data_ptr(),
-                     q_rope.data_ptr(), ckv_pages.data_ptr(),
-                     krope_pages.data_ptr(), block_tables.data_ptr(),
-                     lengths.data_ptr(), out.data_ptr(), B, H, R, Dr, ps,
-                     block_tables.shape[1], float(scale),
-                     torch.cuda.current_stream().cuda_stream)
-    paged_mla_decode_attention.launches += 1
-    return out
+
+    return with_grad(launch, lambda *t: ref.paged_mla_decode_attention_ref(
+        *t, scale=scale), q_c, q_rope, ckv_pages, krope_pages, block_tables,
+        lengths)
 
 
 paged_mla_decode_attention.launches = 0

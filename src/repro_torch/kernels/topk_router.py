@@ -11,6 +11,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels._grad import with_grad
 
 #: largest expert count: 8 token rows of E fp32 probabilities in shared
 #: memory
@@ -42,16 +43,21 @@ def topk_router(logits: torch.Tensor, k: int
     if E > MAX_EXPERTS:
         raise ValueError(f"topk_router kernel takes at most {MAX_EXPERTS} "
                          f"experts, got {E}")
-    weights = torch.empty((T, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((T, k), dtype=torch.int32, device=dev)
-    if T == 0:
+
+    def launch(logits):
+        weights = torch.empty((T, k), dtype=torch.float32, device=dev)
+        idx = torch.empty((T, k), dtype=torch.int32, device=dev)
+        if T == 0:
+            return weights, idx
+        with torch.cuda.device(dev):
+            build.launch("topk_router_f32", logits.data_ptr(),
+                         weights.data_ptr(), idx.data_ptr(), T, E, k,
+                         torch.cuda.current_stream().cuda_stream)
+        topk_router.launches += 1
         return weights, idx
-    with torch.cuda.device(dev):
-        build.launch("topk_router_f32", logits.data_ptr(), weights.data_ptr(),
-                     idx.data_ptr(), T, E, k,
-                     torch.cuda.current_stream().cuda_stream)
-    topk_router.launches += 1
-    return weights, idx
+
+    # the indices are integers: only the weights carry a gradient
+    return with_grad(launch, lambda x: ref.topk_router_ref(x, k), logits)
 
 
 topk_router.launches = 0

@@ -40,6 +40,8 @@ DECODE_EDGE = [(2, 4, 4, 256), (2, 8, 2, 256), (2, 16, 2, 256),
 FLASH_EDGE = [(2, 2, 100, 40), (4, 2, 8, 32), (2, 2, 8, 40)]
 PAGED = [(8, 2, 16, 4), (4, 4, 8, 6)]
 PAGED_OPTS = [(0.0, None), (30.0, None), (0.0, 20)]
+#: the paged engine's decode at full width (B = 32, 16-token pages)
+PAGED_PATH = (32, 32, 16, 16)
 
 
 def _jax():
@@ -99,6 +101,20 @@ def paged_inputs(H, Hkv, ps, Pseq, B=2, D=64, seed=0):
     return (_normal(r, (B, H, D)), _normal(r, (num_pages, ps, Hkv, D)),
             _normal(r, (num_pages, ps, Hkv, D)), bt.astype(np.int32),
             lengths.astype(np.int32))
+
+
+def empty_row_lengths(ps, Pseq):
+    """Rows the paged kernels treat apart: no token (every score -1e30,
+    so the mean of V over all the row's gathered slots), a last page
+    partly filled, and a full table."""
+    return np.array([0, Pseq * ps - ps // 2 - 1, Pseq * ps], np.int32)
+
+
+def mean_of_gathered_v(vp, bt_row, G):
+    """(H, Dv): the uniform mean of V over a row's gathered slots."""
+    Hkv, Dv = vp.shape[2], vp.shape[3]
+    mean = vp[bt_row].reshape(-1, Hkv, Dv).mean(0)
+    return np.repeat(mean, G, axis=0)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +206,30 @@ def test_paged_decode_attention_plain_matches_jax(H, Hkv, ps, Pseq, soft_cap,
     for fn in (jref.paged_decode_attention_ref, jops.paged_decode_attention):
         w = fn(*args, soft_cap=soft_cap, window=window)
         assert_allclose(_to_np(out), np.asarray(w, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("H,Hkv,ps,Pseq", PAGED)
+@pytest.mark.parametrize("soft_cap,window", PAGED_OPTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_attention_plain_matches_jax_on_empty_rows(
+        H, Hkv, ps, Pseq, soft_cap, window, dtype):
+    """A row with lengths 0 is the uniform mean of V over all its
+    gathered slots in the JAX oracle and the Pallas kernel, and so
+    here; beside it a partly filled last page and a full table."""
+    jnp, jops, jref = _jax()
+    q, kp, vp, bt, _ = paged_inputs(H, Hkv, ps, Pseq, B=3)
+    lengths = empty_row_lengths(ps, Pseq)
+    out = paged_decode_attention(
+        *(_tensor(a, dtype) for a in (q, kp, vp)), torch.as_tensor(bt),
+        torch.as_tensor(lengths), soft_cap=soft_cap, window=window)
+    qj, kj, vj = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, kp, vp))
+    args = (qj, kj, vj, jnp.asarray(bt), jnp.asarray(lengths))
+    for fn in (jref.paged_decode_attention_ref, jops.paged_decode_attention):
+        w = fn(*args, soft_cap=soft_cap, window=window)
+        assert_allclose(_to_np(out), np.asarray(w, np.float32), **TOL[dtype])
+    vq = _to_np(_tensor(vp, dtype))
+    assert_allclose(_to_np(out)[0], mean_of_gathered_v(vq, bt[0], H // Hkv),
+                    **TOL[dtype])
 
 
 def test_cpu_calls_do_not_count_launches():
@@ -366,6 +406,27 @@ def test_paged_decode_attention_kernel_matches_plain(
                                        window=window), paged_decode_attention)
     want = ref.paged_decode_attention_ref(q, kp, vp, bt, ln,
                                           soft_cap=soft_cap, window=window)
+    assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
+
+
+#: the zero-length, partly filled and full rows of ``empty_row_lengths``,
+#: pages scattered over the pool
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,ps,Pseq", PAGED + [PAGED_PATH])
+@pytest.mark.parametrize("soft_cap,window", PAGED_OPTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_attention_kernel_on_empty_rows(
+        cuda_device, H, Hkv, ps, Pseq, soft_cap, window, dtype):
+    q, kp, vp, bt, _ = paged_inputs(H, Hkv, ps, Pseq, B=3)
+    ln = empty_row_lengths(ps, Pseq)
+    q, kp, vp = (_tensor(a, dtype, cuda_device) for a in (q, kp, vp))
+    bt, ln = (torch.as_tensor(a, device=cuda_device) for a in (bt, ln))
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, ln,
+                                          soft_cap=soft_cap, window=window)
+    out = _launched_once(
+        lambda: paged_decode_attention(q, kp, vp, bt, ln, soft_cap=soft_cap,
+                                       window=window),
+        paged_decode_attention)
     assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
 
 

@@ -1,0 +1,333 @@
+"""The autograd boundary of the port's kernel wrappers
+(``repro_torch/kernels/_grad.py``).
+
+A CUDA kernel fills its output by a ctypes launch, which cuts the graph.
+``with_grad`` keeps the kernel's forward and differentiates the plain
+version in the backward.  On the CPU a stand-in "kernel", the plain
+version called under ``torch.no_grad()``, cuts the graph exactly as a
+launch does: through the helper, its gradients must equal the plain
+version's for each of the eight wrappers' signatures (same ops, same
+order: exact).  The cases marked ``cuda`` run each wrapper's kernel
+route on the card, with the launch counter as proof that the forward was
+the kernel's, and the smallest loss of the port's main path (the reduced
+GRU) against the CPU; they skip here."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _grad, ops, ref  # noqa: E402
+
+#: bf16 kernel outputs differ from the plain version's by rounding; the
+#: gradients are the plain version's on both routes, recomputed from the
+#: same inputs
+TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),
+       torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+
+
+def _normal(r, shape, scale=1.0):
+    return torch.as_tensor(r.normal(size=shape) * scale, dtype=torch.float32)
+
+
+def signatures(dtype=torch.float32):
+    """Per wrapper: (name, plain version over tensors, tensor inputs,
+    which of them are differentiable), at small shapes."""
+    r = np.random.default_rng(0)
+    n = lambda *s, scale=1.0: _normal(r, s, scale).to(dtype)  # noqa: E731
+    f32 = lambda *s, scale=1.0: _normal(r, s, scale)  # noqa: E731
+    B, Pseq, ps = 3, 3, 4
+    bt = torch.as_tensor(r.permutation(B * Pseq + 2)[:B * Pseq]
+                         .reshape(B, Pseq), dtype=torch.int32)
+    lengths = torch.tensor([0, 5, 12], dtype=torch.int32)
+    pool = B * Pseq + 2
+    valid = torch.as_tensor(r.uniform(size=(2, 16)) < 0.7)
+    valid[1] = False
+    return [
+        ("gru_seq", ref.gru_seq_ref,
+         (f32(2, 5, 3 * 8), f32(2, 8), f32(8, 3 * 8, scale=0.3)), (1, 1, 1)),
+        ("fedavg_reduce", ref.fedavg_reduce_ref,
+         (n(4, 33), torch.as_tensor(r.uniform(0.5, 2.0, 4),
+                                    dtype=torch.float32)), (1, 1)),
+        ("flash_attention",
+         lambda q, k, v: ref.flash_attention_ref(q, k, v, window=5),
+         (n(4, 9, 8), n(2, 9, 8), n(2, 9, 8)), (1, 1, 1)),
+        ("decode_attention", ref.decode_attention_ref,
+         (n(2, 4, 8), n(2, 16, 2, 8), n(2, 16, 2, 8), valid), (1, 1, 1, 0)),
+        ("paged_decode_attention",
+         lambda *t: ref.paged_decode_attention_ref(*t, soft_cap=5.0,
+                                                   window=6),
+         (n(B, 4, 8), n(pool, ps, 2, 8), n(pool, ps, 2, 8), bt, lengths),
+         (1, 1, 1, 0, 0)),
+        ("paged_mla_decode_attention",
+         lambda *t: ref.paged_mla_decode_attention_ref(*t, scale=0.2),
+         (n(B, 4, 16), n(B, 4, 8), n(pool, ps, 16), n(pool, ps, 8), bt,
+          lengths), (1, 1, 1, 1, 0, 0)),
+        ("topk_router", lambda x: ref.topk_router_ref(x, 3),
+         (f32(5, 8),), (1,)),
+        ("mamba_chunk_scan",
+         lambda *t: ref.mamba_chunk_scan_ref(*t, 8),
+         (n(1, 16, 2, 4), torch.as_tensor(r.uniform(0.01, 0.2, (1, 16, 2)),
+                                         dtype=torch.float32),
+          -torch.as_tensor(r.uniform(0.5, 2.0, 2), dtype=torch.float32),
+          n(1, 16, 4), n(1, 16, 4)), (1, 1, 1, 1, 1)),
+    ]
+
+
+SIGNATURES = [s[0] for s in signatures()]
+
+
+def _signature(name, dtype=torch.float32, device="cpu"):
+    for sig in signatures(dtype):
+        if sig[0] == name:
+            _, plain, inputs, diff = sig
+            return plain, [t.to(device) for t in inputs], diff
+
+
+def _leaves(inputs, diff):
+    return [t.detach().clone().requires_grad_(bool(d)) for t, d in
+            zip(inputs, diff)]
+
+
+def _grads(fn, inputs, diff, seed=1):
+    """Gradients of a fixed random weighting of ``fn``'s floating outputs
+    with respect to its differentiable inputs."""
+    out = fn(*inputs)
+    outs = out if isinstance(out, tuple) else (out,)
+    r = np.random.default_rng(seed)
+    loss = sum((o.float() * torch.as_tensor(
+        r.normal(size=tuple(o.shape)), dtype=torch.float32,
+        device=o.device)).sum() for o in outs if o.is_floating_point())
+    wrt = [t for t, d in zip(inputs, diff) if d]
+    return out, torch.autograd.grad(loss, wrt)
+
+
+def _stand_in(plain):
+    """The plain version with the graph cut, as a kernel launch cuts it."""
+    def kernel(*t):
+        with torch.no_grad():
+            return plain(*t)
+    return kernel
+
+
+@pytest.mark.parametrize("name", SIGNATURES)
+def test_stand_in_kernel_cuts_the_graph(name):
+    plain, inputs, diff = _signature(name)
+    out = _stand_in(plain)(*_leaves(inputs, diff))
+    outs = out if isinstance(out, tuple) else (out,)
+    assert not any(o.requires_grad for o in outs)
+
+
+@pytest.mark.parametrize("name", SIGNATURES)
+def test_helper_gradients_equal_the_plain_versions(name):
+    plain, inputs, diff = _signature(name)
+    want_out, want = _grads(plain, _leaves(inputs, diff), diff)
+    got_out, got = _grads(
+        lambda *t: _grad.with_grad(_stand_in(plain), plain, *t),
+        _leaves(inputs, diff), diff)
+    outs = got_out if isinstance(got_out, tuple) else (got_out,)
+    wants = want_out if isinstance(want_out, tuple) else (want_out,)
+    for o, w in zip(outs, wants):
+        assert torch.equal(o, w)
+        # integer outputs (the router's indices) stay out of the graph
+        assert o.requires_grad == o.is_floating_point()
+    assert len(got) == sum(diff)
+    for g, w in zip(got, want):
+        assert g is not None and torch.equal(g, w)
+        assert g.abs().max() > 0
+
+
+@pytest.mark.parametrize("name", ["mamba_chunk_scan", "topk_router"])
+def test_helper_takes_one_output_of_a_pair(name):
+    """A loss of only the first output: the second gets no gradient."""
+    plain, inputs, diff = _signature(name)
+    leaves = _leaves(inputs, diff)
+    first = _grad.with_grad(_stand_in(plain), plain, *leaves)[0]
+    got = torch.autograd.grad(first.sum(), leaves[0])[0]
+    again = _leaves(inputs, diff)
+    want = torch.autograd.grad(plain(*again)[0].sum(), again[0])[0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", SIGNATURES)
+def test_helper_is_not_entered_without_grad(monkeypatch, name):
+    def refuse(*args):
+        raise AssertionError("KernelGrad entered")
+    monkeypatch.setattr(_grad.KernelGrad, "apply", refuse)
+    plain, inputs, diff = _signature(name)
+    calls = []
+
+    def kernel(*t):
+        calls.append(1)
+        return _stand_in(plain)(*t)
+
+    # grad mode off, inputs requiring grad
+    with torch.no_grad():
+        _grad.with_grad(kernel, plain, *_leaves(inputs, diff))
+    # grad mode on, no input requiring grad
+    _grad.with_grad(kernel, plain, *inputs)
+    assert len(calls) == 2
+    assert not _grad.needs_graph(*inputs)
+    with torch.no_grad():
+        assert not _grad.needs_graph(*_leaves(inputs, diff))
+    assert _grad.needs_graph(*_leaves(inputs, diff))
+
+
+def jax_cases():
+    """(port wrapper, JAX ref, float inputs, integer inputs) for the
+    edges where PyTorch's and JAX's autodiff could part: a zero-length
+    paged row (every score -1e30, the uniform mean), a soft cap and a
+    window; MLA's zero-length row; flash with a window."""
+    from repro.kernels import ref as jref
+    r = np.random.default_rng(3)
+    f = lambda *s: r.normal(size=s).astype(np.float32)  # noqa: E731
+    B, Pseq, ps, pool = 3, 3, 4, 11
+    bt = r.permutation(pool)[:B * Pseq].reshape(B, Pseq).astype(np.int32)
+    lengths = np.array([0, 5, 12], np.int32)
+    return {
+        "paged_decode_attention": (
+            lambda *t: ops.paged_decode_attention(*t, soft_cap=5.0,
+                                                  window=6),
+            lambda *t: jref.paged_decode_attention_ref(*t, soft_cap=5.0,
+                                                       window=6),
+            (f(B, 4, 8), f(pool, ps, 2, 8), f(pool, ps, 2, 8)),
+            (bt, lengths)),
+        "paged_mla_decode_attention": (
+            lambda *t: ops.paged_mla_decode_attention(*t, scale=0.2),
+            lambda *t: jref.paged_mla_decode_attention_ref(*t, scale=0.2),
+            (f(B, 4, 16), f(B, 4, 8), f(pool, ps, 16), f(pool, ps, 8)),
+            (bt, lengths)),
+        "flash_attention": (
+            lambda *t: ops.flash_attention(*t, window=5),
+            lambda *t: jref.flash_attention_ref(*t, window=5),
+            (f(3, 9, 8), f(3, 9, 8), f(3, 9, 8)), ()),
+    }
+
+
+@pytest.mark.parametrize("name", ["paged_decode_attention",
+                                  "paged_mla_decode_attention",
+                                  "flash_attention"])
+def test_plain_gradients_match_jax(name):
+    """``jax.grad`` of the JAX ref against the port's gradients, through
+    the public wrapper (the plain version here) and through the helper
+    around a graph-cutting stand-in (the backward the card runs), fp32
+    within 3e-5."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    wrapper, jax_ref, floats, ints = jax_cases()[name]
+    weight = np.random.default_rng(4).normal(
+        size=tuple(wrapper(*(torch.as_tensor(a) for a in floats + ints))
+                   .shape)).astype(np.float32)
+    want = jax.grad(
+        lambda *x: (jax_ref(*x, *map(jnp.asarray, ints))
+                    * jnp.asarray(weight)).sum(),
+        argnums=tuple(range(len(floats))))(*map(jnp.asarray, floats))
+    stand_in = _stand_in(wrapper)
+    for fn in (wrapper, lambda *t: _grad.with_grad(stand_in, wrapper, *t)):
+        leaves = [torch.as_tensor(a).requires_grad_() for a in floats]
+        out = fn(*leaves, *(torch.as_tensor(a) for a in ints))
+        got = torch.autograd.grad((out * torch.as_tensor(weight)).sum(),
+                                  leaves)
+        for g, w in zip(got, want):
+            assert g.abs().max() > 0
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=3e-5,
+                                       rtol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# on the card: each wrapper's kernel route against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+WRAPPERS = {
+    "gru_seq": lambda *t: ops.gru_seq(*t),
+    "fedavg_reduce": lambda *t: ops.fedavg_reduce(*t),
+    "flash_attention": lambda *t: ops.flash_attention(*t, window=5),
+    "decode_attention": lambda *t: ops.decode_attention(*t),
+    "paged_decode_attention": lambda *t: ops.paged_decode_attention(
+        *t, soft_cap=5.0, window=6),
+    "paged_mla_decode_attention": lambda *t: ops.paged_mla_decode_attention(
+        *t, scale=0.2),
+    "topk_router": lambda x: ops.topk_router(x, 3),
+    "mamba_chunk_scan": lambda *t: ops.mamba_chunk_scan(*t, chunk=8),
+}
+#: the wrappers that take bf16 inputs on the card
+BF16 = ["fedavg_reduce", "flash_attention", "decode_attention",
+        "paged_decode_attention", "paged_mla_decode_attention",
+        "mamba_chunk_scan"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype",
+                         [(n, torch.float32) for n in SIGNATURES]
+                         + [(n, torch.bfloat16) for n in BF16])
+def test_kernel_route_gradients_match_the_plain_version(cuda_device, name,
+                                                        dtype):
+    plain, inputs, diff = _signature(name, dtype, cuda_device)
+    if name == "mamba_chunk_scan":      # dt and A stay fp32
+        inputs[1:3] = [t.float() for t in inputs[1:3]]
+    if name == "fedavg_reduce":         # weights stay fp32
+        inputs[1] = inputs[1].float()
+    kernel = getattr(ops, name)
+    before = kernel.launches
+    got_out, got = _grads(WRAPPERS[name], _leaves(inputs, diff), diff)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want_out, want = _grads(plain, _leaves(inputs, diff), diff)
+    outs = got_out if isinstance(got_out, tuple) else (got_out,)
+    wants = want_out if isinstance(want_out, tuple) else (want_out,)
+    for o, w in zip(outs, wants):
+        assert o.requires_grad == o.is_floating_point()
+        tol = TOL[dtype] if o.is_floating_point() else dict(atol=0, rtol=0)
+        torch.testing.assert_close(o.float(), w.float(), **tol)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+        assert g.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_kernel_route_without_grad_builds_no_graph(cuda_device):
+    plain, inputs, diff = _signature("flash_attention", device=cuda_device)
+    before = ops.flash_attention.launches
+    with torch.no_grad():
+        out = WRAPPERS["flash_attention"](*_leaves(inputs, diff))
+    assert out.grad_fn is None
+    assert ops.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+def test_reduced_gru_loss_differentiates_on_the_card(cuda_device, B):
+    """The smallest case of the fault this boundary repairs: the reduced
+    gru-traffic's loss on the card has a nonzero gradient at every leaf,
+    equal to the CPU's within 1e-4, with the forward in ``gru_seq``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path, tree_map
+    cfg = get_config("gru-traffic").reduced()
+    api = make_model(cfg)
+    cpu = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    r = np.random.default_rng(2)
+    batch = {"windows": r.normal(size=(B, 12, 1)),
+             "targets": r.normal(size=(B, 1))}
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = tree_map(lambda x: x.to(dev).requires_grad_(), cpu)
+        leaves = [x for _, x in flatten_with_path(params)]
+        b = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+             for k, v in batch.items()}
+        before = ops.gru_seq.launches
+        g = torch.autograd.grad(api.loss(params, b), leaves)
+        if dev.type == "cuda":
+            assert ops.gru_seq.launches == before + cfg.model.rnn_layers
+        grads[dev.type] = [x.cpu() for x in g]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

@@ -68,6 +68,28 @@ def test_loss_and_decode_step_match_jax(reduced):
     assert_allclose(tpred.numpy(), np.asarray(jpred), **TOL)
 
 
+@pytest.mark.parametrize("B", [1, 8])
+def test_loss_gradients_match_jax(B):
+    """``jax.grad`` of the reduced GRU's loss against the port's autograd
+    through the same function, every leaf, within the GRU kernels' 2e-5:
+    the target a loss on the card must reach through ``gru_seq``."""
+    jcfg, tcfg = _cfgs(True)
+    jparams, tparams = _carried(jcfg, seed=5)
+    w, y = _windows(B, seed=6)
+    want = jax.grad(jax_gru.mse_loss)(jparams, jcfg.model, jnp.asarray(w),
+                                      jnp.asarray(y))
+    leaves = [x.requires_grad_() for _, x in flatten_with_path(tparams)]
+    got = torch.autograd.grad(
+        gru.mse_loss(tparams, tcfg.model, torch.from_numpy(w),
+                     torch.from_numpy(y)), leaves)
+    jflat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [tuple(k.key for k in path) for path, _ in jflat] == \
+        [path for path, _ in flatten_with_path(tparams)]
+    for g, (_, jg) in zip(got, jflat):
+        assert g.abs().max() > 0
+        assert_allclose(g.numpy(), np.asarray(jg), atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("reduced", [True, False])
 def test_init_params_has_the_jax_tree(reduced):
     jcfg, tcfg = _cfgs(reduced)

@@ -134,7 +134,8 @@ def test_every_kernel_source_is_built_and_bound():
                      "decode_attention.cu", "paged_decode_attention.cu",
                      "paged_mla_decode_attention.cu", "topk_router.cu",
                      "mamba_chunk_scan.cu"}
-    assert {p.name for p in build.headers()} == {"attention_common.cuh"}
+    assert {p.name for p in build.headers()} == {"attention_common.cuh",
+                                                 "decode_rows.cuh"}
     text = "".join(p.read_text() for p in build.sources())
     for entry in build.SIGNATURES:
         assert f'extern "C" int {entry}(' in text

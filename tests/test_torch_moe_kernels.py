@@ -144,6 +144,39 @@ def test_paged_mla_decode_attention_plain_matches_jax(H, R, Dr, ps, Pseq,
         assert_allclose(_to_np(out), np.asarray(w, np.float32), **TOL[dtype])
 
 
+def empty_row_lengths(ps, Pseq):
+    """Rows the paged kernels treat apart: no token (every score -1e30,
+    so the mean of the latents over all the row's gathered slots), a last
+    page partly filled, and a full table."""
+    return [0, Pseq * ps - ps // 2 - 1, Pseq * ps]
+
+
+@pytest.mark.parametrize("H,R,Dr,ps,Pseq", MLA)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_mla_decode_attention_plain_matches_jax_on_empty_rows(
+        H, R, Dr, ps, Pseq, dtype):
+    """A row with lengths 0 is the uniform mean of the c_kv latents over
+    all its gathered slots in the JAX oracle and the Pallas kernel, and
+    so here."""
+    jnp, jops, jref = _jax()
+    qc, qr, ckv, kr, bt, ln = mla_inputs(
+        H, R, Dr, ps, Pseq, B=3, lengths=empty_row_lengths(ps, Pseq))
+    scale = 1.0 / np.sqrt(R + Dr)
+    out = paged_mla_decode_attention(
+        *(_tensor(a, dtype) for a in (qc, qr, ckv, kr)), torch.as_tensor(bt),
+        torch.as_tensor(ln), scale=scale)
+    args = tuple(jnp.asarray(a, getattr(jnp, dtype))
+                 for a in (qc, qr, ckv, kr)) + (jnp.asarray(bt),
+                                                jnp.asarray(ln))
+    for fn in (jref.paged_mla_decode_attention_ref,
+               jops.paged_mla_decode_attention):
+        w = fn(*args, scale=scale)
+        assert_allclose(_to_np(out), np.asarray(w, np.float32), **TOL[dtype])
+    latents = _to_np(_tensor(ckv, dtype))[bt[0]].reshape(-1, R).mean(0)
+    assert_allclose(_to_np(out)[0], np.broadcast_to(latents, (H, R)),
+                    **TOL[dtype])
+
+
 @pytest.mark.parametrize("BH,T,D,Dv", FLASH_MLA[:2])
 def test_flash_attention_plain_takes_mla_head_dims(BH, T, D, Dv):
     jnp, _, jref = _jax()
@@ -239,6 +272,36 @@ def test_paged_mla_decode_attention_kernel_matches_plain(
     want = ref.paged_mla_decode_attention_ref(qc, qr, ckv, kr, bt, ln,
                                               scale=scale)
     assert out.dtype == qc.dtype
+    assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
+
+
+#: the zero-length, partly filled and full rows of ``empty_row_lengths``,
+#: pages scattered over the pool; (20, 96, 0, 8, 5) has two head groups,
+#: (4, 40, 8, 4, 3) takes the CUDA-core kernel in bf16 too (R no multiple
+#: of 16).  On a 132-SM card the tensor-core kernel splits a row over 4
+#: blocks at B 3 (2 where the table has 2 or 3 chunks) and over none at
+#: B 48.
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,R,Dr,ps,Pseq", MLA + [MLA_PATH[0][1:],
+                                                  (20, 96, 0, 8, 5),
+                                                  (4, 40, 8, 4, 3)])
+@pytest.mark.parametrize("B", [3, 48])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_mla_decode_attention_kernel_on_empty_rows(
+        cuda_device, H, R, Dr, ps, Pseq, B, dtype):
+    qc, qr, ckv, kr, bt, ln = mla_inputs(
+        H, R, Dr, ps, Pseq, B=B,
+        lengths=np.resize(empty_row_lengths(ps, Pseq), B))
+    qc, qr, ckv, kr = (_tensor(a, dtype, cuda_device)
+                       for a in (qc, qr, ckv, kr))
+    bt, ln = (torch.as_tensor(a, device=cuda_device) for a in (bt, ln))
+    scale = 1.0 / np.sqrt(R + Dr + 128)
+    want = ref.paged_mla_decode_attention_ref(qc, qr, ckv, kr, bt, ln,
+                                              scale=scale)
+    out = _launched_once(
+        lambda: paged_mla_decode_attention(qc, qr, ckv, kr, bt, ln,
+                                           scale=scale),
+        paged_mla_decode_attention)
     assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
 
 
