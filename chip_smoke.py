@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout,
-reports what the attention kernels compiled to (tensor-core and 16-byte
-load instructions, registers, spills), holds each kernel against its
-plain PyTorch version on the card, differentiates the reduced GRU's loss
+reports what the attention kernels, the SSD scan and the router compiled
+to (tensor-core, 16-byte load and warp-reduction instructions, registers,
+spills), holds each kernel against its plain PyTorch version on the card
+(the router beside an empty kernel's launch floor), differentiates the
+reduced GRU's loss
 on the card through ``gru_seq`` against the CPU, then drives these paths
 through the entry points a user calls:
 
@@ -210,6 +212,20 @@ def device_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_split_ms(torch, fn, iters: int = 20) -> dict:
+    """Mean device ms a call of each kernel ``fn`` launches: ``iters``
+    calls under ``torch.profiler``, device activity only."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.device_time_total / 1e3 / iters
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def timings(torch, kernel, plain, library, iters: int, plain_iters: int):
     """Kernel, plain version and (where one exists, else None) the one
     PyTorch call that computes the same function."""
@@ -249,12 +265,17 @@ def phase_build():
 
 #: kernel functions whose compiled code the sass phase reports: the two
 #: GQA decode kernels (dense and paged), flash's bf16 (tensor-core) and
-#: fp32 (CUDA-core) kernels, and the MLA decode's bf16 tensor-core kernel
+#: fp32 (CUDA-core) kernels, the MLA decode's bf16 tensor-core kernel,
+#: the SSD scan's three kernels (every instance) and the router's
+#: register kernel
 SASS_KERNELS = ("decode_attention_kernel", "paged_decode_attention_kernel",
                 "flash_attention_wgmma_kernel", "flash_attention_kernel",
-                "paged_mla_decode_mma_kernel")
-#: opcodes the sass phase counts (``LDG.E.128``: 16-byte global loads)
-SASS_OPCODES = ("HGMMA", "HMMA", "LDG.E.128")
+                "paged_mla_decode_mma_kernel", "mamba_chunk_local_kernel",
+                "mamba_chunk_pass_kernel", "mamba_chunk_outputs_kernel",
+                "topk_router_kernel")
+#: opcodes the sass phase counts (``LDG.E.128``: 16-byte global loads;
+#: ``REDUX``: warp reductions in one instruction)
+SASS_OPCODES = ("HGMMA", "HMMA", "LDG.E.128", "REDUX")
 
 
 def ptxas_report(log: str) -> dict:
@@ -313,9 +334,11 @@ def phase_sass():
     """What the compiled attention kernels contain: per function (one per
     template instance) the tensor-core and 16-byte-load instructions that
     ``cuobjdump -sass`` lists, and registers and spills from ``ptxas
-    -v``.  Fails unless every bf16 flash instance and the bf16 MLA decode
-    kernel have tensor-core instructions and the vector instances of both
-    GQA decode kernels load K/V in 16 bytes."""
+    -v``.  Fails unless every bf16 flash instance, the bf16 MLA decode
+    kernel and the two product kernels of every bf16 tensor-core instance
+    of the SSD scan have tensor-core instructions, the vector instances of both GQA
+    decode kernels load K/V in 16 bytes, and every instance of the
+    router's register kernel selects with REDUX."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     listing = subprocess.run([str(cuobjdump), "-sass", str(build.build())],
@@ -332,6 +355,13 @@ def phase_sass():
                   if is_kernel(fn, name) and "Lb1E" in fn]
            for name in ("decode_attention_kernel",
                         "paged_decode_attention_kernel")}
+    # template <typename T, bool kTC, int NTP>: bf16 tensor-core instances
+    scan = [r for fn, r in rows.items()
+            if (is_kernel(fn, "mamba_chunk_local_kernel")
+                or is_kernel(fn, "mamba_chunk_outputs_kernel"))
+            and "13__nv_bfloat16Lb1E" in fn]
+    router = [r for fn, r in rows.items()
+              if is_kernel(fn, "topk_router_kernel")]
     checks = {"flash_bf16_on_tensor_cores": bool(tc) and all(
                   r["HGMMA"] > 0 for r in tc),
               "decode_16_byte_loads": bool(vec["decode_attention_kernel"])
@@ -342,7 +372,12 @@ def phase_sass():
                   r["LDG.E.128"] > 0
                   for r in vec["paged_decode_attention_kernel"]),
               "paged_mla_bf16_on_tensor_cores": bool(mla) and all(
-                  r["HMMA"] > 0 for r in mla)}
+                  r["HMMA"] > 0 for r in mla),
+              # two kernels x two widths of P
+              "mamba_scan_bf16_on_tensor_cores": len(scan) == 4 and all(
+                  r["HMMA"] > 0 for r in scan),
+              "topk_router_selects_with_redux": bool(router) and all(
+                  r["REDUX"] > 0 for r in router)}
     emit({"phase": "sass", "functions": rows, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"sass checks failed: "
@@ -731,14 +766,23 @@ def phase_attention_kernels(torch):
     return main
 
 
-def check_router(torch, rng, T, E, k, tie=False):
+def check_router(torch, rng, T, E, k, tie=False, rounding_tie=False):
     """topk_router at (T, E, k); with ``tie`` the first row's logits are
-    all equal, so every probability ties and the picks are 0..k-1."""
-    from repro_torch.kernels import ref
+    all equal, so every probability ties and the picks are 0..k-1; with
+    ``rounding_tie`` the first row's top two logits (experts 1 and 0)
+    have different exponentials but one probability (the rows of
+    tests/test_torch_moe_kernels.py's ``rounding_tie_logits``), so the
+    picks start 0, 1.  ``floor_ms``: an empty kernel on the router's
+    grid, timed as the router is, the time no kernel body can remove."""
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import topk_router as tr
     x = rng.normal(size=(T, E)).astype(np.float32)
     if tie:
         x[0] = 0.5
+    if rounding_tie:
+        x[0] = -200.0
+        x[0, :2] = -2.0 ** -24, 0.0
+        x[0, 2:11] = np.float32(-3 * np.log(2))
     logits = torch.as_tensor(x, device=DEVICE)
     w, i = tr.topk_router(logits, k)
     wr, ir = ref.topk_router_ref(logits, k)
@@ -747,6 +791,8 @@ def check_router(torch, rng, T, E, k, tie=False):
     same_idx = bool(torch.equal(i, ir))
     if tie:
         same_idx &= i[0].tolist() == list(range(k))
+    if rounding_tie:
+        same_idx &= i[0, :2].tolist() == [0, 1]
 
     def library():
         return torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
@@ -755,13 +801,18 @@ def check_router(torch, rng, T, E, k, tie=False):
     # and k scans over every logit
     nbytes, ops_ = 4 * T * E + 8 * T * k, T * E * (4 + k)
     bound_ms, bound_by = bound(nbytes, ops_)
+    def floor():
+        build.launch("topk_router_floor", T,
+                     torch.cuda.current_stream().cuda_stream)
+
     row = {"kernel": "topk_router", "shape": [T, E, k], "dtype": "float32",
-           "tie_row": tie, "max_abs_err": err, "tol": ROUTER_TOL,
-           "indices_equal": same_idx,
+           "tie_row": tie, "rounding_tie_row": rounding_tie,
+           "max_abs_err": err, "tol": ROUTER_TOL, "indices_equal": same_idx,
            "ok": bool(err <= ROUTER_TOL and same_idx),
            **timings(torch, lambda: tr.topk_router(logits, k),
                      lambda: ref.topk_router_ref(logits, k), library, 200,
                      20),
+           "floor_ms": device_ms(torch, floor, 200),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "flops": ops_}
     emit({"phase": "kernel_check", **row})
@@ -818,15 +869,19 @@ def phase_moe_kernels(torch):
     and 1 decode rows; absorbed-MLA paged decode at 16 heads, R 512, Dr
     64, 16-token pages, 57 to 64 cached tokens a row; flash at score dim
     192 and value dim 128), then the sweep shapes of tests/test_kernels.py
-    in fp32 and bf16, and a tie row for the router."""
+    in fp32 and bf16, and tie rows for the router (equal logits; a
+    rounding tie)."""
     rng = np.random.default_rng(SEED + 7)
     lens = lambda B: LM_PROMPT + 1 + np.arange(B) % LM_STEPS  # noqa: E731
     main = {}
     rows = [check_router(torch, rng, T, 64, 6) for T in (64, 32, 1)]
     main["topk_router"] = rows[0]
     rows += [check_router(torch, rng, T, E, k, tie)
-             for T, E, k in ((64, 16, 4), (128, 60, 4), (32, 64, 6))
+             for T, E, k in ((64, 16, 4), (128, 60, 4), (32, 64, 6),
+                             (1, 60, 4), (33, 60, 4), (7, 200, 8))
              for tie in (False, True)]
+    rows += [check_router(torch, rng, T, E, k, rounding_tie=True)
+             for T, E, k in ((64, 64, 6), (1, 60, 4), (33, 60, 4))]
     for B, pages in ((1, 16), (4, 16), (32, 128)):
         rows.append(check_paged_mla(torch, rng, B, 16, 512, 64, 16, 16,
                                     lens(B), pages, "bfloat16"))
@@ -1396,9 +1451,15 @@ def check_mamba_scan(torch, rng, B, L, H, P, N, Q, dtype_name):
         + 4 * (B * L * H + H + B * H * N * P)
     pairs = Q * (Q + 1)          # 2 x the causal pairs of a chunk
     flops = B * (L // Q) * (pairs * N + H * (pairs * P + 4 * Q * N * P))
-    bound_ms, bound_by = bound(nbytes, flops)
+    # the bf16 instance on the tensor cores (chunk and N multiples of 16,
+    # P of 8; csrc/mamba_chunk_scan.cu) is bound at their bf16 rate
+    tc = (dtype_name == "bfloat16" and ms.kernel_chunk(Q) % 16 == 0
+          and N % 16 == 0 and P % 8 == 0)
+    bound_ms, bound_by = bound(nbytes, flops,
+                               BF16_FLOP_PER_S if tc else FP32_FLOP_PER_S)
     row = {"kernel": "mamba_chunk_scan", "shape": [B, L, H, P, N, Q],
-           "dtype": dtype_name, "max_abs_err": err, "tol": tol,
+           "dtype": dtype_name, "tensor_cores": tc,
+           "max_abs_err": err, "tol": tol,
            "state_max_abs_err": state_err, "state_tol": SCAN_STATE_TOL,
            "ok": ok,
            **timings(torch, lambda: ms.mamba_chunk_scan(x, dt, A, Bm, Cm,
@@ -1406,7 +1467,12 @@ def check_mamba_scan(torch, rng, B, L, H, P, N, Q, dtype_name):
                      lambda: ref.mamba_chunk_scan_ref(x, dt, A, Bm, Cm, Q),
                      None, 50, 10),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "flops": flops}
+           "flops": flops,
+           # device ms a call of each of the kernel's three launches (local
+           # states, state pass, outputs)
+           "kernels_ms": kernel_split_ms(
+               torch, lambda: ms.mamba_chunk_scan(x, dt, A, Bm, Cm,
+                                                  chunk=Q))}
     emit({"phase": "kernel_check", **row})
     return row
 
@@ -1414,14 +1480,24 @@ def check_mamba_scan(torch, rng, B, L, H, P, N, Q, dtype_name):
 def phase_ssm_kernels(torch):
     """mamba_chunk_scan at the zamba2-1.2b forward's shape in bf16 (B 2,
     L 1024, 64 heads of P 64, N 64, chunk 128), then the sweep shapes
-    of tests/test_kernels.py in fp32; then flash_attention at the
-    forward's shape (BH 64, T 1024, D 64, bf16)."""
+    of tests/test_kernels.py in fp32 and a few edge shapes; then
+    flash_attention at the forward's shape (BH 64, T 1024, D 64,
+    bf16)."""
     rng = np.random.default_rng(SEED + 9)
     B, L = HYBRID_BATCH
     rows = [check_mamba_scan(torch, rng, B, L, 64, 64, 64, 128, "bfloat16")]
     rows += [check_mamba_scan(torch, rng, 2, *shape, "float32")
              for shape in ((128, 4, 16, 8, 32), (64, 2, 32, 16, 64),
                            (96, 8, 8, 8, 32))]
+    # the forward's shape at B 1, one chunk, H off the kernel's 4-head
+    # tile, P 40 on the tensor cores and N 8 off them; fp32 at the
+    # forward's widths (the parity cut's instance)
+    rows += [check_mamba_scan(torch, rng, *shape, dt)
+             for shape, dt in (((1, L, 64, 64, 64, 128), "bfloat16"),
+                               ((2, 128, 6, 64, 64, 128), "bfloat16"),
+                               ((2, 256, 3, 40, 32, 128), "bfloat16"),
+                               ((2, 128, 4, 16, 8, 32), "bfloat16"),
+                               ((2, 256, 64, 64, 64, 128), "float32"))]
     # the forward's shared attention: 2 x 32 heads of 64 over 1024 tokens
     # (window 4096 > T, so none)
     flash = check_flash(torch, rng, B * 32, B * 32, L, 64, 0, "bfloat16")
@@ -1717,7 +1793,8 @@ def kernel_entry(name, source, replaces, launches, row):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "call_ms": row["call_ms"], "shape": row["shape"],
-            "dtype": row["dtype"]}
+            "dtype": row["dtype"],
+            **({"floor_ms": row["floor_ms"]} if "floor_ms" in row else {})}
 
 
 def main() -> int:

@@ -42,7 +42,8 @@ SIGNATURES = {
     **{f"paged_mla_decode_attention_{t}": (_P,) * 7 + (_I,) * 6 + (_F, _P)
        for t in ("f32", "bf16")},
     "topk_router_f32": (_P, _P, _P, _I, _I, _I, _P),
-    **{f"mamba_chunk_scan_{t}": (_P,) * 7 + (_I,) * 6 + (_P,)
+    "topk_router_floor": (_I, _P),
+    **{f"mamba_chunk_scan_{t}": (_P,) * 8 + (_I,) * 6 + (_P,)
        for t in ("f32", "bf16")},
 }
 

@@ -16,21 +16,61 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels._grad import with_grad
 from repro_torch.kernels._checks import ENTRY_SUFFIX
 
-#: the kernel's limits: chunk rows and state / head dims it stages in
-#: registers and shared memory (csrc/mamba_chunk_scan.cu), and the
-#: shared memory a block may use on Hopper
+#: the kernel's limits (csrc/mamba_chunk_scan.cu): it runs chunks of at
+#: most 128 rows (a caller's chunk of 129 to 256 rows, if even, in two
+#: halves: the chunk only regroups the sum), state and head dims up to
+#: 128 in registers, and the shared memory a block may use on Hopper
 MAX_CHUNK = 256
+KERNEL_CHUNK = 128
 MAX_STATE_DIM = 128
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 232_448
 
 
-def smem_bytes(Q: int, N: int, P: int) -> int:
-    """Dynamic shared memory of one block of 16 warps: B and C of the
-    chunk (rows padded to N + 1 floats), u (Q x P), the state (N x P),
-    one 64-row tile of scores (rows padded to Q + 1), dt * A, its prefix
-    sums, the end-of-chunk decays and each warp's segment sums (Q each)."""
-    return 4 * (2 * Q * (N + 1) + Q * P + N * P + 64 * (Q + 1) + 19 * Q)
+def kernel_chunk(chunk: int) -> int:
+    """The chunk the kernel runs for a caller's ``chunk``: the same up to
+    128 rows, half of an even chunk up to 256; else 0 (not taken)."""
+    if 1 <= chunk <= KERNEL_CHUNK:
+        return chunk
+    if chunk <= MAX_CHUNK and chunk % 2 == 0:
+        return chunk // 2
+    return 0
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(Q: int, N: int, P: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory the kernel needs for its chunk Q and inputs
+    of ``itemsize`` bytes: the larger of its two staging kernels' blocks,
+    as csrc/mamba_chunk_scan.cu lays them out (rows padded by 16 bytes).
+    Local states: B (Q x N), one head's x (Q rows of 64 or 128) and dt,
+    then each warp's suffix sums and decay weights.  Outputs: B and C (Q
+    x N), each warp's suffix sums and two 16 x 17 tables, and one slot of
+    x, the entering state (N x P fp32; for bf16 its hi and lo bf16
+    planes, N rows of 64 or 128 each) and dt; the kernel takes a second
+    slot where it fits."""
+    pad = 16 // itemsize
+    warps = (Q + 15) // 16
+    xc = 64 if P <= 64 else 128
+    local = (_round16(itemsize * Q * (N + pad))
+             + _round16(itemsize * Q * (xc + pad)) + _round16(4 * Q)
+             + _round16(4 * ((N + 15) // 16) * (2 * Q + 1)))
+    outputs = (2 * _round16(itemsize * Q * (N + pad))
+               + _round16(4 * warps * (Q + 1 + 2 * 16 * 17))
+               + _round16(itemsize * Q * (xc + pad))
+               + _round16(4 * N * (P + 4 if itemsize == 4 else xc + 8))
+               + _round16(4 * Q))
+    return max(local, outputs)
+
+
+def scratch_floats(B: int, L: int, H: int, N: int, P: int, Q: int) -> int:
+    """The kernel's fp32 scratch for the kernel chunk Q: every chunk's
+    local end state, the state entering every chunk after the first, and
+    every chunk's decay."""
+    nc = L // Q
+    return (2 * nc - 1) * B * H * N * P + B * nc * H
 
 
 def mamba_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -72,26 +112,28 @@ def mamba_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"mamba_chunk_scan kernel needs contiguous "
                              f"{name}")
-    if (chunk > MAX_CHUNK or not 1 <= N <= MAX_STATE_DIM
-            or not 1 <= P <= MAX_HEAD_DIM
-            or smem_bytes(chunk, N, P) > MAX_SMEM_BYTES):
+    Q = kernel_chunk(chunk)
+    if (not Q or not 1 <= N <= MAX_STATE_DIM or not 1 <= P <= MAX_HEAD_DIM
+            or smem_bytes(Q, N, P, x.element_size()) > MAX_SMEM_BYTES):
         raise ValueError(
-            f"mamba_chunk_scan kernel takes chunk <= {MAX_CHUNK}, N <= "
-            f"{MAX_STATE_DIM}, P <= {MAX_HEAD_DIM} within "
-            f"{MAX_SMEM_BYTES} bytes of shared memory; got chunk {chunk}, "
-            f"N {N}, P {P}")
+            f"mamba_chunk_scan kernel takes chunk <= {KERNEL_CHUNK} (or an "
+            f"even chunk <= {MAX_CHUNK}), N <= {MAX_STATE_DIM}, P <= "
+            f"{MAX_HEAD_DIM} within {MAX_SMEM_BYTES} bytes of shared "
+            f"memory; got chunk {chunk}, N {N}, P {P}")
 
     def launch(x, dt, A, Bm, Cm):
         y = torch.empty_like(x)
         state = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
         if y.numel() == 0:
             return y, state.zero_()
+        scratch = torch.empty(scratch_floats(B, L, H, N, P, Q),
+                              dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             build.launch(f"mamba_chunk_scan_{ENTRY_SUFFIX[x.dtype]}",
                          x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                          Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                         state.data_ptr(), B, L, H, P, N, chunk,
-                         torch.cuda.current_stream().cuda_stream)
+                         state.data_ptr(), scratch.data_ptr(), B, L, H, P, N,
+                         Q, torch.cuda.current_stream().cuda_stream)
         mamba_chunk_scan.launches += 1
         return y, state
 

@@ -13,8 +13,8 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels._grad import with_grad
 
-#: largest expert count: 8 token rows of E fp32 probabilities in shared
-#: memory
+#: largest expert count: rows of up to 256 experts stay in registers,
+#: wider ones take 8 token rows of E fp32 probabilities in shared memory
 MAX_EXPERTS = 4096
 
 

@@ -184,10 +184,11 @@ def test_sass_counts_reads_opcodes_per_function():
         "\t\tFunction : _Z3ldgv\n"
         "        /*0010*/  @!P1 LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;\n"
         "        /*0020*/  LDG.E.64 R8, desc[UR4][R2.64] ;\n"
-        "        /*0030*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;\n")
+        "        /*0030*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
+        "        /*0040*/  REDUX.MAX.U32 UR5, R7 ;\n")
     assert _chip_smoke().sass_counts(listing) == {
-        "_Z3mmav": {"HGMMA": 0, "HMMA": 2, "LDG.E.128": 0},
-        "_Z3ldgv": {"HGMMA": 1, "HMMA": 0, "LDG.E.128": 1}}
+        "_Z3mmav": {"HGMMA": 0, "HMMA": 2, "LDG.E.128": 0, "REDUX": 0},
+        "_Z3ldgv": {"HGMMA": 1, "HMMA": 0, "LDG.E.128": 1, "REDUX": 1}}
 
 
 # ---------------------------------------------------------------------------

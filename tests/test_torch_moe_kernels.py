@@ -74,6 +74,22 @@ def router_logits(T, E, seed=0, tie_row=False):
     return x
 
 
+def rounding_tie_logits(T, E, seed=0):
+    """Normal logits whose row 0 has two top logits with different
+    exponentials but one probability: expert 0 at -2^-24 (exp 1 - 2^-24),
+    expert 1 at 0 (exp 1), nine at fp32(-3 ln 2) (exp 1/8), the rest at
+    -200 (exp 0).  Every partial sum of those exponentials rounds to one
+    total, 3.125, in any order, and 1 / 3.125 and (1 - 2^-24) / 3.125
+    round to one fp32 value: the tie goes to expert 0, while a choice on
+    the exponentials would take expert 1."""
+    x = _normal(np.random.default_rng(seed), (T, E))
+    x[0] = -200.0
+    x[0, 0] = -2.0 ** -24
+    x[0, 1] = 0.0
+    x[0, 2:11] = np.float32(-3 * np.log(2))
+    return x
+
+
 def mla_inputs(H, R, Dr, ps, Pseq, B=2, seed=0, lengths=None):
     """Distinct page ids per (row, page): a permutation of the pool (two
     spare pages), so the gather meets genuinely scattered pages."""
@@ -96,6 +112,28 @@ def flash_inputs(BH, T, D, Dv, seed=0):
 # ---------------------------------------------------------------------------
 # CPU: the plain versions against the JAX package
 # ---------------------------------------------------------------------------
+
+def test_rounding_tie_row_ties_only_after_the_division():
+    """The premise of the rounding-tie row, in the plain version's fp32
+    arithmetic: the two exponentials differ, their probabilities do not,
+    and the lower index is picked first."""
+    x = torch.as_tensor(rounding_tie_logits(2, 60))
+    e = torch.exp(x[0] - x[0].max())
+    p = e / e.sum()
+    assert e[0] < e[1] and p[0] == p[1] and e.sum().item() == 3.125
+    _, i = topk_router(x, 4)
+    assert i[0, :2].tolist() == [0, 1]
+
+
+@pytest.mark.parametrize("T,E,k", [(1, 60, 4), (33, 60, 4), (64, 64, 6)])
+def test_topk_router_plain_matches_jax_on_a_rounding_tie(T, E, k):
+    jnp, jops, _ = _jax()
+    x = rounding_tie_logits(T, E)
+    w, i = topk_router(torch.as_tensor(x), k)
+    wk, ik = jops.topk_router(jnp.asarray(x), k, bt=T)
+    assert_allclose(w.numpy(), np.asarray(wk), atol=1e-6)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ik))
+
 
 @pytest.mark.parametrize("T,E,k,bt", ROUTER)
 @pytest.mark.parametrize("tie_row", [False, True])
@@ -242,7 +280,8 @@ def _launched_once(fn, kernel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,E,k", [s[:3] for s in ROUTER] + ROUTER_PATH
-                         + [(3, 300, 8), (5, 4096, 2)])
+                         + [(3, 300, 8), (5, 4096, 2), (1, 60, 4),
+                            (33, 60, 4), (7, 200, 8), (2, 130, 3)])
 @pytest.mark.parametrize("tie_row", [False, True])
 def test_topk_router_kernel_matches_plain(cuda_device, T, E, k, tie_row):
     x = torch.as_tensor(router_logits(T, E, tie_row=tie_row and T > 1),
@@ -252,6 +291,41 @@ def test_topk_router_kernel_matches_plain(cuda_device, T, E, k, tie_row):
     assert w.dtype == torch.float32 and i.dtype == torch.int32
     assert_allclose(w.cpu().numpy(), wr.cpu().numpy(), atol=1e-6)
     np.testing.assert_array_equal(i.cpu().numpy(), ir.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k", [(1, 60, 4), (33, 60, 4), (64, 64, 6),
+                                   (9, 200, 6)])
+def test_topk_router_kernel_on_a_rounding_tie(cuda_device, T, E, k):
+    """Row 0's top two probabilities are one fp32 value from two
+    different exponentials: the kernel, like the plain version, picks
+    the lower index first."""
+    x = torch.as_tensor(rounding_tie_logits(T, E), device=cuda_device)
+    w, i = _launched_once(lambda: topk_router(x, k), topk_router)
+    wr, ir = ref.topk_router_ref(x, k)
+    assert i[0, :2].tolist() == [0, 1]
+    assert_allclose(w.cpu().numpy(), wr.cpu().numpy(), atol=1e-6)
+    np.testing.assert_array_equal(i.cpu().numpy(), ir.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [60, 64, 200, 300])
+def test_topk_router_kernel_keeps_nan_rows(cuda_device, E):
+    """A row with a NaN logit has only NaN probabilities: the kernel
+    records -inf and index E in every round, as it always has (the plain
+    version's argmax would pick the NaN); the other rows are unharmed."""
+    x = router_logits(5, E)
+    x[1, 3] = np.nan
+    x[3, :] = np.nan
+    xt = torch.as_tensor(x, device=cuda_device)
+    w, i = _launched_once(lambda: topk_router(xt, 4), topk_router)
+    for row in (1, 3):
+        assert torch.equal(w[row].cpu(), torch.full((4,), -np.inf))
+        assert i[row].tolist() == [E] * 4
+    keep = [0, 2, 4]
+    wr, ir = ref.topk_router_ref(xt[keep], 4)
+    assert_allclose(w[keep].cpu().numpy(), wr.cpu().numpy(), atol=1e-6)
+    np.testing.assert_array_equal(i[keep].cpu().numpy(), ir.cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -183,6 +183,101 @@ def test_ssd_chunked_decays_keep_fp32_precision():
     assert np.abs(s.numpy() - sr).max() <= PRECISION_TOL * np.abs(sr).max()
 
 
+def _split_bf16(v, terms=2):
+    """An fp32 operand as the tensor-core kernel feeds it: hi = bf16(v),
+    lo = bf16(v - hi), both rounded to nearest even, as fp32 values
+    (``terms=1``: hi alone)."""
+    hi = v.bfloat16().float()
+    return (hi, (v - hi).bfloat16().float())[:terms]
+
+
+def kernel_arithmetic(x, dt, A, Bm, Cm, chunk, terms=2):
+    """The bf16 tensor-core instance of ``csrc/mamba_chunk_scan.cu``, its
+    arithmetic in plain torch: the kernel's chunk (``kernel_chunk``), per
+    chunk C.B^T of the bf16 values (exact products, fp32 sums); the local
+    state B^T (w o x) with w_j = exp(seg(j, Q-1]) dt_j folded into B and
+    split into hi and lo bf16 terms; the state pass S <- exp(seg(-1, Q-1])
+    S + local over the chunks; y = exp(seg(-1, i]) C . (S_hi + S_lo) +
+    (scores_hi + scores_lo) . x with scores = C.B^T o exp(seg(j, i]) o
+    dt_j.  Every product has one operand that is bf16 as stored and one
+    that is a bf16 term, so it is exact in fp32, as in the tensor cores;
+    only the order of the fp32 sums differs from the kernel's.  ``terms=1``
+    rounds each fp32 operand to bf16 once instead."""
+    from repro_torch.kernels.mamba_scan import kernel_chunk
+    B, L, H, P = x.shape
+    Q = kernel_chunk(chunk)
+    c = L // Q
+    xf, Bf, Cf = (t.float() for t in (x, Bm, Cm))
+    la = (dt * A).reshape(B, c, Q, H)
+    seg = ssm._segsum(la)                          # (B, c, i, j, H)
+    decay = torch.exp(seg).permute(0, 1, 4, 2, 3)  # (B, c, H, i, j)
+    dtc = dt.reshape(B, c, Q, H).permute(0, 1, 3, 2)       # (B, c, H, j)
+    xc = xf.reshape(B, c, Q, H, P).permute(0, 1, 3, 2, 4)  # (B, c, H, j, P)
+    Bc, Cc = Bf.reshape(B, c, Q, -1), Cf.reshape(B, c, Q, -1)
+    # the state pass: B o w as hi and lo terms against x
+    w = decay[..., -1, :] * dtc                              # (B, c, H, j)
+    local = sum(torch.einsum("bchjn,bchjp->bchnp", t, xc)
+                for t in _split_bf16(Bc[:, :, None] * w[..., None], terms))
+    a_chunk = torch.exp(la.sum(dim=2))                       # (B, c, H)
+    s = torch.zeros_like(local[:, 0])
+    enter = []
+    for k in range(c):
+        enter.append(s)
+        s = a_chunk[:, k, :, None, None] * s + local[:, k]
+    enter = torch.stack(enter, dim=1)                        # (B, c, H, N, P)
+    # the outputs: C . S_enter, then the causal scores against x
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    inter = sum(torch.einsum("bcin,bchnp->bchip", Cc, t)
+                for t in _split_bf16(enter, terms))
+    cum = torch.exp(torch.cumsum(la, dim=2)).permute(0, 1, 3, 2)
+    scores = cb[:, :, None] * decay * dtc[..., None, :]
+    intra = sum(torch.einsum("bchij,bchjp->bchip", t, xc)
+                for t in _split_bf16(scores, terms))
+    y = cum[..., None] * inter + intra                       # (B, c, H, i, P)
+    y = y.permute(0, 1, 3, 2, 4).reshape(B, L, H, P)
+    return y.to(x.dtype), s
+
+
+@pytest.mark.parametrize("L,H,P,N,chunk",
+                         SWEEP + [(256, 4, 64, 64, 128), (512, 2, 64, 64, 256)])
+def test_tensor_core_arithmetic_meets_the_gates(L, H, P, N, chunk):
+    """The bf16 tensor-core recipe (hi / lo bf16 terms of every fp32
+    operand) on bf16 inputs, against the JAX oracle and the Pallas kernel
+    in interpret mode on the same (bf16-rounded) values: y within bf16's
+    3e-2, the fp32 state within 5e-4, the gates chip_smoke.py holds the
+    kernel to.  The sweep shapes and zamba2's widths (P 64, N 64, chunk
+    128, two chunks; and a 256-row chunk, which the kernel halves)."""
+    jnp, jops, jref, _ = _jax()
+    x, dt, A, Bm, Cm = (torch.as_tensor(a) for a in
+                        scan_inputs(2, L, H, P, N, seed=4))
+    x, Bm, Cm = (t.bfloat16() for t in (x, Bm, Cm))
+    y, s = kernel_arithmetic(x, dt, A, Bm, Cm, chunk)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    args = [jnp.asarray(t.float().numpy()) for t in (x, dt, A, Bm, Cm)]
+    wants = [jref.mamba_chunk_ref(*args[:3], args[3][:, :, None],
+                                  args[4][:, :, None], chunk)]
+    if L <= 128:
+        wants.append(jops.mamba_chunk_scan(*args, chunk=chunk))
+    for want_y, want_s in wants:
+        assert_allclose(_np(y), np.asarray(want_y), atol=3e-2, rtol=3e-2)
+        assert_allclose(s.numpy(), np.asarray(want_s), **KERNEL_TOL)
+
+
+def test_tensor_core_arithmetic_is_closer_than_the_gates():
+    """The recipe keeps ~16 bits of each fp32 operand: at zamba2's widths
+    its state lies within 2e-5 (relative to the largest entry) of the
+    plain fp32 scan on the same bf16 inputs, 25x inside the 5e-4 gate;
+    rounding the fp32 operands to bf16 once (hi alone) does not."""
+    x, dt, A, Bm, Cm = (torch.as_tensor(a) for a in
+                        scan_inputs(1, 256, 4, 64, 64, seed=6))
+    x, Bm, Cm = (t.bfloat16() for t in (x, Bm, Cm))
+    _, sr = ref.mamba_chunk_scan_ref(x, dt, A, Bm, Cm, 128)
+    scale = sr.abs().max().item()
+    errs = [(kernel_arithmetic(x, dt, A, Bm, Cm, 128, terms)[1] - sr)
+            .abs().max().item() / scale for terms in (2, 1)]
+    assert errs[0] <= 2e-5 < errs[1]
+
+
 @pytest.mark.parametrize("G", [1, 2])
 @pytest.mark.parametrize("with_init", [False, True])
 def test_ssd_chunked_matches_jax(G, with_init):
@@ -330,12 +425,18 @@ def test_wrapper_checks_shapes():
 
 def test_kernel_limits_fit_shared_memory():
     """The full-width zamba2 shape (Q 128, N 64, P 64) fits a block's
-    shared memory on Hopper, with room for the largest P at its N; the
-    largest Q, N and P together do not, and the wrapper checks it."""
-    from repro_torch.kernels import mamba_scan
-    assert mamba_scan.smem_bytes(128, 64, 64) < mamba_scan.MAX_SMEM_BYTES
-    assert mamba_scan.smem_bytes(128, 64, 128) < mamba_scan.MAX_SMEM_BYTES
-    assert mamba_scan.smem_bytes(256, 128, 128) > mamba_scan.MAX_SMEM_BYTES
+    shared memory on Hopper in fp32 and bf16, with room for the largest P
+    at its N; the kernel runs a 256-row chunk as two of 128, so the
+    largest N and P fit in bf16 but not in fp32, and the wrapper checks
+    it."""
+    from repro_torch.kernels import mamba_scan as ms
+    assert [ms.kernel_chunk(q) for q in (1, 50, 128, 130, 256, 129, 258)] \
+        == [1, 50, 128, 65, 128, 0, 0]
+    for itemsize in (4, 2):
+        assert ms.smem_bytes(128, 64, 64, itemsize) < ms.MAX_SMEM_BYTES
+        assert ms.smem_bytes(128, 64, 128, itemsize) < ms.MAX_SMEM_BYTES
+    assert ms.smem_bytes(128, 128, 128, 2) < ms.MAX_SMEM_BYTES
+    assert ms.smem_bytes(128, 128, 128, 4) > ms.MAX_SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +461,14 @@ def _on(dev, arrays, dtype=torch.float32):
 @pytest.mark.parametrize("B,L,H,P,N,chunk",
                          [(2, *s) for s in SWEEP + MODEL_SHAPES]
                          + [(1, 12, 3, 5, 7, 12), (3, 100, 2, 128, 16, 50),
-                            (1, 512, 2, 64, 32, 256)])
+                            (1, 512, 2, 64, 32, 256)]
+                         # one chunk; H off the kernel's 4-head tile; N 8
+                         # and P 16 / 40 (40: the tensor cores' P); the
+                         # zamba2 forward's shape at B 1
+                         + [(2, 128, 4, 64, 64, 128), (1, 256, 6, 64, 64, 128),
+                            (2, 256, 1, 64, 64, 128), (2, 128, 3, 16, 8, 64),
+                            (2, 256, 3, 40, 32, 128), (1, 96, 5, 40, 24, 48),
+                            (1, 1024, 64, 64, 64, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_chunk_scan_kernel_matches_plain(cuda_device, B, L, H, P, N,
                                                chunk, dtype):
