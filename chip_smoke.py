@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout,
-reports what the attention kernels, the SSD scan and the router compiled
-to (tensor-core, 16-byte load and warp-reduction instructions, registers,
-spills), holds each kernel against its plain PyTorch version on the card
-(the router beside an empty kernel's launch floor), differentiates the
-reduced GRU's loss
+reports what the attention kernels, the SSD scan, the router and the
+GRU's cluster kernel compiled to (tensor-core, 16-byte load,
+warp-reduction and cluster-barrier instructions, registers, spills),
+holds each kernel against its plain PyTorch version on the card (the
+router beside an empty kernel's launch floor, the GRU beside a kernel
+that only exchanges its state), differentiates the reduced GRU's loss
 on the card through ``gru_seq`` against the CPU, then drives these paths
 through the entry points a user calls:
 
@@ -266,16 +267,18 @@ def phase_build():
 #: kernel functions whose compiled code the sass phase reports: the two
 #: GQA decode kernels (dense and paged), flash's bf16 (tensor-core) and
 #: fp32 (CUDA-core) kernels, the MLA decode's bf16 tensor-core kernel,
-#: the SSD scan's three kernels (every instance) and the router's
-#: register kernel
+#: the SSD scan's three kernels (every instance), the router's register
+#: kernel and the GRU's cluster kernel (every instance)
 SASS_KERNELS = ("decode_attention_kernel", "paged_decode_attention_kernel",
                 "flash_attention_wgmma_kernel", "flash_attention_kernel",
                 "paged_mla_decode_mma_kernel", "mamba_chunk_local_kernel",
                 "mamba_chunk_pass_kernel", "mamba_chunk_outputs_kernel",
-                "topk_router_kernel")
+                "topk_router_kernel", "gru_seq_cluster_kernel")
 #: opcodes the sass phase counts (``LDG.E.128``: 16-byte global loads;
-#: ``REDUX``: warp reductions in one instruction)
-SASS_OPCODES = ("HGMMA", "HMMA", "LDG.E.128", "REDUX")
+#: ``REDUX``: warp reductions in one instruction; ``UCGABAR_ARV``: the
+#: arrival at a cluster barrier, what ``barrier.cluster.arrive``
+#: compiles to on sm_90a)
+SASS_OPCODES = ("HGMMA", "HMMA", "LDG.E.128", "REDUX", "UCGABAR_ARV")
 
 
 def ptxas_report(log: str) -> dict:
@@ -337,8 +340,10 @@ def phase_sass():
     -v``.  Fails unless every bf16 flash instance, the bf16 MLA decode
     kernel and the two product kernels of every bf16 tensor-core instance
     of the SSD scan have tensor-core instructions, the vector instances of both GQA
-    decode kernels load K/V in 16 bytes, and every instance of the
-    router's register kernel selects with REDUX."""
+    decode kernels load K/V in 16 bytes, every instance of the
+    router's register kernel selects with REDUX, and every instance of
+    the GRU's cluster kernel has its cluster barrier and spills
+    nothing."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     listing = subprocess.run([str(cuobjdump), "-sass", str(build.build())],
@@ -362,6 +367,8 @@ def phase_sass():
             and "13__nv_bfloat16Lb1E" in fn]
     router = [r for fn, r in rows.items()
               if is_kernel(fn, "topk_router_kernel")]
+    gru = [r for fn, r in rows.items()
+           if is_kernel(fn, "gru_seq_cluster_kernel")]
     checks = {"flash_bf16_on_tensor_cores": bool(tc) and all(
                   r["HGMMA"] > 0 for r in tc),
               "decode_16_byte_loads": bool(vec["decode_attention_kernel"])
@@ -377,7 +384,12 @@ def phase_sass():
               "mamba_scan_bf16_on_tensor_cores": len(scan) == 4 and all(
                   r["HMMA"] > 0 for r in scan),
               "topk_router_selects_with_redux": bool(router) and all(
-                  r["REDUX"] > 0 for r in router)}
+                  r["REDUX"] > 0 for r in router),
+              "gru_seq_cluster_barrier": bool(gru) and all(
+                  r["UCGABAR_ARV"] > 0 for r in gru),
+              "gru_seq_cluster_no_spills": bool(gru) and all(
+                  r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                  for r in gru)}
     emit({"phase": "sass", "functions": rows, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"sass checks failed: "
@@ -385,7 +397,12 @@ def phase_sass():
 
 
 def check_gru_seq(torch, rng, B, T, h):
-    from repro_torch.kernels import gru_cell, ref
+    """gru_seq at (B, T, h); at a width the cluster instance runs,
+    ``floor_ms`` times its exchange-only kernel on the same grid and
+    cluster shape (the state's stores through distributed shared memory
+    and the waits for them, T steps, no gate math), timed as the kernel
+    is: the least time any body of the recurrence can take there."""
+    from repro_torch.kernels import build, gru_cell, ref
     dev = torch.device(DEVICE)
     xw = torch.as_tensor(rng.normal(size=(B, T, 3 * h)), dtype=torch.float32,
                          device=dev)
@@ -415,12 +432,22 @@ def check_gru_seq(torch, rng, B, T, h):
         nbytes = 4 * (B * T * 3 * h + B * h + h * 3 * h + B * T * h)
         bound_ms, bound_by = bound(nbytes, 2 * B * T * h * 3 * h)
         row = {"kernel": "gru_seq", "shape": [B, T, h], "dtype": "float32",
+               "instance": gru_cell.instance(h),
                "max_abs_err": err, "tol": GRU_TOL, "ok": ok,
                **timings(torch, lambda: gru_cell.gru_seq(xw, h0, w_h),
                          lambda: ref.gru_seq_ref(xw, h0, w_h), library,
                          200, 20),
                "library_max_abs_err": lib_err,
                "bound_ms": bound_ms, "bound_by": bound_by}
+    if row["instance"] == "cluster":
+        S, bb = gru_cell.cluster_shape(B, h)
+        scratch = torch.empty_like(out)
+
+        def floor():
+            build.launch("gru_seq_floor", scratch.data_ptr(), B, T, h, S, bb,
+                         torch.cuda.current_stream().cuda_stream)
+
+        row.update(cluster=[S, bb], floor_ms=device_ms(torch, floor, 200))
     emit({"phase": "kernel_check", **row})
     return row
 
@@ -459,8 +486,11 @@ def phase_kernels(torch, n_params):
     gru_rows = [check_gru_seq(torch, rng, B, HISTORY, 128)
                 for B in TIER_BATCH.values()]
     # the tests/test_kernels.py sweep shape T=24, h=64, at B=6, which that
-    # test's batch block bb=4 does not divide
+    # test's batch block bb=4 does not divide; the reduced tiers' width;
+    # a width past the cluster instance's, in the general instance
     gru_rows.append(check_gru_seq(torch, rng, 6, 24, 64))
+    gru_rows.append(check_gru_seq(torch, rng, 8, HISTORY, 32))
+    gru_rows.append(check_gru_seq(torch, rng, 3, 5, 1024))
     shapes = [(len(CLUSTER_IDS), n_params, "float32"),
               (len(CLUSTER_IDS), n_params, "bfloat16")]
     shapes += [(int(c), n_params, "float32")
@@ -1068,6 +1098,9 @@ def phase_profile(torch, pool, measured, batches: int = 20):
             "tier_ms": tier_ms, "device_ms": device_ms or None,
             "device_idle_share": (1.0 - device_ms / tier_ms
                                   if device_ms else None),
+            # the forward's two recurrences (one a layer)
+            "gru_seq_ms": sum(v for k, v in kernels.items()
+                              if "gru_seq" in k),
             "kernels_ms": dict(sorted(kernels.items(),
                                       key=lambda kv: -kv[1])[:6])}
     emit({"phase": "profile", "per_request_batch": out})

@@ -31,6 +31,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 #: C signature of every kernel entry point: (argtypes); all return int
 SIGNATURES = {
     "gru_seq_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "gru_seq_cluster_f32": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
+    "gru_seq_floor": (_P,) + (_I,) * 5 + (_P,),
     "fedavg_reduce_f32": (_P, _P, _P, _I, _L, _P),
     "fedavg_reduce_bf16": (_P, _P, _P, _I, _L, _P),
     **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 7 + (_P,)

@@ -185,10 +185,14 @@ def test_sass_counts_reads_opcodes_per_function():
         "        /*0010*/  @!P1 LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;\n"
         "        /*0020*/  LDG.E.64 R8, desc[UR4][R2.64] ;\n"
         "        /*0030*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
-        "        /*0040*/  REDUX.MAX.U32 UR5, R7 ;\n")
+        "        /*0040*/  REDUX.MAX.U32 UR5, R7 ;\n"
+        "        /*0050*/  UCGABAR_ARV ;\n"
+        "        /*0060*/  UCGABAR_WAIT ;\n")
     assert _chip_smoke().sass_counts(listing) == {
-        "_Z3mmav": {"HGMMA": 0, "HMMA": 2, "LDG.E.128": 0, "REDUX": 0},
-        "_Z3ldgv": {"HGMMA": 1, "HMMA": 0, "LDG.E.128": 1, "REDUX": 1}}
+        "_Z3mmav": {"HGMMA": 0, "HMMA": 2, "LDG.E.128": 0, "REDUX": 0,
+                    "UCGABAR_ARV": 0},
+        "_Z3ldgv": {"HGMMA": 1, "HMMA": 0, "LDG.E.128": 1, "REDUX": 1,
+                    "UCGABAR_ARV": 1}}
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +210,19 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,h", [(1, 12, 128), (4, 12, 128),
                                    (16, 12, 128), (6, 24, 64),
-                                   (8, 12, 32), (3, 5, 1024)])
+                                   (8, 12, 32), (3, 5, 1024),
+                                   # B no multiple of the rows a cluster runs
+                                   (5, 12, 128), (17, 12, 128),
+                                   # one step: no exchange
+                                   (4, 1, 128),
+                                   # more clusters than one wave of the SMs
+                                   (256, 12, 128),
+                                   # the cluster instance's widest h, the
+                                   # first general one, and an h that
+                                   # divides neither 16 lanes nor S
+                                   (3, 7, gru_cell.CLUSTER_MAX_HIDDEN),
+                                   (3, 7, gru_cell.CLUSTER_MAX_HIDDEN + 1),
+                                   (7, 9, 100)])
 def test_gru_seq_kernel_matches_plain(cuda_device, B, T, h):
     xw, h0, wh = (torch.from_numpy(a).to(cuda_device)
                   for a in _gru_inputs(B, T, h))
