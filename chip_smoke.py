@@ -17,6 +17,14 @@ through the entry points a user calls:
   from the global model, and the latency model calibrated from the
   pool's timings, every result held against the same functions on the
   CPU, where the wrappers take the kernels' plain versions;
+- the paper's training pipeline at full width (the quickstart's steps
+  on Fig. 6's 20 clients): HFLOP clustering, one local and one global
+  round of continual hierarchical FedAvg, every
+  minibatch and validation forward in ``gru_seq`` and every aggregation
+  in ``fedavg_reduce``, held against the same run on the CPU from the
+  same numpy model and minibatch orders; a profile of one training step;
+  the routing simulator with its default latencies and calibrated from
+  the deployment's replica pool;
 - LM replica serving of stablelm-1.6b at its published width (24
   layers, d 2048, bf16, random weights from a seed): the dense tiers
   (``lm_tiers``) and the paged tiers (``paged_lm_tiers``) on one shared
@@ -85,6 +93,18 @@ CLUSTER_IDS = np.array([0] * 8 + [1] * 7 + [3] * 5)
 TIER_BATCH = {"device": 1, "edge": 4, "cloud": 16}
 HISTORY = 12
 BATCHES_PER_TIER = 3
+#: the HFL slice: the paper's Fig. 6 setup (20 clients, 5 a geographic
+#: cluster, 5 local epochs, batch 16, lr 1e-4, l = 2) for one local and
+#: one global round of hierarchical FedAvg; each epoch cut to 4
+#: minibatches, the validation week to 128 windows a client.  Card
+#: against CPU: val MSE within 1e-4 relative, parameters within 1e-4
+#: absolute
+HFL_PER_CLUSTER = 5
+HFL_RUN = dict(rounds=2, local_epochs=5, batch_size=16, lr=1e-4,
+               max_batches=4, max_val_windows=128)
+HFL_TOL = 1e-4
+HFL_SIM_S = 60
+HFL_PROFILE_STEPS = 20
 #: attention kernels against their plain versions: tests/test_kernels.py
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 #: the LM slice: stablelm-1.6b at full width, 8 tokens per request, two
@@ -491,6 +511,10 @@ def phase_kernels(torch, n_params):
     gru_rows.append(check_gru_seq(torch, rng, 6, 24, 64))
     gru_rows.append(check_gru_seq(torch, rng, 8, HISTORY, 32))
     gru_rows.append(check_gru_seq(torch, rng, 3, 5, 1024))
+    # the HFL slice's validation forwards: one a client, max_val_windows
+    # rows (128 in the slice, 512 by default)
+    gru_rows += [check_gru_seq(torch, rng, B, HISTORY, 128)
+                 for B in (128, 512)]
     shapes = [(len(CLUSTER_IDS), n_params, "float32"),
               (len(CLUSTER_IDS), n_params, "bfloat16")]
     shapes += [(int(c), n_params, "float32")
@@ -1106,6 +1130,194 @@ def phase_profile(torch, pool, measured, batches: int = 20):
     emit({"phase": "profile", "per_request_batch": out})
 
 
+def hfl_deployment(data, orch, serving, device):
+    """The quickstart's inventory over the slice's 20 sensors, clustered by
+    HFLOP (l = 2), with one full-width GRU replica per tier on
+    ``device``."""
+    ds = data.generate(num_days=30, seed=SEED)
+    sensors = data.select_fl_sensors(ds, per_cluster=HFL_PER_CLUSTER,
+                                     seed=SEED)
+    lam = np.random.default_rng(SEED).uniform(2.0, 6.0, len(sensors))
+    devices = [orch.DeviceNode(i, lam=float(lam[i]),
+                               lan_edge=int(ds.cluster_of[sensors[i]]))
+               for i in range(len(sensors))]
+    edges = [orch.EdgeNode(j, capacity_rps=float(lam.sum() / 4 * 1.4))
+             for j in range(4)]
+    tiers = [serving.TierSpec(t, batch_size=b, reduced=False)
+             for t, b in TIER_BATCH.items()]
+    controller = orch.LearningController(
+        orch.Inventory(devices, edges), l=2, serving_tiers=tiers,
+        device=device)
+    return ds, sensors, controller, controller.deploy()
+
+
+def numpy_permutations(torch, seed):
+    """A ``permutations`` callable drawing with numpy from ``seed``, one
+    draw per round however often the round is asked for, so that two
+    runs in turn train on the same minibatch orders.  ``draw.drawn``
+    holds the draws by round."""
+    rng = np.random.default_rng(seed)
+
+    def draw(t, C, epochs, N):
+        if t not in draw.drawn:
+            draw.drawn[t] = np.stack([[rng.permutation(N)
+                                       for _ in range(epochs)]
+                                      for _ in range(C)])
+        return torch.from_numpy(draw.drawn[t])
+
+    draw.drawn = {}
+    return draw
+
+
+def phase_hfl(torch):
+    """The paper's training pipeline through the entry points a user
+    calls: HFLOP clustering, continual hierarchical FedAvg of the
+    full-width GRU (every forward in ``gru_seq``, every aggregation in
+    ``fedavg_reduce``) on the card and on the CPU from the same numpy
+    model and minibatch orders; ``fedavg_reduce`` held against its plain
+    version at every shape the run gave it; a profile of one training
+    step; the routing simulator with its default latencies and
+    calibrated from the deployment's replicas."""
+    from repro_torch import data, orchestration, serving
+    from repro_torch.configs import get_config
+    from repro_torch.fl import client
+    from repro_torch.fl.hierarchy import ContinualHFL, HFLRunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.params import tree_map
+    from repro_torch.routing import LatencyModel, SimConfig, compare_methods
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gru-traffic")
+    m = cfg.model
+    ds, sensors, controller, deployment = hfl_deployment(
+        data, orchestration, serving, DEVICE)
+    topo = deployment.topology
+    params0 = tree_map(lambda x: x[0], numpy_clients(
+        np.random.default_rng(SEED + 4), m, 1))
+    run = HFLRunConfig(**HFL_RUN)
+    perms = numpy_permutations(torch, SEED + 5)
+
+    def train(device):
+        hfl = ContinualHFL(cfg, ds, sensors, topo, run, mode="hier",
+                           params0=params0, permutations=perms,
+                           device=device)
+        t0 = time.perf_counter()
+        res = hfl.run_rounds()
+        if device == DEVICE:
+            torch.cuda.synchronize()
+        return hfl, res, (time.perf_counter() - t0) / run.rounds
+
+    ops.reset_launches()
+    hfl, card, card_s = train(DEVICE)
+    launches = ops.launch_counts()
+    hfl_cpu, cpu, cpu_s = train("cpu")
+
+    C = len(sensors)
+    N = perms.drawn[0].shape[-1]                    # windows per client
+    n_batches = min(N // run.batch_size, run.max_batches)
+    K = len(np.unique(hfl.cluster_ids))
+    want = {k: 0 for k in launches}
+    want["gru_seq"] = (m.rnn_layers * run.rounds * C
+                       * (run.local_epochs * n_batches + 1))
+    want["fedavg_reduce"] = K + (K + 1)         # a local and a global round
+    # the run's reductions: each cluster's clients, then the K cluster
+    # models in the global round, over every parameter of the model
+    n_params = param_count(tree_map(lambda x: x[0], hfl.params))
+    fed_shapes = sorted({int(c) for c in np.bincount(hfl.cluster_ids)
+                         if c} | {K}, reverse=True)
+    fed_rows = [check_fedavg_reduce(torch, np.random.default_rng(SEED + 6),
+                                    c, n_params, "float32")
+                for c in fed_shapes]
+    errs = {"mse_max_rel_err": float(np.max(np.abs(card.mse - cpu.mse)
+                                            / np.abs(cpu.mse))),
+            "train_loss_max_rel_err": float(np.max(
+                np.abs(card.train_loss - cpu.train_loss)
+                / np.abs(cpu.train_loss))),
+            "params_max_abs_err": max_tree_err(hfl.params, hfl_cpu.params)}
+
+    # one training step of one client at the slice's batch, profiled
+    rng = np.random.default_rng(SEED + 7)
+    p = tree_map(lambda x: x[0].detach().clone().requires_grad_(),
+                 hfl.params)
+    X, y = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                            device=DEVICE)
+            for s in ((run.batch_size, HISTORY, 1), (run.batch_size, 1)))
+
+    def step():
+        return client.sgd_step(p, m, X, y, run.lr)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HFL_PROFILE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / HFL_PROFILE_STEPS
+    step_profile = profile_once(torch, step, HFL_PROFILE_STEPS, top=None)
+    step_profile["gru_seq_ms"] = sum(
+        v for k, v in step_profile["kernels_ms"].items() if "gru_seq" in k)
+    step_profile["kernels_ms"] = dict(
+        list(step_profile["kernels_ms"].items())[:8])
+
+    # the routing simulator, default and calibrated from the replicas
+    ops.reset_launches()
+    calibrated = deployment.calibrated_latency()
+    torch.cuda.synchronize()
+    calib_launches = ops.launch_counts()
+    inst = controller.inventory.to_instance(l=2)
+    assigns = {"flat": None, "hflop": topo.assign}
+    sims = {}
+    for name, lat in (("default", LatencyModel()),
+                      ("calibrated", calibrated)):
+        logs = compare_methods(inst, assigns, SimConfig(
+            duration_s=HFL_SIM_S, seed=SEED, latency=lat))
+        sims[name] = {k: {"mean_ms": log.mean_latency(),
+                          "std_ms": log.std_latency(),
+                          "tier_fractions": log.tier_fractions()}
+                      for k, log in logs.items()}
+    calib_want = {k: 0 for k in calib_launches}
+    # measure(): one warm-up and 8 timed forwards per tier
+    calib_want["gru_seq"] = m.rnn_layers * 9 * len(TIER_BATCH)
+
+    checks = {
+        "full_width": tuple(hfl.params["gru"]["1"]["w_h"].shape)
+        == (C, 128, 384),
+        "val_mse_matches_cpu": errs["mse_max_rel_err"] <= HFL_TOL,
+        "params_match_cpu": errs["params_max_abs_err"] <= HFL_TOL,
+        "finite": all(np.isfinite(r.mse).all()
+                      and np.isfinite(r.train_loss).all()
+                      for r in (card, cpu)) and all_finite(hfl.params),
+        "shapes": card.mse.shape == card.train_loss.shape == (run.rounds, C),
+        "launches": launches == want,
+        "fedavg_reduce_matches_plain": all(r["ok"] for r in fed_rows),
+        "calibration_launches": calib_launches == calib_want,
+        "calibrated_latencies_finite": all(
+            np.isfinite(v["mean_ms"]) and np.isfinite(v["std_ms"])
+            for sim in sims.values() for v in sim.values()),
+    }
+    emit({"phase": "hfl_slice", "seconds": time.perf_counter() - t_phase,
+          "clients": C, "clusters": K,
+          "assign": topo.assign.tolist(), "windows_per_client": N,
+          "minibatches_per_epoch": n_batches, **HFL_RUN,
+          "seconds_per_round": {"card": card_s, "cpu": cpu_s},
+          "val_mse": card.mse.mean(axis=1).tolist(),
+          "errors": errs, "launches": launches,
+          "expected_launches": want,
+          "fedavg_reduce_shapes": [r["shape"] for r in fed_rows],
+          "calibration_launches": calib_launches,
+          "train_step": {"batch": run.batch_size, "step_ms": step_ms,
+                         **step_profile},
+          "infer_ms": {t: {"default": LatencyModel().infer_ms(t),
+                           "calibrated": calibrated.infer_ms(t)}
+                       for t in TIER_BATCH},
+          "latency": sims, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"hfl_slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def count_calls(engine, counts) -> None:
     """Count the engine's admissions and decode steps as the main path
     makes them (``generate`` and ``measure`` call both through the
@@ -1280,26 +1492,33 @@ def phase_lm(torch, arch, phase):
     return launches, dense, paged, batches
 
 
-def profile_once(torch, fn, top: int = 8):
-    """One call of ``fn`` under ``torch.profiler``: its wall time, the
-    device time by kernel and the share of the wall time the device was
-    idle."""
+def profile_once(torch, fn, n: int = 1, top=8):
+    """``n`` calls of ``fn`` under ``torch.profiler``, per call: the wall
+    time, the device time by kernel (the ``top`` largest; all when
+    ``top`` is None), the kernel launches and the share of the wall time
+    the device was idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {e.key[:80]: e.self_device_time_total / 1e3
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    kernels = {}
+    for e in events:
+        key = e.key[:80]
+        kernels[key] = (kernels.get(key, 0.0)
+                        + e.self_device_time_total / 1e3 / n)
     dev_ms = sum(kernels.values())
     return {"wall_ms": wall_ms, "device_ms": dev_ms or None,
             "device_idle_share": (1.0 - dev_ms / wall_ms
                                   if dev_ms else None),
+            "device_launches": sum(e.count for e in events) / n,
             "kernels_ms": dict(sorted(kernels.items(),
                                       key=lambda kv: -kv[1])[:top])}
 
@@ -1875,6 +2094,8 @@ def main() -> int:
         phase = "profile"
         phase_profile(torch, pool, measured)
         del pool
+        phase = "hfl_slice"
+        hfl_launches = phase_hfl(torch)
         phase = "lm_slice"
         lm_launches, dense, paged, batches = phase_lm(torch, LM_ARCH, phase)
         phase = "lm_profile"
@@ -1910,7 +2131,8 @@ def main() -> int:
         return 1
 
     # each main path's launches, counted from 0 just before it ran
-    paths = {"slice": launches, "lm_slice": lm_launches,
+    paths = {"slice": launches, "hfl_slice": hfl_launches,
+             "lm_slice": lm_launches,
              "moe_slice": moe_launches, "hybrid_slice": hybrid_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     csrc = "src/repro_torch/kernels/csrc"

@@ -1,12 +1,13 @@
 """PyTorch/CUDA port of the ``repro`` package, one slice at a time.
 
-This slice serves the paper's traffic GRU from every tier: the model
-(:mod:`repro_torch.models.gru`), FedAvg over client replicas
-(:mod:`repro_torch.fl.aggregation`), the tiered replica pool
-(:mod:`repro_torch.serving.replica`) and the latency model its
-measurements calibrate (:mod:`repro_torch.routing.latency`).  Two
-hand-written CUDA kernels carry the path: ``gru_seq`` and
-``fedavg_reduce`` (:mod:`repro_torch.kernels.ops`).
+The paper's pipeline runs on it end to end: HFLOP clustering
+(:mod:`repro_torch.core`, :mod:`repro_torch.orchestration`), the traffic
+GRU (:mod:`repro_torch.models.gru`) trained by continual hierarchical
+FedAvg (:mod:`repro_torch.fl`), the tiered replica pool
+(:mod:`repro_torch.serving.replica`), and the routing simulator its
+measurements calibrate (:mod:`repro_torch.routing`).  Two hand-written
+CUDA kernels carry that path, ``gru_seq`` and ``fedavg_reduce``; six
+more carry the LM serving slices (:mod:`repro_torch.kernels.ops`).
 
 The package imports ``torch`` and ``numpy`` only: never ``jax`` and
 nothing of ``repro``.  Entry points run on ``cuda`` unless the caller

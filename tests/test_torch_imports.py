@@ -1,8 +1,9 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``.  Checked twice:
-at run time, importing every module of the port in a subprocess where a
-meta-path finder blocks ``jax``, ``jaxlib`` and ``repro``; and
-statically, by an AST scan of every import."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``examples/quickstart_torch.py`` import neither JAX nor anything of the
+JAX package ``repro``.  Checked twice: at run time, importing every
+module of the port in a subprocess where a meta-path finder blocks
+``jax``, ``jaxlib`` and ``repro``; and statically, by an AST scan of
+every import."""
 import ast
 import os
 import pkgutil
@@ -68,7 +69,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
 
 
 def _scanned_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "examples", "quickstart_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
