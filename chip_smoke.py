@@ -44,7 +44,17 @@ through the entry points a user calls:
   full-sequence forward and loss on a (2, 1024) token batch, whose
   Mamba2 scans run in ``mamba_chunk_scan``, and dense-tier serving, whose
   prompts are fed token by token through the decode step; then a 6-layer
-  fp32 cut (one shared block) on the card and on the CPU.
+  fp32 cut (one shared block) on the card and on the CPU;
+- gemma3-1b at its published width (26 layers, d 1152, 5 local layers
+  windowed at 512 to 1 global, QK-norm, 4 query heads on one kv head of
+  dim 256, vocab 262,144, bf16, random weights drawn on the card from a
+  seed): the three attention kernels at head dim 256, stablelm's dense
+  and paged tiers and requests, a long-context run (a 600-token prompt
+  and 16 new tokens at max_len 1024, so the local layers' 512-slot rings
+  wrap and their window cuts flash, decode and paged decode), Poisson
+  arrivals through ``ContinuousBatchingScheduler`` on a dense and a
+  paged tier with a ``Telemetry`` attached, and a 6-layer fp32 cut with
+  the long prompt on the card and on the CPU.
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -161,6 +171,36 @@ DECODE_TOL = 2e-3
 HYBRID_MEASURE = dict(prompt_len=16, decode_steps=8,
                       occupancy_levels=(1, 4, 8))
 HYBRID_PROFILE_PROMPT = 8
+#: the hybrid's served request batches: prompts of 16 tokens, as its
+#: measure() probes with (a depth cut: it admits a prompt with a decode
+#: step a token, and hybrid_slice's serving_seconds were 120.0 at 56
+#: tokens, 36.7-57.4 at 16, on an H100 80GB HBM3 at 700 W)
+HYBRID_PROMPT = 16
+#: the gemma3 slice: gemma3-1b at full width, with the LM slice's tiers,
+#: requests and measurement
+GEMMA_ARCH = "gemma3-1b"
+#: the long-context run: one dense and one paged engine of LONG_ROWS rows
+#: at max_len 1024, a 600-token prompt (bucket 1024) and 16 new tokens,
+#: so the local layers' 512-slot rings wrap and their 512 window cuts
+#: flash (T 1024), decode and paged decode
+LONG_PROMPT = 600
+LONG_STEPS = 16
+LONG_MAX_LEN = 1024
+LONG_ROWS = 2
+#: gemma3's parity cut: 6 layers at full width (5 local, 1 global), fp32,
+#: the long prompt, LONG_ROWS rows
+GEMMA_PARITY_LAYERS = 6
+#: the scheduler phase: Poisson arrivals onto the cloud tiers (8 dense
+#: slots; 32 paged rows over 128 pages).  Requests as the reference's
+#: serve launcher sends them (src/repro/launch/serve.py's defaults: 32
+#: requests over 8 arrival streams, 16-token prompts, 8 new tokens); the
+#: rate is SCHED_LOAD of the tier's capacity, which ``measure()`` gives on
+#: the same engine just before: a request costs one prefill and its 7
+#: decode steps' share of a step at full occupancy
+SCHED_REQUESTS = 32
+SCHED_PROMPT = 16
+SCHED_NEW_TOKENS = 8
+SCHED_LOAD = 0.5
 #: served trees at full width: leaf -> shape
 FULL_WIDTH = {
     LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
@@ -171,6 +211,11 @@ FULL_WIDTH = {
                ("layers", "moe", "router"): (26, 2048, 64),
                ("layers", "moe", "wi_gate"): (26, 64, 2048, 1408),
                ("layers", "moe", "shared", "wi_gate"): (26, 2048, 2816)},
+    GEMMA_ARCH: {("embed", "table"): (262_144, 1152),
+                 ("layers", "attn", "wq"): (26, 1152, 4, 256),
+                 ("layers", "attn", "wk"): (26, 1152, 1, 256),
+                 ("layers", "attn", "q_norm"): (26, 256),
+                 ("layers", "mlp", "wi"): (26, 1152, 6912)},
     HYBRID_ARCH: {("mamba_layers", "mamba", "in_proj"): (38, 2048, 8384),
                   ("mamba_layers", "mamba", "conv_w"): (38, 4, 4224),
                   ("mamba_layers", "mamba", "A_log"): (38, 64),
@@ -361,9 +406,10 @@ def phase_sass():
     kernel and the two product kernels of every bf16 tensor-core instance
     of the SSD scan have tensor-core instructions, the vector instances of both GQA
     decode kernels load K/V in 16 bytes, every instance of the
-    router's register kernel selects with REDUX, and every instance of
+    router's register kernel selects with REDUX, every instance of
     the GRU's cluster kernel has its cluster barrier and spills
-    nothing."""
+    nothing, and every instance gemma3's head dim 256 takes (the decode
+    kernels' 16-lane rows, flash's Dv-256 instances) spills nothing."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     listing = subprocess.run([str(cuobjdump), "-sass", str(build.build())],
@@ -389,6 +435,17 @@ def phase_sass():
               if is_kernel(fn, "topk_router_kernel")]
     gru = [r for fn, r in rows.items()
            if is_kernel(fn, "gru_seq_cluster_kernel")]
+    # the instances gemma3's head dim 256 takes: both decode kernels' rows
+    # over 16 lanes, one query head a block (template <T, kVec, kLanes,
+    # kDims, kGB>), flash's bf16 Dv-256 instances (template <kNo, kVec>)
+    # and fp32 8-chunk instance (template <T, kChunks>)
+    wide = {fn: r for fn, r in rows.items()
+            if ((is_kernel(fn, "decode_attention_kernel")
+                 or is_kernel(fn, "paged_decode_attention_kernel"))
+                and re.search(r"Lb[01]ELi16ELi16E", fn))
+            or (is_kernel(fn, "flash_attention_wgmma_kernel")
+                and "ILi256E" in fn)
+            or (is_kernel(fn, "flash_attention_kernel") and "Li8EE" in fn)}
     checks = {"flash_bf16_on_tensor_cores": bool(tc) and all(
                   r["HGMMA"] > 0 for r in tc),
               "decode_16_byte_loads": bool(vec["decode_attention_kernel"])
@@ -409,8 +466,14 @@ def phase_sass():
                   r["UCGABAR_ARV"] > 0 for r in gru),
               "gru_seq_cluster_no_spills": bool(gru) and all(
                   r.get("spill_stores") == 0 and r.get("spill_loads") == 0
-                  for r in gru)}
-    emit({"phase": "sass", "functions": rows, "checks": checks})
+                  for r in gru),
+              # 2 kernels x 2 dtypes x 2 load widths, flash's two bf16
+              # instances and its fp32 one
+              "head_dim_256_no_spills": len(wide) == 11 and all(
+                  r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                  for r in wide.values())}
+    emit({"phase": "sass", "functions": rows,
+          "head_dim_256": sorted(wide), "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"sass checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
@@ -649,13 +712,14 @@ def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None):
 
 
 def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name,
-                 valid=None):
+                 valid=None, soft_cap=0.0):
     """``n_valid`` (B,) leading valid slots per row, as a ring cache
     holds them before it wraps; None: 80% of the slots at random; or
     ``valid``, a (B, C) bool mask as it is.  The bound counts each row's
     valid slots (K and V, scores and P.V), and for a row with none only
     the V of all C slots and its mean (every score is -1e30, so the
-    output does not depend on K)."""
+    output does not depend on K).  With ``soft_cap`` the shape gains it
+    and there is no yardstick (SDPA has no cap)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
@@ -680,9 +744,12 @@ def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name,
             attn_mask=valid_t[:, None, None, :], enable_gqa=H != Hkv)
 
     return check_attention(
-        torch, "decode_attention", (B, H, Hkv, C, D), dtype_name,
-        lambda: da.decode_attention(q, k, v, valid_t),
-        lambda: ref.decode_attention_ref(q, k, v, valid_t), library,
+        torch, "decode_attention",
+        (B, H, Hkv, C, D) + ((soft_cap,) if soft_cap else ()), dtype_name,
+        lambda: da.decode_attention(q, k, v, valid_t, soft_cap=soft_cap),
+        lambda: ref.decode_attention_ref(q, k, v, valid_t,
+                                         soft_cap=soft_cap),
+        None if soft_cap else library,
         it * (2 * B * H * D + (2 * keys + mean_rows * C) * Hkv * D) + B * C,
         (keys * 4 + mean_rows * C * 2) * H * D)
 
@@ -817,6 +884,53 @@ def phase_attention_kernels(torch):
     if bad:
         raise AssertionError(f"attention kernels disagree with their plain "
                              f"versions: {bad}")
+    return main
+
+
+def phase_gemma_kernels(torch):
+    """gemma3's shapes (4 query heads on one kv head, D = Dv = 256) in
+    bf16: flash at the 64-token bucket of a 56-token prompt and at the
+    long prompt's 1024 bucket (window 512, local layers; none, global);
+    dense decode at B 1/4/8 over 256-slot rings of 57-64 valid slots and
+    the long run's full 512-slot local ring and 1024-slot global ring of
+    616 tokens; paged decode at B 4/16/32 over 16-token pages and the long
+    run's 616-token rows under the 512 window.  Then fp32 rows (the parity
+    cut's instances: flash on the CUDA cores at Dv 256), decode with a
+    soft cap among them (no registered config sets one)."""
+    rng = np.random.default_rng(SEED + 8)
+    lens = lambda B: LM_PROMPT + 1 + np.arange(B) % LM_STEPS  # noqa: E731
+    long_len = [LONG_PROMPT + LONG_STEPS] * LONG_ROWS
+    main = {"flash_attention": check_flash(torch, rng, 4, 1, 64, 256, 0,
+                                           "bfloat16")}
+    rows = [main["flash_attention"]]
+    rows += [check_flash(torch, rng, 4, 1, 1024, 256, w, "bfloat16")
+             for w in (512, 0)]
+    rows += [check_decode(torch, rng, B, 4, 1, 256, 256, lens(B),
+                          "bfloat16") for B in (1, 4, 8)]
+    main["decode_attention"] = rows[-1]
+    rows.append(check_decode(torch, rng, LONG_ROWS, 4, 1, 512, 256,
+                             [512] * LONG_ROWS, "bfloat16"))
+    rows.append(check_decode(torch, rng, LONG_ROWS, 4, 1, 1024, 256,
+                             long_len, "bfloat16"))
+    for B, pages in ((4, 16), (16, 64), (32, 128)):
+        rows.append(check_paged(torch, rng, B, 4, 1, 16, 16, 256, lens(B),
+                                pages, 0.0, None, "bfloat16"))
+    main["paged_decode_attention"] = rows[-1]
+    rows.append(check_paged(torch, rng, LONG_ROWS, 4, 1, 16, 64, 256,
+                            long_len, 64 * LONG_ROWS, 0.0, 512, "bfloat16"))
+    rows += [check_flash(torch, rng, 4, 1, 1024, 256, 512, "float32"),
+             check_flash(torch, rng, 2, 1, 100, 256, 0, "float32"),
+             check_flash(torch, rng, 2, 2, 77, 136, 20, "float32", Dv=256),
+             check_decode(torch, rng, 2, 4, 1, 512, 256, [512, 300],
+                          "float32", soft_cap=1.0),
+             check_decode(torch, rng, 2, 4, 1, 1024, 256, [616, 0],
+                          "float32"),
+             check_paged(torch, rng, 2, 4, 1, 16, 64, 256, [616, 37], 130,
+                         1.0, 512, "float32")]
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"head-dim-256 attention kernels disagree with "
+                             f"their plain versions: {bad}")
     return main
 
 
@@ -1338,11 +1452,14 @@ def full_width_tiers(specs):
 
 def norm_params(m) -> int:
     """Weights ``ModelConfig.param_count()`` leaves out: the norms' scales
-    (and LayerNorm biases), and each MLA layer's ``kv_norm``."""
+    (and LayerNorm biases), each MLA layer's ``kv_norm``, and QK-norm's
+    ``q_norm`` and ``k_norm`` a layer."""
     n = (2 * m.num_layers + 1) * m.d_model * (2 if m.norm == "layernorm"
                                               else 1)
     if m.attention.kind == "mla":
         n += m.num_layers * m.attention.mla.kv_lora_rank
+    if m.attention.qk_norm:
+        n += 2 * m.num_layers * m.attention.head_dim
     return n
 
 
@@ -1450,8 +1567,7 @@ def phase_lm(torch, arch, phase):
     routers_fp32 = all(x.dtype == torch.float32 for path, x in leaves.items()
                        if path[-1] == "router")
     checks = {
-        "full_width": (m.d_model == 2048
-                       and all(tuple(leaves[k].shape) == v
+        "full_width": (all(tuple(leaves[k].shape) == v
                                for k, v in FULL_WIDTH[arch].items())
                        and params["embed"]["table"].dtype == torch.bfloat16
                        and routers_fp32
@@ -1625,46 +1741,286 @@ def numpy_moe_params(rng, m):
             "layers": {**layer(L), "moe": moe}}
 
 
-def phase_lm_parity(torch, arch, phase, numpy_params):
-    """Full-width ``arch`` cut to 2 layers, fp32, weights from a numpy
-    seed (``numpy_params``): the same entry points on the card (kernels)
-    and on the CPU (plain versions), for both engines."""
+def numpy_gemma_params(rng, m):
+    """gemma3 weights in the JAX package's tree and statistics
+    (``ParamBuilder``: embedding normal 0.02, tied to the head; fan-in
+    normal elsewhere; RMS norm scales and QK-norm scales 1), drawn with
+    numpy."""
+    a, L, d, f = m.attention, m.num_layers, m.d_model, m.d_ff
+    H, Hkv, hd, V = a.num_heads, a.num_kv_heads, a.head_dim, m.padded_vocab
+
+    def draw(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    return {"embed": {"table": draw((V, d), 0.02)},
+            "final_norm": {"scale": ones(d)},
+            "layers": {
+                "ln1": {"scale": ones(L, d)}, "ln2": {"scale": ones(L, d)},
+                "attn": {"wq": draw((L, d, H, hd), H ** -0.5),
+                         "wk": draw((L, d, Hkv, hd), Hkv ** -0.5),
+                         "wv": draw((L, d, Hkv, hd), Hkv ** -0.5),
+                         "wo": draw((L, H, hd, d), hd ** -0.5),
+                         "q_norm": ones(L, hd), "k_norm": ones(L, hd)},
+                "mlp": {"wi": draw((L, d, f), d ** -0.5),
+                        "wo": draw((L, f, d), f ** -0.5)}}}
+
+
+def phase_gemma_long(torch, params):
+    """gemma3 at full width on long prompts: a dense and a paged engine
+    of LONG_ROWS rows at max_len 1024 generate LONG_STEPS tokens after a
+    600-token prompt.  A local layer's dense ring (512 slots) ends
+    holding exactly the last 512 positions written (it wrapped), the
+    global layer's (1024) every one; flash runs at T 1024 under the
+    window and both decode kernels under it past position 512.  Launches
+    exact: 26 flash an admission, 26 decode a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import PagedServeEngine, ServeEngine
+
+    cfg = get_config(GEMMA_ARCH)
+    m = cfg.model
+    rng = np.random.default_rng(SEED + 9)
+    prompts = rng.integers(0, m.vocab_size, (LONG_ROWS, LONG_PROMPT))
+    engines = {"dense": ServeEngine(cfg, params, batch_size=LONG_ROWS,
+                                    max_len=LONG_MAX_LEN, device=DEVICE),
+               "paged": PagedServeEngine(cfg, params, max_seqs=LONG_ROWS,
+                                         max_len=LONG_MAX_LEN, device=DEVICE)}
+    counts = {k: {"admit": 0, "decode": 0} for k in engines}
+    for k, eng in engines.items():
+        count_calls(eng, counts[k])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = {k: eng.generate(prompts, LONG_STEPS).cpu()
+           for k, eng in engines.items()}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = expected_lm_launches(m, counts)
+    window = m.attention.window
+    # positions written: the prompt's, then one a decode step
+    written = LONG_PROMPT + LONG_STEPS - 1
+    rings = engines["dense"].cache["layers"]
+    local = rings["0"].pos.cpu().numpy()
+    glob = rings[str(m.attention.local_global_ratio)].pos.cpu().numpy()
+    checks = {
+        "local_ring_wrapped": rings["0"].capacity == window and all(
+            sorted(row) == list(range(written - window, written))
+            for row in local),
+        "global_ring_holds_all": all(
+            sorted(p for p in row if p >= 0) == list(range(written))
+            for row in glob),
+        "token_ids": all(bool(((o >= 0) & (o < m.vocab_size)).all())
+                         for o in out.values()),
+        "dense_paged_first_tokens_equal": torch.equal(out["dense"][:, 0],
+                                                      out["paged"][:, 0]),
+        "launches": launches == want and all(
+            launches[k] > 0 for k, v in want.items() if v),
+    }
+    emit({"phase": "gemma_long", "arch": GEMMA_ARCH, "rows": LONG_ROWS,
+          "prompt_len": LONG_PROMPT, "new_tokens": LONG_STEPS,
+          "max_len": LONG_MAX_LEN, "seconds": seconds,
+          "local_ring_capacity": rings["0"].capacity,
+          "engine_calls": counts, "launches": launches,
+          "expected_launches": want,
+          "later_tokens_dense_paged_agree": (
+              out["dense"][:, 1:] == out["paged"][:, 1:]).float().mean()
+          .item(), "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"gemma_long checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+def phase_gemma_scheduler(torch, params):
+    """Poisson arrivals through ``ContinuousBatchingScheduler`` onto
+    gemma3's cloud tiers (the dense tier's 8 slots; the paged tier's 32
+    rows over 128 pages), each engine with a ``Telemetry``, at SCHED_LOAD
+    of the capacity its ``measure()`` gives just before: TTFT, TPOT and
+    tokens a second, every request completed with its token budget, the
+    page pool whole at the end, the run's ``serve.*`` counters equal to
+    the engine calls it made, and 26 flash an admission and 26 decode a
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (ContinuousBatchingScheduler,
+                                     PagedServeEngine, ServeEngine,
+                                     lm_tiers, paged_lm_tiers,
+                                     poisson_requests, requests_from_events)
+    from repro_torch.telemetry import Telemetry
+
+    cfg = get_config(GEMMA_ARCH)
+    m = cfg.model
+    dense_spec, paged_spec = lm_tiers(GEMMA_ARCH)[2], \
+        paged_lm_tiers(GEMMA_ARCH)[2]
+    tel = {"dense": Telemetry(), "paged": Telemetry()}
+    engines = {
+        "dense": ServeEngine(cfg, params, batch_size=dense_spec.batch_size,
+                             max_len=dense_spec.max_len, device=DEVICE,
+                             telemetry=tel["dense"]),
+        "paged": PagedServeEngine(cfg, params,
+                                  max_seqs=paged_spec.batch_size,
+                                  page_size=paged_spec.page_size,
+                                  num_pages=paged_spec.num_pages,
+                                  max_len=paged_spec.max_len, device=DEVICE,
+                                  telemetry=tel["paged"])}
+    rng = np.random.default_rng(SEED + 10)
+    launches, rows = {}, {}
+    checks = {}
+    for kind, eng in engines.items():
+        rows_n = eng.batch_size
+        meas = eng.measure(prompt_len=SCHED_PROMPT,
+                           decode_steps=LM_MEASURE["decode_steps"],
+                           occupancy_levels=(rows_n,))
+        (level, step_ms), = meas.occupancy_ms
+        request_ms = (meas.prefill_ms
+                      + (SCHED_NEW_TOKENS - 1) * step_ms / rows_n)
+        rate = SCHED_LOAD * 1e3 / request_ms
+        events = poisson_requests(np.full(8, rate / 8),
+                                  duration_s=SCHED_REQUESTS / rate,
+                                  seed=SEED)
+        prompts = rng.integers(0, m.vocab_size, (len(events), SCHED_PROMPT))
+        reqs = requests_from_events(events, prompts,
+                                    max_new_tokens=SCHED_NEW_TOKENS)
+        counts = {"admit": 0, "decode": 0}
+        count_calls(eng, counts)
+        before = dict(tel[kind].metrics.snapshot()["counters"])
+        n_spans = len(tel[kind].tracer.spans)
+        sched = ContinuousBatchingScheduler(eng)
+        ops.reset_launches()
+        stats = sched.run(reqs)
+        torch.cuda.synchronize()
+        launches[kind] = ops.launch_counts()
+        none = {"admit": 0, "decode": 0}
+        want = expected_lm_launches(m, {"dense": none, "paged": none,
+                                        kind: counts})
+        snap = tel[kind].metrics.snapshot()
+        run = {k: v - before.get(k, 0) for k, v in snap["counters"].items()}
+        spans = [sp.name for sp in tel[kind].tracer.spans[n_spans:]]
+        done = sched.completed
+        checks[f"{kind}_measured_at_full_occupancy"] = level == rows_n
+        checks[f"{kind}_every_request_completes"] = (
+            len(done) == len(reqs) > 0 and not sched.queue
+            and not sched.active
+            and all(len(r.tokens) == r.max_new_tokens
+                    and all(0 <= t < m.vocab_size for t in r.tokens)
+                    for r in done))
+        checks[f"{kind}_counters"] = (
+            run.get("serve.admissions") == counts["admit"] == len(reqs)
+            and run.get("serve.evictions") == len(reqs)
+            and run.get("serve.decode_steps") == counts["decode"]
+            and spans.count("serve.admit") == len(reqs))
+        checks[f"{kind}_launches"] = launches[kind] == want
+        if kind == "paged":
+            eng.pool.check_invariants()
+            checks["paged_pool_whole"] = (
+                eng.pool.free_pages == eng.num_pages
+                and not eng.pool.sequences
+                and snap["gauges"]["page_pool.free_pages"] == eng.num_pages
+                and snap["gauges"]["page_pool.sequences"] == 0)
+        rows[kind] = {
+            "rows": rows_n, "requests": len(reqs),
+            "measured": dataclasses.asdict(meas),
+            "request_ms": request_ms, "load": SCHED_LOAD,
+            "rate_per_s": rate,
+            "ttft_ms_p50": float(np.percentile(stats.ttft_ms, 50)),
+            "ttft_ms_p95": float(np.percentile(stats.ttft_ms, 95)),
+            "tpot_ms_mean": float(stats.tpot_ms.mean()),
+            "tokens_per_s": stats.tokens_per_s,
+            "tokens": stats.tokens_generated, "seconds": stats.duration_s,
+            "slot_reuses": stats.slot_reuses,
+            "peak_occupancy": stats.peak_occupancy,
+            "engine_calls": counts, "launches": launches[kind],
+            "expected_launches": want, "counters": run,
+            "gauges": snap["gauges"], "summary": stats.summary()}
+        print(f"scheduler/{kind}: {rate:.2f} requests/s, "
+              f"{stats.summary()}", flush=True)
+    emit({"phase": "gemma_scheduler", "arch": GEMMA_ARCH,
+          "by_engine": rows, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"gemma_scheduler checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return {k: sum(launches[e][k] for e in launches)
+            for k in launches["dense"]}
+
+
+def record_decode_logits(eng, sink: list) -> None:
+    """Append each decode step's last-position logits (on the CPU, fp32)
+    of engine ``eng`` to ``sink``, by wrapping its model's decode step."""
+    from repro_torch.serving import PagedServeEngine
+    name = ("paged_decode_step" if isinstance(eng, PagedServeEngine)
+            else "decode_step")
+    inner = getattr(eng.api, name)
+
+    def step(*args, **kw):
+        out, cache = inner(*args, **kw)
+        sink.append(out[:, -1].float().cpu())
+        return out, cache
+
+    eng.api = eng.api._replace(**{name: step})
+
+
+def phase_lm_parity(torch, arch, phase, numpy_params,
+                    layers=PARITY_LAYERS, prompt_len=LM_PROMPT, max_len=256,
+                    steps=LM_STEPS):
+    """Full-width ``arch`` cut to ``layers`` layers, fp32, weights from a
+    numpy seed (``numpy_params``): the same entry points on the card
+    (kernels) and on the CPU (plain versions), for both engines, on two
+    prompts of ``prompt_len`` tokens: prefill logits, each engine's decode
+    step logits at every step, and the greedy tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import make_model
     from repro_torch.params import from_numpy_tree
-    from repro_torch.serving import PagedServeEngine, ServeEngine
+    from repro_torch.serving import PagedServeEngine, ServeEngine, bucket_len
 
     cfg = get_config(arch)
-    m = dataclasses.replace(cfg.model, num_layers=PARITY_LAYERS,
+    m = dataclasses.replace(cfg.model, num_layers=layers,
                             dtype="float32", param_dtype="float32")
     pcfg = dataclasses.replace(cfg, model=m)
     rng = np.random.default_rng(SEED + 6)
     tree = numpy_params(rng, m)
-    prompts = rng.integers(0, m.vocab_size, (2, LM_PROMPT))
+    prompts = rng.integers(0, m.vocab_size, (2, prompt_len))
     api = make_model(pcfg)
-    logits, tokens = {}, {}
+    logits, tokens, steps_logits = {}, {}, {}
     for dev in (DEVICE, "cpu"):
         params = from_numpy_tree(tree, dev)
-        padded = torch.zeros((2, 64), dtype=torch.long, device=dev)
-        padded[:, :LM_PROMPT] = torch.as_tensor(prompts)
-        lg, _ = api.prefill(params, padded, api.init_cache(2, 256, device=dev),
-                            length=LM_PROMPT)
-        logits[dev] = lg[:, :LM_PROMPT].float().cpu()
+        padded = torch.zeros((2, bucket_len(prompt_len)), dtype=torch.long,
+                             device=dev)
+        padded[:, :prompt_len] = torch.as_tensor(prompts)
+        lg, _ = api.prefill(params, padded,
+                            api.init_cache(2, max_len, device=dev),
+                            length=prompt_len)
+        logits[dev] = lg[:, :prompt_len].float().cpu()
+        del lg
         for name, eng in (
                 ("dense", ServeEngine(pcfg, params, batch_size=2,
-                                      max_len=256, device=dev)),
+                                      max_len=max_len, device=dev)),
                 ("paged", PagedServeEngine(pcfg, params, max_seqs=2,
-                                           max_len=256, device=dev))):
-            tokens[(name, dev)] = eng.generate(prompts, LM_STEPS).cpu()
+                                           max_len=max_len, device=dev))):
+            sink = steps_logits[(name, dev)] = []
+            record_decode_logits(eng, sink)
+            tokens[(name, dev)] = eng.generate(prompts, steps).cpu()
     err = (logits[DEVICE] - logits["cpu"]).abs().max().item()
+    step_err = {name: max(
+        (a - b).abs().max().item() for a, b in zip(
+            steps_logits[(name, DEVICE)], steps_logits[(name, "cpu")]))
+        for name in ("dense", "paged")}
+    n_steps = {f"{k}/{d}": len(v) for (k, d), v in steps_logits.items()}
     checks = {"prefill_logits_match_cpu": err <= PARITY_LOGIT_TOL,
+              "decode_logits_match_cpu": (
+                  set(n_steps.values()) == {steps - 1}
+                  and all(e <= PARITY_LOGIT_TOL for e in step_err.values())),
               "dense_tokens_match_cpu": torch.equal(tokens[("dense", DEVICE)],
                                                     tokens[("dense", "cpu")]),
               "paged_tokens_match_cpu": torch.equal(tokens[("paged", DEVICE)],
                                                     tokens[("paged", "cpu")])}
     emit({"phase": phase, "arch": arch, "layers": m.num_layers,
-          "d_model": m.d_model,
+          "d_model": m.d_model, "prompt_len": prompt_len, "max_len": max_len,
           "dtype": m.dtype, "prefill_logits_max_abs_err": err,
+          "decode_logits_max_abs_err": step_err, "decode_steps": n_steps,
           "tol": PARITY_LOGIT_TOL,
           "tokens": {f"{k}/{d}": v.tolist() for (k, d), v in tokens.items()},
           "checks": checks})
@@ -1809,7 +2165,7 @@ def phase_hybrid(torch):
     labels = torch.as_tensor(rng.integers(0, m.vocab_size, HYBRID_BATCH),
                              device=DEVICE)
     batches = {t: [rng.integers(0, m.vocab_size,
-                                (pool.specs[t].batch_size, LM_PROMPT))
+                                (pool.specs[t].batch_size, HYBRID_PROMPT))
                    for _ in range(LM_BATCHES_PER_TIER)] for t in pool.tiers}
 
     ops.reset_launches()
@@ -2071,60 +2427,86 @@ def main() -> int:
               "checkout", file=sys.stderr)
         return 1
 
-    phase = "device"
     t_start = time.perf_counter()
+    marks = []
+
+    def at(name):
+        """Start phase ``name``: its wall seconds go to the launches line."""
+        marks.append((name, time.perf_counter()))
+        return name
+
+    phase = at("device")
     try:
         smi = phase_device(torch)
-        phase = "build"
+        phase = at("build")
         phase_build()
-        phase = "sass"
+        phase = at("sass")
         phase_sass()
         from repro_torch.configs import get_config
         one = numpy_clients(np.random.default_rng(SEED),
                             get_config("gru-traffic").model, 1)
         n_params = param_count(one)
-        phase = "kernels"
+        phase = at("kernels")
         gru_rows, fed_rows = phase_kernels(torch, n_params)
-        phase = "autograd"
+        phase = at("autograd")
         phase_autograd(torch)
-        phase = "attention_kernels"
+        phase = at("attention_kernels")
         attn_rows = phase_attention_kernels(torch)
-        phase = "slice"
+        phase = at("slice")
         launches, pool, measured = phase_slice(torch)
-        phase = "profile"
+        phase = at("profile")
         phase_profile(torch, pool, measured)
         del pool
-        phase = "hfl_slice"
+        phase = at("hfl_slice")
         hfl_launches = phase_hfl(torch)
-        phase = "lm_slice"
+        phase = at("lm_slice")
         lm_launches, dense, paged, batches = phase_lm(torch, LM_ARCH, phase)
-        phase = "lm_profile"
+        phase = at("lm_profile")
         phase_lm_profile(torch, dense, paged, batches, phase)
         del dense, paged
         torch.cuda.empty_cache()
-        phase = "lm_parity"
+        phase = at("lm_parity")
         phase_lm_parity(torch, LM_ARCH, phase, numpy_lm_params)
-        phase = "moe_kernels"
+        phase = at("moe_kernels")
         moe_rows = phase_moe_kernels(torch)
-        phase = "moe_slice"
+        phase = at("moe_slice")
         moe_launches, dense, paged, batches = phase_lm(torch, MOE_ARCH,
                                                        phase)
-        phase = "moe_profile"
+        phase = at("moe_profile")
         phase_lm_profile(torch, dense, paged, batches, phase)
         del dense, paged
         torch.cuda.empty_cache()
-        phase = "moe_parity"
+        phase = at("moe_parity")
         phase_lm_parity(torch, MOE_ARCH, phase, numpy_moe_params)
-        phase = "ssm_kernels"
+        phase = at("ssm_kernels")
         ssm_row, hybrid_flash_row = phase_ssm_kernels(torch)
-        phase = "hybrid_slice"
+        phase = at("hybrid_slice")
         hybrid_launches, pool, batches, params, toks = phase_hybrid(torch)
-        phase = "hybrid_profile"
+        phase = at("hybrid_profile")
         phase_hybrid_profile(torch, pool, batches, params, toks)
         del pool, params, toks
         torch.cuda.empty_cache()
-        phase = "hybrid_parity"
+        phase = at("hybrid_parity")
         phase_hybrid_parity(torch)
+        phase = at("gemma_kernels")
+        gemma_rows = phase_gemma_kernels(torch)
+        phase = at("gemma_slice")
+        gemma_launches, dense, paged, batches = phase_lm(torch, GEMMA_ARCH,
+                                                         phase)
+        phase = at("gemma_profile")
+        phase_lm_profile(torch, dense, paged, batches, phase)
+        params = dense.engine("cloud").params
+        del dense, paged
+        phase = at("gemma_long")
+        long_launches = phase_gemma_long(torch, params)
+        phase = at("gemma_scheduler")
+        sched_launches = phase_gemma_scheduler(torch, params)
+        del params
+        torch.cuda.empty_cache()
+        phase = at("gemma_parity")
+        phase_lm_parity(torch, GEMMA_ARCH, phase, numpy_gemma_params,
+                        layers=GEMMA_PARITY_LAYERS, prompt_len=LONG_PROMPT,
+                        max_len=LONG_MAX_LEN, steps=LONG_STEPS)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
@@ -2133,11 +2515,24 @@ def main() -> int:
     # each main path's launches, counted from 0 just before it ran
     paths = {"slice": launches, "hfl_slice": hfl_launches,
              "lm_slice": lm_launches,
-             "moe_slice": moe_launches, "hybrid_slice": hybrid_launches}
+             "moe_slice": moe_launches, "hybrid_slice": hybrid_launches,
+             "gemma_slice": gemma_launches, "gemma_long": long_launches,
+             "gemma_scheduler": sched_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     csrc = "src/repro_torch/kernels/csrc"
+    attn = (("flash_attention", 70), ("decode_attention", 57),
+            ("paged_decode_attention", 89))
+    ends = [t for _, t in marks[1:]] + [time.perf_counter()]
     emit({"phase": "launches", "by_path": paths, "total": total,
           "seconds": time.perf_counter() - t_start,
+          "phase_seconds": {name: end - t for (name, t), end in
+                            zip(marks, ends)},
+          # the three GQA kernels at stablelm's head dim 64 (the kernels
+          # line carries gemma3's 256)
+          **{f"{name}_stablelm": kernel_entry(
+              name, f"{csrc}/{name}.cu",
+              f"src/repro/kernels/{name}.py:{line}",
+              lm_launches[name], attn_rows[name]) for name, line in attn},
           "flash_attention_mla": kernel_entry(
               "flash_attention", f"{csrc}/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
@@ -2156,10 +2551,8 @@ def main() -> int:
                      total["fedavg_reduce"], fed_rows[0]),
         *(kernel_entry(name, f"{csrc}/{name}.cu",
                        f"src/repro/kernels/{name}.py:{line}",
-                       total[name], attn_rows[name])
-          for name, line in (("flash_attention", 70),
-                             ("decode_attention", 57),
-                             ("paged_decode_attention", 89))),
+                       total[name], gemma_rows[name])
+          for name, line in attn),
         kernel_entry("paged_mla_decode_attention",
                      f"{csrc}/paged_mla_decode_attention.cu",
                      "src/repro/kernels/paged_decode_attention.py:183",

@@ -3,12 +3,11 @@ from __future__ import annotations
 
 import torch
 
-#: largest value dim the attention kernels take (each lane of a warp owns
-#: 4 output dims), and the decode kernels' head dim
-MAX_HEAD_DIM = 128
-#: largest score (query/key) dim of ``flash_attention``, which only loops
-#: over it in shared memory: MLA prefill scores over nope + rope = 192
-MAX_SCORE_DIM = 256
+#: largest head dim (score and value) of the three GQA attention
+#: kernels: gemma3's 256.  A decode row wider than 128 is spread over 16
+#: lanes; flash's bf16 instance holds a 64 x 256 fp32 O tile a warpgroup,
+#: its fp32 instance 8 output dims a lane
+MAX_HEAD_DIM = 256
 ENTRY_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -25,8 +24,8 @@ def kernel_inputs(name: str, **tensors: torch.Tensor) -> str:
     return ENTRY_SUFFIX[dtypes.pop()]
 
 
-def head_dims(name: str, *dims: int, limit: int = MAX_HEAD_DIM) -> None:
+def head_dims(name: str, *dims: int) -> None:
     for d in dims:
-        if not 1 <= d <= limit:
-            raise ValueError(f"{name} kernel takes head dims 1..{limit}, "
-                             f"got {d}")
+        if not 1 <= d <= MAX_HEAD_DIM:
+            raise ValueError(f"{name} kernel takes head dims "
+                             f"1..{MAX_HEAD_DIM}, got {d}")

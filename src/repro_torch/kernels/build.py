@@ -37,7 +37,7 @@ SIGNATURES = {
     "fedavg_reduce_bf16": (_P, _P, _P, _I, _L, _P),
     **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 7 + (_P,)
        for t in ("f32", "bf16")},
-    **{f"decode_attention_{t}": (_P,) * 5 + (_I,) * 6 + (_P,)
+    **{f"decode_attention_{t}": (_P,) * 5 + (_I,) * 6 + (_F, _P)
        for t in ("f32", "bf16")},
     **{f"paged_decode_attention_{t}": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
        for t in ("f32", "bf16")},

@@ -22,11 +22,6 @@ namespace attn {
 constexpr float kNegInf = -1e30f;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-// value dims (and the decode kernels' head dims) are at most kMaxDim:
-// each lane owns kDimChunks output dims (lane, lane + 32, ...)
-constexpr int kMaxDim = 128;
-constexpr int kDimChunks = kMaxDim / kWarp;
-
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -56,14 +51,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Online-softmax state of one query row, spread over a warp: every lane
-// holds m and l, lane i holds output dims i, i + 32, ...
+// holds m and l, lane i holds output dims i, i + 32, ..., kChunks of
+// them (value dims up to 32 * kChunks)
+template <int kChunks>
 struct RowState {
-  float m, l, acc[kDimChunks];
+  float m, l, acc[kChunks];
   __device__ __forceinline__ void init() {
     m = kNegInf;
     l = 0.0f;
 #pragma unroll
-    for (int c = 0; c < kDimChunks; ++c) acc[c] = 0.0f;
+    for (int c = 0; c < kChunks; ++c) acc[c] = 0.0f;
   }
 };
 
@@ -78,7 +75,8 @@ struct RowState {
 // As in the JAX kernels, a chunk in which a row sees no unmasked key
 // while its running max is still -1e30 adds junk (exp(0) weights) that
 // the first unmasked key wipes out (alpha = exp(-1e30 - m) = 0).
-__device__ __forceinline__ void fold_chunk(RowState& st, const float* qrow,
+template <int kChunks>
+__device__ __forceinline__ void fold_chunk(RowState<kChunks>& st, const float* qrow,
                                            const float* ks, const float* vs,
                                            int D, int Dv, float scale,
                                            float soft_cap, bool ok, int lane) {
@@ -93,12 +91,12 @@ __device__ __forceinline__ void fold_chunk(RowState& st, const float* qrow,
   const float p = expf(s - m_new);
   st.l = st.l * alpha + warp_sum(p);
 #pragma unroll
-  for (int c = 0; c < kDimChunks; ++c) st.acc[c] *= alpha;
+  for (int c = 0; c < kChunks; ++c) st.acc[c] *= alpha;
   for (int j = 0; j < kWarp; ++j) {
     const float pj = __shfl_sync(kFull, p, j);
     const float* vr = vs + j * Dv;
 #pragma unroll
-    for (int c = 0; c < kDimChunks; ++c) {
+    for (int c = 0; c < kChunks; ++c) {
       const int d = lane + c * kWarp;
       if (d < Dv) st.acc[c] = fmaf(pj, vr[d], st.acc[c]);
     }

@@ -6,14 +6,22 @@
 // decode_attention (its pallas_call is at decode_attention.py:71).  Same
 // function: q (B,H,D), k/v (B,C,Hkv,D|Dv), valid (B,C) bool ->
 // (B,H,Dv) in q's dtype, scale 1/sqrt(D); query head h reads kv head
-// h / G (G = H / Hkv).
+// h / G (G = H / Hkv).  One argument more than the TPU kernel: with
+// soft_cap > 0 a score s becomes tanh(s / cap) * cap before the mask, as
+// in the paged kernel, so that the model's dense decode keeps parity with
+// JAX's gqa_decode, which applies a config's logit_soft_cap there (the
+// JAX models never call their own kernel).  No registered config sets a
+// cap: gemma3-1b's is 0.
 //
 // What bounds it on this card: bytes.  At the serving shape (B = 8,
 // H = Hkv = 32, C = 256 slots of which 57-64 are valid, D = 64, bf16) the
 // valid keys are 2.1 MB of K and V for 2.1 MFLOP: 0.6 us at the HBM rate
 // against 0.002 us at the bf16 tensor-core rate.  Reading each valid K/V
 // row once, with enough bytes in flight to cover the memory latency, is
-// the whole game; a launch costs more than either.
+// the whole game; a launch costs more than either.  At gemma3's shape
+// (H = 4, Hkv = 1, D = 256, bf16, C = 256 ring slots of which 57-64 are
+// valid) a row's valid keys are 64 KB of K and V, read by four blocks,
+// one a query head (decode_rows.cuh says why).
 //
 // Design: one block of 8 warps per (b, kv head, group of up to kGB query
 // heads), so the query heads of a kv head share every K/V read; the body
@@ -24,7 +32,8 @@
 // iff valid[b, s].  The block first asks whether the row has any valid
 // slot (C bytes, from L2): a row with none reads every slot's V and no K,
 // and gives the uniform mean of V, as the plain version and the JAX
-// kernel do.  The grid is (Hkv, B, ceil(G / kGB)); a row's keys are not
+// kernel do.  Rows wider than 128 are spread over 16 lanes
+// (decode_rows.cuh).  The grid is (Hkv, B, ceil(G / kGB)); a row's keys are not
 // split over blocks: the time is nearly flat from B = 1 to B = 8
 // (PERF.md), so a block's own latency, not the number of idle SMs, sets
 // it, and a second combining pass would add a launch.
@@ -52,12 +61,12 @@ struct DenseRows {
   }
 };
 
-template <typename T, bool kVec, int kDims, int kGB>
+template <typename T, bool kVec, int kLanes, int kDims, int kGB>
 __global__ void __launch_bounds__(kWarps * kWarp)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const unsigned char* __restrict__ valid,
                         T* __restrict__ out, int C, int H, int Hkv, int D, int Dv,
-                        float scale) {
+                        float scale, float soft_cap) {
   extern __shared__ float smem[];
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int G = H / Hkv;
@@ -72,20 +81,21 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = threadIdx.x; c < C; c += blockDim.x) mine |= valid[row0 + c];
   const bool any = __syncthreads_or(mine);  // also publishes qs
   const DenseRows rows{valid + row0, row0, C, Hkv, kvh};
-  decode_rows<T, kVec, kDims, kGB, kWarps>(
+  decode_rows<T, kVec, kLanes, kDims, kGB, kWarps>(
       k, v, out + (static_cast<size_t>(b) * H + h0) * Dv, qs, red, rows, any, ng, D, Dv,
-      0.0f);
+      soft_cap);
 }
 
 struct Launch {
   const void *q, *k, *v, *valid;
   void* out;
   int B, H, Hkv, C, D, Dv;
+  float soft_cap;
   cudaStream_t stream;
 
-  template <typename T, bool kVec, int kDims, int kGB>
+  template <typename T, bool kVec, int kLanes, int kDims, int kGB>
   int run() {
-    constexpr auto kernel = &decode_attention_kernel<T, kVec, kDims, kGB>;
+    constexpr auto kernel = &decode_attention_kernel<T, kVec, kLanes, kDims, kGB>;
     const size_t smem = decode_smem_bytes(kGB, kWarps, D, Dv);
     cudaError_t err = allow_smem<kernel>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -94,34 +104,36 @@ struct Launch {
     kernel<<<grid, kWarps * kWarp, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const unsigned char*>(valid), static_cast<T*>(out), C, H, Hkv, D,
-        Dv, 1.0f / sqrtf(static_cast<float>(D)));
+        Dv, 1.0f / sqrtf(static_cast<float>(D)), soft_cap);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
-           int B, int H, int Hkv, int C, int D, int Dv, void* stream) {
+           int B, int H, int Hkv, int C, int D, int Dv, float soft_cap, void* stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  Launch one{q, k, v, valid, out, B, H, Hkv, C, D, Dv, static_cast<cudaStream_t>(stream)};
+  Launch one{q, k, v, valid, out, B, H, Hkv, C, D, Dv, soft_cap,
+             static_cast<cudaStream_t>(stream)};
   return decode_dispatch<T>(D, Dv, aligned(k) && aligned(v), H / Hkv, one);
 }
 
 }  // namespace
 
 // Launch on `stream`; return cudaGetLastError() (0 when accepted).  The
-// caller checks shapes: Hkv divides H, B and C >= 1, D and Dv in 1..128,
-// `valid` one byte per (b, c).
+// caller checks shapes: Hkv divides H, B and C >= 1, D and Dv in 1..256,
+// `valid` one byte per (b, c), soft_cap 0 (none) or > 0.
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const void* valid, void* out, int B, int H, int Hkv,
-                                    int C, int D, int Dv, void* stream) {
-  return launch<float>(q, k, v, valid, out, B, H, Hkv, C, D, Dv, stream);
+                                    int C, int D, int Dv, float soft_cap, void* stream) {
+  return launch<float>(q, k, v, valid, out, B, H, Hkv, C, D, Dv, soft_cap, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* valid, void* out, int B, int H, int Hkv,
-                                     int C, int D, int Dv, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, valid, out, B, H, Hkv, C, D, Dv, stream);
+                                     int C, int D, int Dv, float soft_cap, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, valid, out, B, H, Hkv, C, D, Dv, soft_cap,
+                               stream);
 }

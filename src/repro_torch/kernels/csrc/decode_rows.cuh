@@ -20,11 +20,16 @@
 // design is about keeping enough of them in flight:
 // - A key row is spread over a group of 8 lanes, each holding D / 8 of
 //   its elements: as one 16-byte vector load (8 bf16, or 4 fp32 twice)
-//   at D 64, so one load instruction of the warp covers 4 keys.  Where a
-//   row is no multiple of 16 bytes (or a pointer is not 16-byte aligned)
-//   a compile-time variant (kVec false) loads one element at a time.
+//   at D 64, so one load instruction of the warp covers 4 keys.  Rows
+//   wider than 128 (gemma3's D 256) are spread over 16 lanes instead, so
+//   a lane still holds at most 16 elements of a row and 16 of its output:
+//   at 8 lanes, 4 query heads a block would keep 32 query and 32
+//   accumulator floats a head in each lane, 256 registers before a key
+//   is loaded.  Where a row is no multiple of 16 bytes (or a pointer is
+//   not 16-byte aligned) a compile-time variant (kVec false) loads one
+//   element at a time.
 //   The pre-scaled fp32 query sits in registers; a score is the lane
-//   group's partial dot reduced with 3 shuffles, and P.V accumulates each
+//   group's partial dot reduced with 3 (4) shuffles, and P.V accumulates each
 //   lane's own output dims.  K/V go straight to registers, with no
 //   staging copy in shared memory.
 // - Each warp takes 32-slot windows in turn and takes a ballot of the
@@ -36,9 +41,9 @@
 //   vector loads of 16 bytes) before it uses the first, so a sub-chunk's
 //   whole K and V are in flight at once.
 // - Each lane group keeps its own online softmax (max, sum, output); at
-//   the end the 4 groups of a warp are merged by shuffles and the warps
+//   the end the groups of a warp are merged by shuffles and the warps
 //   through shared memory, rescaled to their common max.
-// fp32 arithmetic, expf and tanhf without fast math; D, Dv <= 128.
+// fp32 arithmetic, expf and tanhf without fast math; D, Dv <= 256.
 #pragma once
 
 #include <type_traits>
@@ -92,9 +97,6 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-constexpr int kGroupLanes = 8;                // lanes a key row is spread over
-constexpr int kGroups = kWarp / kGroupLanes;  // keys a warp loads at once
-
 // Shared memory of a decode block with `warps` warps taking kGB query
 // heads: the pre-scaled query rows (kGB, D) and the cross-warp merge
 // area (warps, kGB, 2 + Dv).
@@ -110,13 +112,15 @@ __device__ __forceinline__ void load_query(float* qs, const T* q, int n, float s
   for (int i = threadIdx.x; i < n; i += blockDim.x) qs[i] = to_float(q[i]) * scale;
 }
 
-// kDims: elements of a row a lane holds (8 for D, Dv <= 64, 16 up to
-// 128); kGB: query heads a block takes, of which the first ng are real;
+// kLanes: lanes a row is spread over (8, or 16 for rows wider than
+// 128); kDims: elements of a row a lane holds (8 for D, Dv <= 64, else
+// 16); kGB: query heads a block takes, of which the first ng are real;
 // kWarps: the block's warps, fixed at compile time (6-8% faster at the
 // dense kernel's shapes than a count read at run time).
 // `qs` holds the pre-scaled query rows (published by a barrier), `red`
 // the merge area; `out` points at the block's first output row.
-template <typename T, bool kVec, int kDims, int kGB, int kWarps, class Rows>
+template <typename T, bool kVec, int kLanes, int kDims, int kGB, int kWarps,
+          class Rows>
 __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
                                             const T* __restrict__ v,
                                             T* __restrict__ out, const float* qs,
@@ -129,12 +133,13 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
                                           ? 1 : sizeof(typename P::Raw) / 4);
   // keys per lane group per sub-chunk: about 32 registers each of K and V
   constexpr int kU = kRowRegs >= 32 ? 1 : (32 / kRowRegs > 8 ? 8 : 32 / kRowRegs);
-  constexpr int kSub = kGroups * kU;  // keys per sub-chunk
+  constexpr int kGroups = kWarp / kLanes;  // keys a warp loads at once
+  constexpr int kSub = kGroups * kU;       // keys per sub-chunk
 
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int grp = lane / kGroupLanes, j = lane % kGroupLanes;
+  const int grp = lane / kLanes, j = lane % kLanes;
 
-  // element e of a lane's piece p: (p * 8 + j) * kEpl + e
+  // element e of a lane's piece p: (p * kLanes + j) * kEpl + e
   float qr[kGB][kDims];
 #pragma unroll
   for (int g = 0; g < kGB; ++g)
@@ -142,7 +147,7 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
     for (int p = 0; p < kPieces; ++p)
 #pragma unroll
       for (int e = 0; e < kEpl; ++e) {
-        const int d = (p * kGroupLanes + j) * kEpl + e;
+        const int d = (p * kLanes + j) * kEpl + e;
         qr[g][p * kEpl + e] = g < ng && d < D ? qs[g * D + d] : 0.0f;
       }
   float m[kGB], l[kGB], acc[kGB][kDims];
@@ -174,7 +179,7 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
         const size_t row = t ? rows.row(w0 + slot) : 0;
 #pragma unroll
         for (int p = 0; p < kPieces; ++p) {
-          const int d = (p * kGroupLanes + j) * kEpl;
+          const int d = (p * kLanes + j) * kEpl;
           // a row with no counted slot needs no K: its scores are all -1e30
           kr[u][p] = t && any && d < D ? P::load(k + row * D + d) : P::zero();
           vr[u][p] = t && d < Dv ? P::load(v + row * Dv + d) : P::zero();
@@ -194,7 +199,7 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
             for (int e = 0; e < kEpl; ++e)
               part = fmaf(qr[g][p * kEpl + e], P::get(kr[u][p], e), part);
           const int slot = s0 + u * kGroups + grp;
-          float sc = group_sum<kGroupLanes>(part);
+          float sc = group_sum<kLanes>(part);
           if (soft_cap > 0.0f) sc = tanhf(sc / soft_cap) * soft_cap;
           // a slot past the walk weighs nothing even in a row with no
           // counted slot
@@ -220,19 +225,19 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
     }
   }
 
-  // merge the warp's 4 lane groups (same dims in lanes j, j + 8, ...),
-  // then the warps through shared memory
+  // merge the warp's lane groups (same dims in lanes j, j + kLanes,
+  // ...), then the warps through shared memory
 #pragma unroll
   for (int g = 0; g < kGB; ++g) {
     if (g >= ng) continue;
     float mx = m[g];
 #pragma unroll
-    for (int o = kGroupLanes; o < kWarp; o <<= 1)
+    for (int o = kLanes; o < kWarp; o <<= 1)
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
     const float f = expf(m[g] - mx);
     float lsum = l[g] * f;
 #pragma unroll
-    for (int o = kGroupLanes; o < kWarp; o <<= 1) lsum += __shfl_xor_sync(kFull, lsum, o);
+    for (int o = kLanes; o < kWarp; o <<= 1) lsum += __shfl_xor_sync(kFull, lsum, o);
     float* e0 = red + (warp * kGB + g) * (2 + Dv);
     if (lane == 0) {
       e0[0] = mx;
@@ -244,8 +249,8 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
       for (int e = 0; e < kEpl; ++e) {
         float a = acc[g][p * kEpl + e] * f;
 #pragma unroll
-        for (int o = kGroupLanes; o < kWarp; o <<= 1) a += __shfl_xor_sync(kFull, a, o);
-        const int d = (p * kGroupLanes + j) * kEpl + e;
+        for (int o = kLanes; o < kWarp; o <<= 1) a += __shfl_xor_sync(kFull, a, o);
+        const int d = (p * kLanes + j) * kEpl + e;
         if (grp == 0 && d < Dv) e0[2 + d] = a;
       }
   }
@@ -270,28 +275,43 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
 }
 
 // Host side: pick the instance for the row widths and the group size.
-// `launch_one<T, kVec, kDims, kGB>()` launches one instance; a row of 16
-// bytes or more at every pointer takes the vector loads.  Heads a block
-// takes: all G of a kv head up to 8 at D, Dv <= 64 (4 at wider rows,
-// whose accumulators take twice the registers).
-template <typename T, bool kVec, int kDims, class Launch>
+// `launch_one<T, kVec, kLanes, kDims, kGB>()` launches one instance; a
+// row of 16 bytes or more at every pointer takes the vector loads.  Heads
+// a block takes: all G of a kv head up to 8 at D, Dv <= 64 (4 up to 128,
+// whose accumulators take twice the registers), and one at wider rows.
+// There a key costs a warp twice the instructions (2 keys a load, not
+// 4), and a row of gemma3's ~60 cached tokens keeps only 2 of a block's
+// warps busy: with its 4 heads in one block the kernel took 0.0247 ms at
+// B 8 on an H100 at 700 W, against SDPA's 0.0176 (PERF.md), so the heads
+// run in parallel blocks, each reading the kv head's rows (the later
+// ones from L2).
+template <typename T, bool kVec, int kLanes, int kDims, class Launch>
 inline int decode_dispatch_group(int G, Launch& launch_one) {
-  if (G == 1) return launch_one.template run<T, kVec, kDims, 1>();
-  if constexpr (kDims == 8) {
-    if (G > 4) return launch_one.template run<T, kVec, kDims, 8>();
+  if constexpr (kLanes > 8) {
+    return launch_one.template run<T, kVec, kLanes, kDims, 1>();
+  } else {
+    if (G == 1) return launch_one.template run<T, kVec, kLanes, kDims, 1>();
+    if constexpr (kDims == 8) {
+      if (G > 4) return launch_one.template run<T, kVec, kLanes, kDims, 8>();
+    }
+    return launch_one.template run<T, kVec, kLanes, kDims, 4>();
   }
-  return launch_one.template run<T, kVec, kDims, 4>();
+}
+
+// Lanes and elements a lane holds: 8 x 8 up to 64 dims, 8 x 16 up to
+// 128, 16 x 16 up to 256.
+template <typename T, bool kVec, class Launch>
+inline int decode_dispatch_dims(int D, int Dv, int G, Launch& launch_one) {
+  if (D <= 64 && Dv <= 64) return decode_dispatch_group<T, kVec, 8, 8>(G, launch_one);
+  if (D <= 128 && Dv <= 128) return decode_dispatch_group<T, kVec, 8, 16>(G, launch_one);
+  return decode_dispatch_group<T, kVec, 16, 16>(G, launch_one);
 }
 
 template <typename T, class Launch>
 inline int decode_dispatch(int D, int Dv, bool aligned, int G, Launch& launch_one) {
   const bool vec = aligned && (D * sizeof(T)) % 16 == 0 && (Dv * sizeof(T)) % 16 == 0;
-  if (vec) {
-    if (D <= 64 && Dv <= 64) return decode_dispatch_group<T, true, 8>(G, launch_one);
-    return decode_dispatch_group<T, true, 16>(G, launch_one);
-  }
-  if (D <= 64 && Dv <= 64) return decode_dispatch_group<T, false, 8>(G, launch_one);
-  return decode_dispatch_group<T, false, 16>(G, launch_one);
+  if (vec) return decode_dispatch_dims<T, true>(D, Dv, G, launch_one);
+  return decode_dispatch_dims<T, false>(D, Dv, G, launch_one);
 }
 
 }  // namespace attn

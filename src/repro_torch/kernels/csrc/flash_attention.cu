@@ -17,7 +17,11 @@
 // does 17 MFLOP of causal QK^T and PV: 0.31 us at the HBM rate, 0.02 us
 // at the bf16 tensor-core rate, so bytes bound it, and a launch costs
 // more than either.  At the MLA prefill shape (deepseek-v2-lite: BH = 16,
-// T = 64, D = 192, Dv = 128) it moves 1.3 MB: 0.39 us by bytes.  At the
+// T = 64, D = 192, Dv = 128) it moves 1.3 MB: 0.39 us by bytes.  At
+// gemma3's long prefill (BH = 4, BHkv = 1, T = 1024, D = Dv = 256) it
+// moves 5.2 MB (1.6 us) and does 1.6 GFLOP in a local layer's 512-key
+// window, 2.2 GFLOP in a global layer (1.6 and 2.2 us on the tensor
+// cores): both bounds are near.  At the
 // zamba2 forward's shape (BH = 64, T = 1024, D = 64) it moves 33.6 MB
 // (10.0 us) and does 8.6 GFLOP (8.7 us on the tensor cores): both
 // bounds are near, and only the tensor cores keep the products under
@@ -43,8 +47,11 @@
 // bf16's 3e-2.  Key tiles wholly above the diagonal or outside the
 // window are never loaded, and only tiles that the diagonal, the window
 // edge or T cuts are masked.  D and Dv are zero-padded (D to a multiple
-// of 16, Dv to 64 or 128) in shared memory (D <= 256, Dv <= 128; MLA
-// prefill's D 192 / Dv 128 takes 105 KB, granted by allow_smem); rows
+// of 16, Dv to 64, 128 or 256) in shared memory (D, Dv <= 256; MLA
+// prefill's D 192 / Dv 128 takes 105 KB, gemma3's D = Dv = 256 161 KB,
+// granted by allow_smem).  At Dv 256 the O accumulator is 64 x 256 fp32
+// a warpgroup, 128 registers a thread, and P.V is two m64n128k16
+// products a 16-key step, one a half of V's columns; rows
 // whose bytes are no multiple of 16 load element by element (a
 // compile-time variant).  It beats an mma.sync m16n8k16 / ldmatrix
 // kernel at every shape tried (PERF.md); at T 1024 it is still about
@@ -64,10 +71,11 @@
 // reads key j without bank conflicts) and V are staged through shared
 // memory in fp32; each warp owns 8 query rows, lane j scores key j of
 // the tile, and the PV product broadcasts each weight with a shuffle.
-// Only Dv sits in registers (kDimChunks accumulators a lane), so Dv <=
-// 128; D is only looped over in shared memory and may reach 256 (MLA
-// prefill: a 65.6 KB tile, past the 48 KB default, granted by
-// allow_smem).  expf without fast math.
+// Only Dv sits in registers (kChunks accumulators a lane: 4 up to Dv
+// 128, 8 up to 256); D is only looped over in shared memory and may
+// reach 256 (MLA prefill: a 65.6 KB tile, gemma3's D = Dv = 256 98 KB,
+// past the 48 KB default, granted by allow_smem).  expf without fast
+// math.
 
 #include <cstdint>
 
@@ -86,7 +94,7 @@ constexpr int kWarps = 4;
 constexpr int kBlockRows = kRowsPerWarp * kWarps;  // query rows per block
 constexpr int kKeys = kWarp;                        // keys per tile
 
-template <typename T>
+template <typename T, int kChunks>
 __global__ void __launch_bounds__(kWarps * kWarp)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int G, int T_,
@@ -109,7 +117,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         : 0.0f;
   }
 
-  RowState st[kRowsPerWarp];
+  RowState<kChunks> st[kRowsPerWarp];
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) st[i].init();
 
@@ -148,7 +156,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.0f / fmaxf(st[i].l, 1e-30f);
     T* o = out + (static_cast<size_t>(bh) * T_ + qpos) * Dv;
 #pragma unroll
-    for (int c = 0; c < kDimChunks; ++c) {
+    for (int c = 0; c < kChunks; ++c) {
       const int d = lane + c * kWarp;
       if (d < Dv) o[d] = from_float<T>(st[i].acc[c] * inv);
     }
@@ -209,6 +217,15 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// floats [kOff, kOff + 64) of a thread's accumulator: the accumulator of
+// an m64n128 product over 128 of its columns (4 floats a group of 8
+// columns, so floats 64.. hold columns 128..)
+template <int kOff, int N>
+__device__ __forceinline__ float (&acc_slice(float (&d)[N]))[64] {
+  static_assert(kOff % 64 == 0 && kOff + 64 <= N, "a whole 64-float slice");
+  return *reinterpret_cast<float(*)[64]>(d + kOff);
+}
+
 // keep the compiler from moving accesses to an accumulator across the
 // asynchronous products that write it
 template <int N>
@@ -320,7 +337,8 @@ __device__ __forceinline__ float fast_exp2(float x) {  // 2 ulp; exp2(-1e30) = 0
   return y;
 }
 
-// kNo: O's width in the P.V product (64: Dv <= 64, 128: Dv <= 128);
+// kNo: O's width in the P.V product (64: Dv <= 64, 128: Dv <= 128, 256:
+// Dv <= 256);
 // kVec: rows of q, k and v are whole 16-byte pieces.
 template <int kNo, bool kVec>
 __global__ void __launch_bounds__(kGroup)
@@ -449,10 +467,15 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t b = sw128_desc(vst + kk * 16 * kSwz, kBlk, 1024);
-      if constexpr (kNo == 64)
+      if constexpr (kNo == 64) {
         wgmma_rs_n64(o, p[kk], b, 1);
-      else
+      } else if constexpr (kNo == 128) {
         wgmma_rs_n128(o, p[kk], b, 1);
+      } else {  // columns 128..255 start two 64-column blocks later
+        wgmma_rs_n128(acc_slice<0>(o), p[kk], b, 1);
+        wgmma_rs_n128(acc_slice<64>(o), p[kk],
+                      sw128_desc(vst + 2 * kBlk + kk * 16 * kSwz, kBlk, 1024), 1);
+      }
     }
     wgmma_commit();
     wgmma_wait();
@@ -502,19 +525,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int BH, 
                 int T_, int D, int Dv, int causal, int window, cudaStream_t stream) {
   if (Dv <= 64)
     return launch_wgmma<64, kVec>(q, k, v, out, BH, BHkv, T_, D, Dv, causal, window, stream);
-  return launch_wgmma<128, kVec>(q, k, v, out, BH, BHkv, T_, D, Dv, causal, window, stream);
+  if (Dv <= 128)
+    return launch_wgmma<128, kVec>(q, k, v, out, BH, BHkv, T_, D, Dv, causal, window, stream);
+  return launch_wgmma<256, kVec>(q, k, v, out, BH, BHkv, T_, D, Dv, causal, window, stream);
 }
 
+template <int kChunks>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, int BHkv,
                int T_, int D, int Dv, int causal, int window, void* stream) {
   using T = float;
+  constexpr auto kernel = &flash_attention_kernel<T, kChunks>;
   const size_t smem =
       sizeof(float) * (kBlockRows * D + kKeys * (D + 1) + kKeys * Dv);
-  cudaError_t err = allow_smem<&flash_attention_kernel<T>>(smem);
+  cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (T_ + kBlockRows - 1) / kBlockRows);
-  flash_attention_kernel<T><<<grid, kWarps * kWarp, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), BH / BHkv, T_, D, Dv, causal, window,
       1.0f / sqrtf(static_cast<float>(D)));
@@ -524,12 +550,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, i
 }  // namespace
 
 // Launch on `stream`; return cudaGetLastError() (0 when accepted).  The
-// caller checks shapes: BHkv divides BH, T >= 1, D in 1..256, Dv in 1..128,
+// caller checks shapes: BHkv divides BH, T >= 1, D and Dv in 1..256,
 // window 0 (none) or in 1..T-1.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, int BH, int BHkv, int T, int D, int Dv,
                                    int causal, int window, void* stream) {
-  return launch_f32(q, k, v, out, BH, BHkv, T, D, Dv, causal, window, stream);
+  if (Dv <= 4 * kWarp)
+    return launch_f32<4>(q, k, v, out, BH, BHkv, T, D, Dv, causal, window, stream);
+  return launch_f32<8>(q, k, v, out, BH, BHkv, T, D, Dv, causal, window, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,

@@ -40,7 +40,9 @@
 //   wave.
 // - A compile-time variant loads one element at a time where rows are no
 //   multiple of 16 bytes or a pointer is not 16-byte aligned.
-// fp32 arithmetic, expf and tanhf without fast math; D, Dv <= 128.
+// - Rows wider than 128 (gemma3's D 256) are spread over 16 lanes
+//   (decode_rows.cuh).
+// fp32 arithmetic, expf and tanhf without fast math; D, Dv <= 256.
 
 #include <cstdint>
 
@@ -67,7 +69,7 @@ struct PagedRows {
   }
 };
 
-template <typename T, bool kVec, int kDims, int kGB>
+template <typename T, bool kVec, int kLanes, int kDims, int kGB>
 __global__ void __launch_bounds__(kWarps * kWarp)
 paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                               const T* __restrict__ v_pages,
@@ -99,8 +101,8 @@ paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
   const PagedRows rows{table, ps, Hkv, kvh, lo, hi, any ? lo & ~(kWarp - 1) : 0,
                        any ? hi : slots};
   T* o = out + (static_cast<size_t>(b) * H + h0) * Dv;
-  decode_rows<T, kVec, kDims, kGB, kWarps>(k_pages, v_pages, o, qs, red, rows, any, ng, D,
-                                           Dv, soft_cap);
+  decode_rows<T, kVec, kLanes, kDims, kGB, kWarps>(k_pages, v_pages, o, qs, red, rows, any,
+                                                   ng, D, Dv, soft_cap);
 }
 
 struct Launch {
@@ -111,9 +113,9 @@ struct Launch {
   int window;
   cudaStream_t stream;
 
-  template <typename T, bool kVec, int kDims, int kGB>
+  template <typename T, bool kVec, int kLanes, int kDims, int kGB>
   int run() {
-    constexpr auto kernel = &paged_decode_attention_kernel<T, kVec, kDims, kGB>;
+    constexpr auto kernel = &paged_decode_attention_kernel<T, kVec, kLanes, kDims, kGB>;
     const int G = H / Hkv;
     const dim3 grid(Hkv, B, (G + kGB - 1) / kGB);
     const size_t smem = decode_smem_bytes(kGB, kWarps, D, Dv) + sizeof(int) * Pseq;
@@ -144,7 +146,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace
 
 // Launch on `stream`; return cudaGetLastError() (0 when accepted).  The
-// caller checks shapes: Hkv divides H, B >= 1, D and Dv in 1..128,
+// caller checks shapes: Hkv divides H, B >= 1, D and Dv in 1..256,
 // window 0 (none) or >= 1, soft_cap 0 (none) or > 0; every page id of a row's first
 // ceil(lengths[b] / ps) table entries (of every entry where lengths[b]
 // is 0) lies in the pool.

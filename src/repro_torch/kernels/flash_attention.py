@@ -11,8 +11,7 @@ import torch
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
 from repro_torch.kernels._grad import with_grad
-from repro_torch.kernels._checks import (MAX_SCORE_DIM, head_dims,
-                                         kernel_inputs)
+from repro_torch.kernels._checks import head_dims, kernel_inputs
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -20,8 +19,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (BH,T,D); k/v (BHkv,T,D) -> (BH,T,Dv) in q's dtype.  BHkv = BH
     is the JAX signature; a GQA caller may instead pass each kv head once
     (BHkv dividing BH, query row bh reads kv row bh // (BH // BHkv)).
-    ``window <= 0`` means no window; any T.  The kernel takes D up to
-    256 and Dv up to 128 (MLA prefill: D 192, Dv 128)."""
+    ``window <= 0`` means no window; any T.  The kernel takes D and Dv
+    up to 256 (MLA prefill: D 192, Dv 128; gemma3: D = Dv = 256)."""
     dev = common_device(q, k, v)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("flash_attention takes (BH,T,D) q, k and v")
@@ -36,8 +35,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
     suffix = kernel_inputs("flash_attention", q=q, k=k, v=v)
-    head_dims("flash_attention", D, limit=MAX_SCORE_DIM)
-    head_dims("flash_attention", Dv)
+    head_dims("flash_attention", D, Dv)
     # a window that reaches past every key is no window (and the kernel
     # then never forms q_pos - window)
     win = int(window) if 0 < window < T else 0

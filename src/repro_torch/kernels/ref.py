@@ -66,13 +66,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         valid: torch.Tensor) -> torch.Tensor:
-    """q (B,H,D); k/v (B,C,Hkv,D); valid (B,C) bool -> (B,H,Dv)."""
+                         valid: torch.Tensor, *,
+                         soft_cap: float = 0.0) -> torch.Tensor:
+    """q (B,H,D); k/v (B,C,Hkv,D); valid (B,C) bool -> (B,H,Dv).  With
+    ``soft_cap`` the scores are capped before the mask, as in
+    :func:`paged_decode_attention_ref` (the JAX oracle has no cap: at 0
+    this is it)."""
     B, H, D = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, D)
     s = torch.einsum("bhgd,bchd->bhgc", qg.float(), k.float()) \
         / math.sqrt(D)
+    if soft_cap:
+        s = torch.tanh(s / soft_cap) * soft_cap
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgc,bchd->bhgd", p, v.float())

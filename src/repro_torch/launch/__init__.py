@@ -1,0 +1,2 @@
+"""Entry points of the port, counterparts of ``repro/launch``: so far the
+serving driver (``python -m repro_torch.launch.serve``)."""

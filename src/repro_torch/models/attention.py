@@ -26,9 +26,14 @@ Two departures from the JAX module, both about state:
   cache over slots; the dense engine's batched decode step is then one
   call with per-row positions.
 
-Cross attention, ``local_global``, ``qk_norm``, ``logit_soft_cap`` and
-MLA's query compression (``q_lora_rank > 0``) are not ported yet
-(ROADMAP.md) and raise.
+GQA takes gemma3's features as the JAX module does: ``qk_norm`` (the
+``q_norm`` / ``k_norm`` leaves, an RMS norm over each head's dims before
+rope, in every GQA path) and ``logit_soft_cap``, which the JAX module
+applies in decode only (:func:`gqa_decode`, :func:`paged_gqa_decode`)
+and not in forward or prefill; the port keeps that asymmetry.  Local and
+global layers differ only in the window and rope table the caller passes.
+Cross attention and MLA's query compression (``q_lora_rank > 0``) are
+not ported yet (ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -47,15 +52,9 @@ NOT_PORTED = "is not ported to PyTorch yet; see ROADMAP.md"
 
 
 def check_supported(a: AttentionConfig) -> None:
-    """Raise for the attention features this slice does not port."""
+    """Raise for the attention features the port does not have yet."""
     if a.kind == "mla" and a.mla.q_lora_rank:
         raise NotImplementedError(f"MLA query compression {NOT_PORTED}")
-    if a.kind == "local_global":
-        raise NotImplementedError(f"local:global attention {NOT_PORTED}")
-    if a.qk_norm:
-        raise NotImplementedError(f"qk_norm {NOT_PORTED}")
-    if a.logit_soft_cap:
-        raise NotImplementedError(f"logit_soft_cap {NOT_PORTED}")
 
 
 def init_gqa(pi: ParamInit, path: str, d_model: int, a: AttentionConfig,
@@ -66,6 +65,9 @@ def init_gqa(pi: ParamInit, path: str, d_model: int, a: AttentionConfig,
     pi.param(f"{path}/wk", (d_model, a.num_kv_heads, hd), stack=stack)
     pi.param(f"{path}/wv", (d_model, a.num_kv_heads, hd), stack=stack)
     pi.param(f"{path}/wo", (a.num_heads, hd, d_model), stack=stack)
+    if a.qk_norm:
+        pi.param(f"{path}/q_norm", (hd,), init="ones", stack=stack)
+        pi.param(f"{path}/k_norm", (hd,), init="ones", stack=stack)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -80,9 +82,12 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return torch.matmul(o.flatten(-2), wo.reshape(h * k, d))
 
 
-def _qkv(p: Dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
-         inv_freq: Optional[torch.Tensor]):
+def _qkv(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
+         positions: torch.Tensor, inv_freq: Optional[torch.Tensor]):
     q, k, v = (_project(x, p[w]) for w in ("wq", "wk", "wv"))
+    if a.qk_norm:
+        q = _rms_head_norm(q, p["q_norm"])
+        k = _rms_head_norm(k, p["k_norm"])
     if inv_freq is not None:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
@@ -186,7 +191,7 @@ def gqa_forward(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     check_supported(a)
     if kv_source is not None:
         raise NotImplementedError(f"cross attention {NOT_PORTED}")
-    q, k, v = _qkv(p, x, positions, inv_freq)
+    q, k, v = _qkv(p, a, x, positions, inv_freq)
     out = _causal_attention(q, k, v, positions, causal, window)
     return _out_proj(out, p["wo"])
 
@@ -220,7 +225,7 @@ def gqa_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     positions ``[0, length)``.  ``x`` may be right-padded beyond
     ``length``; causality keeps pad keys out of every valid query."""
     check_supported(a)
-    q, k, v = _qkv(p, x, positions, inv_freq)
+    q, k, v = _qkv(p, a, x, positions, inv_freq)
     out = _causal_attention(q, k, v, positions, True, window)
     slots = prefill_slots(cache.capacity, positions, length)
     _ring_write(cache.k, k, slots)
@@ -240,7 +245,7 @@ def gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     check_supported(a)
     B = x.shape[0]
     pos = pos.long().expand(B) if pos.dim() == 0 else pos.long()
-    q, k, v = _qkv(p, x, pos[:, None], inv_freq)
+    q, k, v = _qkv(p, a, x, pos[:, None], inv_freq)
     rows = torch.arange(B, device=x.device)
     slot = cache.index.long() % cache.capacity
     cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
@@ -253,11 +258,11 @@ def gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     # the cache may be stored in another dtype: upcast for the dot
     kc, vc = cache.k.to(q.dtype), cache.v.to(q.dtype)
     if q.is_cuda:
-        out = ops.decode_attention(q[:, 0].contiguous(), kc, vc,
-                                   valid)[:, None]
+        out = ops.decode_attention(q[:, 0].contiguous(), kc, vc, valid,
+                                   soft_cap=a.logit_soft_cap)[:, None]
     else:
         out = _sdpa(q, kc, vc, pos[:1], torch.zeros_like(cache.pos[0]),
-                    False, None, 0.0, k_valid=valid)
+                    False, None, a.logit_soft_cap, k_valid=valid)
     return _out_proj(out, p["wo"]), cache
 
 
@@ -327,7 +332,7 @@ def paged_gqa_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     """The attention of :func:`gqa_prefill`; only the cache write
     differs: K/V scatter through the block table into pages."""
     check_supported(a)
-    q, k, v = _qkv(p, x, positions, inv_freq)
+    q, k, v = _qkv(p, a, x, positions, inv_freq)
     out = _causal_attention(q, k, v, positions, True, window)
     num_pages = cache.k_pages.shape[0] - 1
     pages, slots = prefill_page_ids(block_tables, positions, length,
@@ -348,7 +353,7 @@ def paged_gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     check_supported(a)
     B = x.shape[0]
     pos = pos.long()
-    q, k, v = _qkv(p, x, pos[:, None], inv_freq)
+    q, k, v = _qkv(p, a, x, pos[:, None], inv_freq)
     ps = cache.page_size
     bt = block_tables.long()
     pidx = torch.gather(bt, 1, (pos // ps)[:, None])
@@ -359,7 +364,8 @@ def paged_gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     if q.is_cuda:
         out = ops.paged_decode_attention(
             q[:, 0].contiguous(), kp, vp, block_tables.int().contiguous(),
-            (pos + 1).int(), window=window)[:, None]
+            (pos + 1).int(), soft_cap=a.logit_soft_cap,
+            window=window)[:, None]
     else:
         C = bt.shape[1] * ps
         kg = kp[bt].reshape(B, C, *kp.shape[2:])
@@ -369,8 +375,8 @@ def paged_gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
         if window is not None:
             valid &= (pos[:, None] - tok) < window
         zeros = torch.zeros((C,), dtype=torch.long, device=x.device)
-        out = _sdpa(q, kg, vg, zeros[:1], zeros, False, None, 0.0,
-                    k_valid=valid)
+        out = _sdpa(q, kg, vg, zeros[:1], zeros, False, None,
+                    a.logit_soft_cap, k_valid=valid)
     return _out_proj(out, p["wo"]), cache
 
 

@@ -1,18 +1,24 @@
 """Decoder-only transformer of the dense and moe families (stablelm,
-h2o-danube, deepseek-v2-lite, qwen2-moe): the counterpart of
-``repro/models/transformer.py`` for configs whose every layer has the
-same cache geometry (attention kind ``full``, ``swa`` or ``mla``).
+h2o-danube, gemma3, deepseek-v2-lite, qwen2-moe): the counterpart of
+``repro/models/transformer.py``.
 
 Parameters keep the JAX tree: ``embed/table``, ``lm_head/w``,
 ``final_norm``, the unstacked leading dense layers ``lead/{i}`` of an MoE
 config (deepseek's first layer, FFN width ``dense_d_ff``), and
 ``layers/...`` with a leading layer axis (MoE layers when the config has
-``moe``).  A python loop over the layers replaces ``lax.scan``; caches
-keep the same ``{"lead": {...}, "layers": stacked}`` layout and are
-written in place (see ``models/attention.py``).  MLA layers rotate
-``qk_rope_head_dim`` dims, as JAX's ``stacked_rope`` does.
-``local_global``, ``qk_norm``, ``logit_soft_cap`` and ``rope_theta == 0``
-are not ported yet (ROADMAP.md) and raise.
+``moe``).  A python loop over the layers replaces ``lax.scan``; each
+layer takes its own window and rope table from the per-layer metadata
+(:func:`layer_window`, :func:`layer_theta`: gemma3's 5 local : 1 global
+layers, local ones windowed at 512 with rope base 10k, global ones
+unwindowed at 1M).  Caches keep the JAX layout: ``{"lead": {...},
+"layers": stacked}`` when every layer has the same cache geometry, else
+(gemma3) ``"layers"`` is a dict of per-layer rings keyed by the layer's
+index, local layers keeping only ``min(max_len, window)`` slots.  The
+paged cache is uniform for every config (windows are masks there).
+Caches are written in place (see ``models/attention.py``).  MLA layers
+rotate ``qk_rope_head_dim`` dims, as JAX's ``stacked_rope`` does.
+Sinusoidal positions (``rope_theta == 0``) are not ported yet
+(ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -38,22 +44,48 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attention.rope_theta == 0.0:
         raise NotImplementedError(
             f"sinusoidal positions (rope_theta == 0) {attn.NOT_PORTED}")
-    if cfg.attention.kind not in ("full", "swa", "mla"):
+    if cfg.attention.kind not in ("full", "swa", "local_global", "mla"):
         raise NotImplementedError(
             f"attention kind {cfg.attention.kind!r} {attn.NOT_PORTED}")
     attn.check_supported(cfg.attention)
 
 
-def layer_window(cfg: ModelConfig) -> int:
-    """The window every layer masks with (``FULL_WINDOW``: none)."""
+# ---------------------------------------------------------------------------
+# per-layer metadata
+# ---------------------------------------------------------------------------
+
+def layer_is_global(cfg: ModelConfig, i: int) -> bool:
     a = cfg.attention
-    if a.kind == "swa" or (a.kind == "full" and a.window):
+    if a.kind != "local_global":
+        return True
+    return (i + 1) % (a.local_global_ratio + 1) == 0
+
+
+def layer_window(cfg: ModelConfig, i: int) -> int:
+    """The window layer ``i`` masks with (``FULL_WINDOW``: none)."""
+    a = cfg.attention
+    if a.kind == "swa":
+        return a.window
+    if a.kind == "local_global" and not layer_is_global(cfg, i):
+        return a.window
+    if a.kind == "full" and a.window:          # zamba2 shared block long mode
         return a.window
     return FULL_WINDOW
 
 
-def cache_capacity(cfg: ModelConfig, max_len: int) -> int:
-    w = layer_window(cfg)
+def layer_theta(cfg: ModelConfig, i: int) -> float:
+    a = cfg.attention
+    if a.kind == "local_global" and not layer_is_global(cfg, i):
+        return a.rope_theta_local or a.rope_theta
+    return a.rope_theta
+
+
+def _uniform_cache_geometry(cfg: ModelConfig) -> bool:
+    return len({layer_window(cfg, i) for i in range(cfg.num_layers)}) == 1
+
+
+def cache_capacity(cfg: ModelConfig, i: int, max_len: int) -> int:
+    w = layer_window(cfg, i)
     return min(max_len, w) if w != FULL_WINDOW else max_len
 
 
@@ -65,11 +97,12 @@ def _is_mla(cfg: ModelConfig) -> bool:
     return cfg.attention.kind == "mla"
 
 
-def _inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
+def _inv_freq(cfg: ModelConfig, device, i: int = 0) -> torch.Tensor:
+    """Layer ``i``'s rope frequencies."""
     a = cfg.attention
     dim = a.mla.qk_rope_head_dim if _is_mla(cfg) else a.head_dim
     return torch.from_numpy(rope_frequencies(
-        dim, a.rope_theta, a.rope_fraction)).to(device)
+        dim, layer_theta(cfg, i), a.rope_fraction)).to(device)
 
 
 def _at(cache, i: int):
@@ -77,16 +110,30 @@ def _at(cache, i: int):
     return type(cache)(*(x[i] for x in cache))
 
 
-def _layers(params: Params, cfg: ModelConfig, cache=None):
+def _layers(params: Params, cfg: ModelConfig, device, cache=None):
     """Every layer in order, the ``lead/{i}`` dense layers first: (its
-    params, whether it is an MoE layer, its cache or None)."""
+    params, whether it is an MoE layer, its cache or None, its window,
+    its rope frequencies).  Each distinct rope base is moved to
+    ``device`` once a call."""
     n_lead = _n_lead(cfg)
-    for i in range(n_lead):
-        yield (params["lead"][str(i)], False,
-               None if cache is None else cache["lead"][str(i)])
-    for i in range(cfg.num_layers - n_lead):
-        yield (layer_slice(params["layers"], i), cfg.moe is not None,
-               None if cache is None else _at(cache["layers"], i))
+    freqs: Dict[float, torch.Tensor] = {}
+    for i in range(cfg.num_layers):
+        theta = layer_theta(cfg, i)
+        if theta not in freqs:
+            freqs[theta] = _inv_freq(cfg, device, i)
+        if i < n_lead:
+            p, moe_layer = params["lead"][str(i)], False
+            c = None if cache is None else cache["lead"][str(i)]
+        else:
+            p = layer_slice(params["layers"], i - n_lead)
+            moe_layer = cfg.moe is not None
+            if cache is None:
+                c = None
+            elif isinstance(cache["layers"], dict):
+                c = cache["layers"][str(i)]
+            else:
+                c = _at(cache["layers"], i - n_lead)
+        yield p, moe_layer, c, layer_window(cfg, i), freqs[theta]
 
 
 def _block(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
@@ -167,10 +214,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
     a = cfg.attention
     aux_total = x.new_zeros((), dtype=torch.float32)
-    for p, moe_layer, _ in _layers(params, cfg):
+    for p, moe_layer, _, window, inv_freq in _layers(params, cfg, x.device):
         h = _ln1(cfg, p, x)
         if _is_mla(cfg):
             y = attn.mla_forward(p["attn"], a, h, positions, inv_freq)
@@ -196,21 +242,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None):
     """{"lead": {str(i): cache of lead layer i}, "layers": cache with a
     leading layer axis}: a ring :class:`~attention.KVCache` per GQA
-    layer, a latent :class:`~attention.MLACache` per MLA layer."""
+    layer, a latent :class:`~attention.MLACache` per MLA layer.  When the
+    layers' windows differ (gemma3), "layers" is instead {str(i): ring of
+    layer i}, each of :func:`cache_capacity` slots, as in JAX."""
     check_supported(cfg)
     dtype = dtype or to_dtype(cfg.dtype)
     a, dev = cfg.attention, resolve_device(device)
-    cap = cache_capacity(cfg, max_len)
 
-    def one():
+    def one(i):
+        cap = cache_capacity(cfg, i, max_len)
         if _is_mla(cfg):
             return attn.init_mla_cache(batch, cap, a, dtype, dev)
         return attn.init_kv_cache(batch, cap, a.num_kv_heads, a.head_dim,
                                   dtype, dev)
 
     n_lead = _n_lead(cfg)
-    return {"lead": {str(i): one() for i in range(n_lead)},
-            "layers": _stacked(one, cfg.num_layers - n_lead)}
+    lead = {str(i): one(i) for i in range(n_lead)}
+    if _uniform_cache_geometry(cfg):
+        return {"lead": lead, "layers": _stacked(
+            lambda: one(n_lead), cfg.num_layers - n_lead)}
+    return {"lead": lead, "layers": {str(i): one(i) for i in
+                                     range(n_lead, cfg.num_layers)}}
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
@@ -224,9 +276,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
     length = tokens.shape[1] if length is None else int(length)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
     a = cfg.attention
-    for p, moe_layer, c in _layers(params, cfg, cache):
+    for p, moe_layer, c, window, inv_freq in _layers(params, cfg, x.device,
+                                                     cache):
         h = _ln1(cfg, p, x)
         if _is_mla(cfg):
             y, _ = attn.mla_prefill(p["attn"], a, h, positions, length, c,
@@ -248,10 +300,10 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
-    inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
     a = cfg.attention
     groups = x.shape[0] if moe_per_row else 1
-    for p, moe_layer, c in _layers(params, cfg, cache):
+    for p, moe_layer, c, window, inv_freq in _layers(params, cfg, x.device,
+                                                     cache):
         h = _ln1(cfg, p, x)
         if _is_mla(cfg):
             y, _ = attn.mla_decode(p["attn"], a, h, pos, c, inv_freq)
@@ -297,9 +349,9 @@ def paged_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     length = tokens.shape[1] if length is None else int(length)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
     a = cfg.attention
-    for p, moe_layer, c in _layers(params, cfg, cache):
+    for p, moe_layer, c, window, inv_freq in _layers(params, cfg, x.device,
+                                                     cache):
         h = _ln1(cfg, p, x)
         if _is_mla(cfg):
             y, _ = attn.paged_mla_prefill(p["attn"], a, h, positions, length,
@@ -321,9 +373,9 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
-    inv_freq, window = _inv_freq(cfg, x.device), layer_window(cfg)
     a = cfg.attention
-    for p, moe_layer, c in _layers(params, cfg, cache):
+    for p, moe_layer, c, window, inv_freq in _layers(params, cfg, x.device,
+                                                     cache):
         h = _ln1(cfg, p, x)
         if _is_mla(cfg):
             y, _ = attn.paged_mla_decode(p["attn"], a, h, pos, c,

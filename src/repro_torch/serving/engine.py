@@ -28,11 +28,21 @@ sequence, so there is nothing to page).
 
 Caches are written in place (``models/attention.py``), so ``measure()``
 clones them before it admits its probe sequences and puts the clones
-back after: in-flight sequences resume where they were.  Both engines
-run on the GPU unless the caller passes ``device="cpu"``.
+back after: in-flight sequences resume where they were.  A cache's
+``"layers"`` entry is one stacked cache (batch axis 1) or, for a config
+whose layers' windows differ (gemma3), a dict of per-layer rings (batch
+axis 0), as the hybrid's ``"shared"`` rings are.  Both engines run on
+the GPU unless the caller passes ``device="cpu"``.
+
+With a :class:`~repro_torch.telemetry.Telemetry` attached, the engines
+record what the JAX engines record, at the same calls: ``serve.admit``
+and ``serve.measure`` spans, and the ``serve.admissions``,
+``serve.evictions`` and ``serve.decode_steps`` counters; the paged
+engine's pool publishes its ``page_pool.*`` gauges.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -46,6 +56,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import make_model
 from repro_torch.params import flatten_with_path, from_numpy_tree, tree_map
 from repro_torch.serving.page_pool import PagePool
+from repro_torch.telemetry import Telemetry, maybe as _maybe_tel
 
 
 def bucket_len(n: int, lo: int = 8) -> int:
@@ -92,11 +103,6 @@ def _emptied(cache):
     return cache
 
 
-#: top-level cache entries whose leaves carry a leading layer axis (the
-#: batch axis is then 1); the other entries are dicts of per-layer caches
-_STACKED = ("layers", "mamba")
-
-
 def _slot_view(cache, slot: int, axis: int):
     """Batch row ``slot`` of every leaf (views: writes go through),
     emptied as a fresh batch-1 cache is."""
@@ -116,8 +122,10 @@ class _EngineBase:
     """Slot bookkeeping and the calibration sweep the engines share."""
 
     def _setup(self, cfg: ArchConfig, params: Any, rows: int,
-               max_len: Optional[int], device: DeviceLike) -> None:
+               max_len: Optional[int], device: DeviceLike,
+               telemetry: Optional[Telemetry]) -> None:
         self.cfg = cfg
+        self._tel = _maybe_tel(telemetry)
         self.device = resolve_device(device)
         self.api = make_model(cfg)
         self.params = from_numpy_tree(params, self.device)
@@ -139,10 +147,30 @@ class _EngineBase:
             self.free_slots.remove(slot)
 
     def _release(self, slot: int) -> None:
+        """Free an evicted slot (every eviction ends here)."""
         if slot in self._free_set:
             raise ValueError(f"slot {slot} is already free (double evict)")
         self.free_slots.append(slot)
         self._free_set.add(slot)
+        self._count("serve.evictions")
+
+    def _count(self, name: str) -> None:
+        if self._tel is not None:
+            self._tel.metrics.counter(name).inc()
+
+    def _span(self, name: str, **args):
+        if self._tel is None:
+            return contextlib.nullcontext()
+        return self._tel.tracer.wall(name, cat="serving", **args)
+
+    def admit(self, prompt, slot: int,
+              reserve_tokens: Optional[int] = None) -> int:
+        """Prefill ``prompt`` (S,) into ``slot``; return the first greedy
+        token (see the engine's ``_admit``)."""
+        with self._span("serve.admit", slot=int(slot)):
+            first = self._admit(prompt, slot, reserve_tokens)
+        self._count("serve.admissions")
+        return first
 
     def _padded(self, prompt) -> Tuple[torch.Tensor, int]:
         row = _prompt_row(prompt)
@@ -192,6 +220,14 @@ class _EngineBase:
         that end in a synchronise (``admit`` and ``decode`` return host
         values).  Safe mid-serving: the engine's state is saved before
         and restored after, caches included."""
+        with self._span("serve.measure", prompt_len=int(prompt_len),
+                        decode_steps=int(decode_steps)):
+            return self._measure(prompt_len, decode_steps, seed,
+                                 occupancy_levels)
+
+    def _measure(self, prompt_len: int, decode_steps: int, seed: int,
+                 occupancy_levels: Optional[Sequence[int]]
+                 ) -> EngineMeasurement:
         state = self._save()
         rng = np.random.default_rng(seed)
         prompt = rng.integers(0, max(self.cfg.model.vocab_size, 2),
@@ -238,8 +274,9 @@ class _EngineBase:
 
 class ServeEngine(_EngineBase):
     def __init__(self, cfg: ArchConfig, params: Any, batch_size: int,
-                 max_len: Optional[int] = None, device: DeviceLike = None):
-        self._setup(cfg, params, batch_size, max_len, device)
+                 max_len: Optional[int] = None, device: DeviceLike = None,
+                 telemetry: Optional[Telemetry] = None):
+        self._setup(cfg, params, batch_size, max_len, device, telemetry)
         self.cache = self.api.init_cache(batch_size, self.max_len,
                                          device=self.device)
         if self.cache is None:
@@ -254,11 +291,12 @@ class ServeEngine(_EngineBase):
     def _slot_cache(self, slot: int):
         """Slot ``slot`` of every layer's cache, as views, emptied as a
         fresh batch-1 cache is (the JAX engine prefills a fresh template
-        and inserts it): the transformer's ``lead`` caches and stacked
-        ``layers``, the hybrid's stacked ``mamba`` states and ``shared``
-        rings."""
-        return {key: (_slot_view(c, slot, 1) if key in _STACKED else
-                      {k: _slot_view(ck, slot, 0) for k, ck in c.items()})
+        and inserts it): a dict of per-layer caches (the transformer's
+        ``lead`` and per-layer ``layers``, the hybrid's ``shared`` rings)
+        at batch axis 0, a stacked cache (``layers``, the hybrid's
+        ``mamba`` states) at batch axis 1."""
+        return {key: ({k: _slot_view(ck, slot, 0) for k, ck in c.items()}
+                      if isinstance(c, dict) else _slot_view(c, slot, 1))
                 for key, c in self.cache.items()}
 
     # -- slot management ----------------------------------------------------
@@ -269,8 +307,8 @@ class ServeEngine(_EngineBase):
         return bool(self.free_slots)
 
     @torch.no_grad()
-    def admit(self, prompt, slot: int,
-              reserve_tokens: Optional[int] = None) -> int:
+    def _admit(self, prompt, slot: int,
+               reserve_tokens: Optional[int] = None) -> int:
         """Prefill ``prompt`` (S,) into ``slot``; return the first greedy
         token.  ``reserve_tokens`` is accepted for signature parity with
         :class:`PagedServeEngine` (a dense slot always reserves
@@ -330,6 +368,7 @@ class ServeEngine(_EngineBase):
         toks = _argmax(logits[:, -1])
         self.pos += 1
         self.next_tok = toks[:, None]
+        self._count("serve.decode_steps")
         return toks.cpu().numpy().astype(np.int32)
 
     def generate(self, prompt_tokens, steps: int) -> torch.Tensor:
@@ -392,8 +431,9 @@ class PagedServeEngine(_EngineBase):
     def __init__(self, cfg: ArchConfig, params: Any, max_seqs: int,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  max_len: Optional[int] = None, reserve_tokens: int = 16,
-                 device: DeviceLike = None):
-        self._setup(cfg, params, max_seqs, max_len, device)
+                 device: DeviceLike = None,
+                 telemetry: Optional[Telemetry] = None):
+        self._setup(cfg, params, max_seqs, max_len, device, telemetry)
         if self.api.paged_prefill is None:
             raise ValueError(
                 f"{cfg.name}: family {cfg.model.family!r} has no paged "
@@ -406,7 +446,8 @@ class PagedServeEngine(_EngineBase):
         # max_len) reserves
         self.num_pages = int(num_pages or max_seqs * self.pages_per_seq)
         self.reserve_tokens = int(reserve_tokens)
-        self.pool = PagePool(self.num_pages, self.page_size)
+        self.pool = PagePool(self.num_pages, self.page_size,
+                             telemetry=telemetry)
         self.cache = self.api.init_paged_cache(self.num_pages, self.page_size,
                                                device=self.device)
         self.scratch_page = self.num_pages
@@ -424,8 +465,8 @@ class PagedServeEngine(_EngineBase):
         return bool(self.free_slots) and self.pool.can_allocate(need)
 
     @torch.no_grad()
-    def admit(self, prompt, slot: int,
-              reserve_tokens: Optional[int] = None) -> int:
+    def _admit(self, prompt, slot: int,
+               reserve_tokens: Optional[int] = None) -> int:
         """Allocate pages for ``prompt`` plus ``reserve_tokens`` of decode
         headroom (engine default when None), prefill through the block
         table, return the first greedy token.  Raises ``PagesExhausted``
@@ -503,6 +544,7 @@ class PagedServeEngine(_EngineBase):
         toks = _argmax(logits[:, -1]).cpu().numpy().astype(np.int32)
         self._pos[live] += 1
         self._next_tok[live, 0] = toks[live]
+        self._count("serve.decode_steps")
         return toks
 
     def generate(self, prompt_tokens, steps: int) -> torch.Tensor:

@@ -1,7 +1,6 @@
 """Block-table page pool for the paged KV/latent cache: a copy of
 ``repro/serving/page_pool.py`` (numpy/stdlib only), kept in step with it
-by ``tests/test_torch_page_pool.py``, without the telemetry gauges
-(``telemetry`` is not ported yet; ROADMAP.md).
+by ``tests/test_torch_copies.py``.
 
 The pool owns a fixed budget of ``num_pages`` pages of ``page_size``
 tokens each and hands them out to sequences on demand: a sequence's
@@ -22,11 +21,17 @@ invariants the property tests pin:
   * conservation: ``free_pages + allocated_pages == num_pages``;
   * block-table consistency: ``len(block_table(seq)) ==
     pages_for(length(seq))`` after any admit/extend/release churn.
+
+Occupancy and internal fragmentation (allocated-but-unused token
+slack) are exposed as telemetry gauges when a :class:`Telemetry`
+facade is attached.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Dict, List, Set
+from typing import Deque, Dict, List, Optional, Set
+
+from repro_torch.telemetry import Telemetry, maybe as _maybe_tel
 
 
 class PagesExhausted(RuntimeError):
@@ -34,7 +39,8 @@ class PagesExhausted(RuntimeError):
 
 
 class PagePool:
-    def __init__(self, num_pages: int, page_size: int):
+    def __init__(self, num_pages: int, page_size: int,
+                 telemetry: Optional[Telemetry] = None):
         if num_pages <= 0 or page_size <= 0:
             raise ValueError("num_pages and page_size must be positive")
         self.num_pages = int(num_pages)
@@ -43,6 +49,8 @@ class PagePool:
         self._free_set: Set[int] = set(range(num_pages))
         self._tables: Dict[int, List[int]] = {}     # seq -> page ids
         self._lengths: Dict[int, int] = {}          # seq -> token count
+        self._tel = _maybe_tel(telemetry)
+        self._publish()
 
     # -- sizing -------------------------------------------------------------
 
@@ -92,6 +100,7 @@ class PagePool:
         table = [self._take() for _ in range(need)]
         self._tables[seq] = table
         self._lengths[seq] = int(n_tokens)
+        self._publish()
         return list(table)
 
     def extend(self, seq: int, n_tokens: int) -> List[int]:
@@ -111,6 +120,7 @@ class PagePool:
         new = [self._take() for _ in range(need)]
         table.extend(new)
         self._lengths[seq] = int(n_tokens)
+        self._publish()
         return new
 
     def release(self, seq: int) -> int:
@@ -121,6 +131,7 @@ class PagePool:
         for pid in table:
             self._free.append(pid)
             self._free_set.add(pid)
+        self._publish()
         return len(table)
 
     # -- views --------------------------------------------------------------
@@ -147,6 +158,7 @@ class PagePool:
         self._free_set = set(state["free"])
         self._tables = {s: list(t) for s, t in state["tables"].items()}
         self._lengths = dict(state["lengths"])
+        self._publish()
 
     # -- internals ----------------------------------------------------------
 
@@ -154,6 +166,17 @@ class PagePool:
         pid = self._free.popleft()
         self._free_set.discard(pid)
         return pid
+
+    def _publish(self) -> None:
+        if self._tel is not None:
+            m = self._tel.metrics
+            m.gauge("page_pool.free_pages").set(float(len(self._free)))
+            m.gauge("page_pool.allocated_pages").set(
+                float(self.allocated_pages))
+            m.gauge("page_pool.occupancy").set(self.occupancy)
+            m.gauge("page_pool.internal_fragmentation").set(
+                self.internal_fragmentation)
+            m.gauge("page_pool.sequences").set(float(len(self._tables)))
 
     def check_invariants(self) -> None:
         """Assert the pool invariants (used by the property tests)."""

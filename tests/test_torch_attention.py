@@ -284,10 +284,10 @@ def test_every_attention_entry_point_is_bound():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
-def cuda_device():
+def cuda_device(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -441,7 +441,7 @@ def test_cuda_attention_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(f32.transpose(0, 1).contiguous().transpose(0, 1),
                         f32, f32)
-    big = torch.zeros((2, 8, 160), device=cuda_device)
+    big = torch.zeros((2, 8, 264), device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(big, big, big)
     q = torch.zeros((2, 4, 16), dtype=torch.float16, device=cuda_device)
@@ -455,3 +455,89 @@ def test_cuda_attention_wrappers_raise_instead_of_falling_back(cuda_device):
     ln = torch.ones((2,), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         paged_decode_attention(q, pages, pages, bt, ln)
+
+
+# ---------------------------------------------------------------------------
+# head dim 256 (gemma3: 4 query heads on 1 kv head): on the card only
+# ---------------------------------------------------------------------------
+
+#: gemma3's prefill (56-token prompt in the 64 bucket; the long prompt's
+#: 1024 bucket under a 512 window), T no multiple of a tile, Dv apart
+#: from D, and a row no multiple of 16 bytes
+FLASH_256 = [(4, 1, 64, 256, 256, 0), (4, 1, 1024, 256, 256, 512),
+             (4, 1, 1024, 256, 256, 0), (8, 2, 130, 256, 256, 40),
+             (2, 2, 100, 256, 200, 0), (2, 1, 77, 136, 256, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,BHkv,T,D,Dv,window", FLASH_256)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_at_head_dim_256(cuda_device, BH, BHkv, T, D,
+                                                Dv, window, dtype):
+    r = np.random.default_rng(T)
+    q, k, v = (_tensor(_normal(r, s), dtype, cuda_device)
+               for s in ((BH, T, D), (BHkv, T, D), (BHkv, T, Dv)))
+    out = _launched_once(lambda: flash_attention(q, k, v, window=window),
+                         flash_attention)
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    assert out.shape == (BH, T, Dv)
+    assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
+
+
+#: gemma3's dense decode: B 1/4/8 rows of 57-64 valid slots in a 256-slot
+#: ring, the long run's 512-slot local ring and 1024-slot global ring;
+#: the edge rows; D apart from Dv; a row no multiple of 16 bytes
+DECODE_256 = [(1, 4, 1, 256, 256, 256), (8, 4, 1, 256, 256, 256),
+              (4, 4, 1, 512, 256, 256), (4, 4, 1, 1024, 256, 256),
+              (3, 8, 2, 200, 256, 160), (2, 4, 4, 96, 136, 256),
+              (2, 4, 1, 64, 250, 250)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,C,D,Dv", DECODE_256)
+@pytest.mark.parametrize("soft_cap", [0.0, 1.0, 30.0])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_at_head_dim_256(cuda_device, B, H, Hkv, C,
+                                                 D, Dv, soft_cap, dtype):
+    r = np.random.default_rng(C)
+    q = _tensor(_normal(r, (B, H, D)), dtype, cuda_device)
+    k = _tensor(_normal(r, (B, C, Hkv, D)), dtype, cuda_device)
+    v = _tensor(_normal(r, (B, C, Hkv, Dv)), dtype, cuda_device)
+    valid = torch.as_tensor(edge_valid(B, C) if B == 3 else
+                            r.uniform(size=(B, C)) < 0.25,
+                            device=cuda_device)
+    out = _launched_once(
+        lambda: decode_attention(q, k, v, valid, soft_cap=soft_cap),
+        decode_attention)
+    want = ref.decode_attention_ref(q, k, v, valid, soft_cap=soft_cap)
+    assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
+
+
+#: gemma3's paged decode: B 4/16/32 rows of 16-token pages, and the long
+#: run's 616-token rows under the local layers' 512 window
+PAGED_256 = [(4, 16, 64, None), (32, 16, 64, None), (4, 16, 64, 20),
+             (3, 16, 40, 512), (2, 8, 12, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,ps,Pseq,window", PAGED_256)
+@pytest.mark.parametrize("soft_cap", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_attention_kernel_at_head_dim_256(
+        cuda_device, B, ps, Pseq, window, soft_cap, dtype):
+    r = np.random.default_rng(Pseq)
+    num_pages = B * Pseq + 3
+    bt = r.permutation(num_pages)[:B * Pseq].reshape(B, Pseq)
+    lengths = r.integers(1, Pseq * ps + 1, (B,))
+    lengths[0] = 0 if B > 2 else lengths[0]
+    q = _tensor(_normal(r, (B, 4, 256)), dtype, cuda_device)
+    kp, vp = (_tensor(_normal(r, (num_pages, ps, 1, 256)), dtype,
+                      cuda_device) for _ in range(2))
+    bt, ln = (torch.as_tensor(a.astype(np.int32), device=cuda_device)
+              for a in (bt, lengths))
+    kw = dict(soft_cap=soft_cap, window=window)
+    out = _launched_once(
+        lambda: paged_decode_attention(q, kp, vp, bt, ln, **kw),
+        paged_decode_attention)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, ln, **kw)
+    assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])

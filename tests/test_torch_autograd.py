@@ -51,7 +51,8 @@ def signatures(dtype=torch.float32):
         ("flash_attention",
          lambda q, k, v: ref.flash_attention_ref(q, k, v, window=5),
          (n(4, 9, 8), n(2, 9, 8), n(2, 9, 8)), (1, 1, 1)),
-        ("decode_attention", ref.decode_attention_ref,
+        ("decode_attention",
+         lambda *t: ref.decode_attention_ref(*t, soft_cap=5.0),
          (n(2, 4, 8), n(2, 16, 2, 8), n(2, 16, 2, 8), valid), (1, 1, 1, 0)),
         ("paged_decode_attention",
          lambda *t: ref.paged_decode_attention_ref(*t, soft_cap=5.0,
@@ -239,10 +240,10 @@ def test_plain_gradients_match_jax(name):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
-def cuda_device():
+def cuda_device(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -250,7 +251,7 @@ WRAPPERS = {
     "gru_seq": lambda *t: ops.gru_seq(*t),
     "fedavg_reduce": lambda *t: ops.fedavg_reduce(*t),
     "flash_attention": lambda *t: ops.flash_attention(*t, window=5),
-    "decode_attention": lambda *t: ops.decode_attention(*t),
+    "decode_attention": lambda *t: ops.decode_attention(*t, soft_cap=5.0),
     "paged_decode_attention": lambda *t: ops.paged_decode_attention(
         *t, soft_cap=5.0, window=6),
     "paged_mla_decode_attention": lambda *t: ops.paged_mla_decode_attention(

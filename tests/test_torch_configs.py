@@ -62,6 +62,29 @@ def test_moe_configs_are_the_same(arch, reduced):
     assert t.model.active_param_count() == j.model.active_param_count()
 
 
+@pytest.mark.parametrize("arch", ["gemma3-1b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("reduced", [False, True])
+def test_dense_configs_are_the_same(arch, reduced):
+    j, t = jax_get_config(arch), get_config(arch)
+    if reduced:
+        j, t = j.reduced(), t.reduced()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.param_count() == j.model.param_count()
+
+
+def test_gemma3_config_is_the_published_shape():
+    m = get_config("gemma3-1b").model
+    a = m.attention
+    assert (m.family, m.num_layers, m.d_model, m.d_ff, m.padded_vocab,
+            m.act, m.tie_embeddings, m.embed_scale) == \
+        ("dense", 26, 1152, 6912, 262_144, "gelu", True, True)
+    assert (a.kind, a.num_heads, a.num_kv_heads, a.head_dim, a.window,
+            a.local_global_ratio, a.rope_theta, a.rope_theta_local,
+            a.qk_norm, a.logit_soft_cap) == \
+        ("local_global", 4, 1, 256, 512, 5, 1e6, 1e4, True, 0.0)
+    assert m.param_count() == 792_723_456
+
+
 def test_deepseek_config_is_the_published_shape():
     m = get_config("deepseek-v2-lite-16b").model
     a, mo = m.attention, m.moe
@@ -141,11 +164,13 @@ def test_zamba2_tree_size():
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "deepseek-v2-lite-16b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "gemma3-1b",
+                                  "h2o-danube-1.8b"])
 def test_tree_counts_param_count_plus_norms(arch):
     """The port's tree holds ``param_count()`` weights plus the norms'
-    scales (and LayerNorm biases, and MLA's kv_norm), which the count
-    leaves out: the check chip_smoke.py makes at full width."""
+    scales (and LayerNorm biases, MLA's kv_norm, and QK-norm's per-layer
+    q_norm and k_norm), which the count leaves out: the check
+    chip_smoke.py makes at full width."""
     import torch
     from repro_torch.models import make_model
     from repro_torch.params import flatten_with_path
@@ -157,6 +182,8 @@ def test_tree_counts_param_count_plus_norms(arch):
         2 if m.norm == "layernorm" else 1)
     if m.attention.kind == "mla":
         norms += m.num_layers * m.attention.mla.kv_lora_rank
+    if m.attention.qk_norm:
+        norms += 2 * m.num_layers * m.attention.head_dim
     assert sum(x.numel() for _, x in flatten_with_path(tree)) == \
         m.param_count() + norms
 

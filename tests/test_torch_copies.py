@@ -25,7 +25,8 @@ COPIES = [
     "core/__init__.py", "orchestration/gpo.py",
     "orchestration/controller.py", "orchestration/__init__.py",
     "routing/rules.py", "serving/workload.py", "sim/events.py",
-    "sim/request_plane.py", "routing/simulator.py",
+    "sim/request_plane.py", "routing/simulator.py", "serving/page_pool.py",
+    "serving/scheduler.py",
 ]
 #: copies with a documented difference: the names it adds
 DIFFERENCES = {"orchestration/controller.py": "device"}

@@ -263,10 +263,10 @@ def test_wrappers_check_shapes_and_dtypes():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
-def cuda_device():
+def cuda_device(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 

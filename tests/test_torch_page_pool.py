@@ -1,5 +1,6 @@
 """The port's copy of the page pool (``repro_torch.serving.page_pool``,
-numpy only, without the telemetry gauges) against
+numpy only; its telemetry gauges are held against JAX's in
+``tests/test_torch_scheduler.py``) against
 ``repro.serving.page_pool`` through the same seeded churn of allocate,
 extend and release: every block table and free count agree."""
 import numpy as np

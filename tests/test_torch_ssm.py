@@ -444,10 +444,10 @@ def test_kernel_limits_fit_shared_memory():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
-def cuda_device():
+def cuda_device(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 

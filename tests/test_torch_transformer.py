@@ -235,12 +235,21 @@ def test_rope_rotates_half_split_pairs():
     np.testing.assert_array_equal(got[..., 8:].numpy(), x[..., 8:])
 
 
-@pytest.mark.parametrize("field,value", [("qk_norm", True),
-                                         ("logit_soft_cap", 30.0),
-                                         ("kind", "local_global")])
+@pytest.mark.parametrize("field,value", [("rope_theta", 0.0),
+                                         ("kind", "none"),
+                                         ("mla_q_lora_rank", 64)])
 def test_unported_attention_features_raise(field, value):
+    """What the port still refuses: sinusoidal positions, attention
+    kinds outside the dense and moe families, MLA query compression.
+    (gemma3's ``qk_norm``, ``logit_soft_cap`` and ``local_global`` are
+    ported: tests/test_torch_gemma3.py.)"""
     _, tcfg, _, _ = jax_setup()
-    a = dataclasses.replace(tcfg.model.attention, **{field: value})
+    if field == "mla_q_lora_rank":
+        tcfg = get_config("deepseek-v2-lite-16b").reduced()
+        a = dataclasses.replace(tcfg.model.attention, mla=dataclasses.replace(
+            tcfg.model.attention.mla, q_lora_rank=value))
+    else:
+        a = dataclasses.replace(tcfg.model.attention, **{field: value})
     bad = dataclasses.replace(tcfg, model=dataclasses.replace(
         tcfg.model, attention=a))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
