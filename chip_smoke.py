@@ -54,7 +54,17 @@ through the entry points a user calls:
   wrap and their window cuts flash, decode and paged decode), Poisson
   arrivals through ``ContinuousBatchingScheduler`` on a dense and a
   paged tier with a ``Telemetry`` attached, and a 6-layer fp32 cut with
-  the long prompt on the card and on the CPU.
+  the long prompt on the card and on the CPU;
+- the last model families: whisper-small's attention shapes (flash
+  without the causal mask over 1500 frames and from 16 / 64 tokens to
+  them, decode over 1500 rows), xlstm-125m at its published width (12
+  blocks, d 768; forward and loss, the three default ``lm_tiers()``
+  tiers, which launch no kernel: the JAX package has none for xLSTM),
+  whisper-small at its published width (12 + 12 layers; encode, forward
+  and loss, decode over primed cross rows, a dense tier, exact launch
+  counts), each with a 2-layer fp32 cut on the card and on the CPU, and
+  internvl2-76b's reduced config with its patch prefix (forward, loss,
+  both engines) on the card and on the CPU.
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -201,6 +211,26 @@ SCHED_REQUESTS = 32
 SCHED_PROMPT = 16
 SCHED_NEW_TOKENS = 8
 SCHED_LOAD = 0.5
+#: the xLSTM slice: xlstm-125m at full width (12 layers, d 768, 4 heads,
+#: sLSTM at layers 3 and 9), bf16, the LM tiers' default arch; its weight
+#: count is the JAX tree's (``param_count()`` leaves out the blocks' own
+#: projections), its forward batch (2, 256)
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_PARAMS = 155_764_304
+XLSTM_BATCH = (2, 256)
+#: the whisper slice: whisper-small at full width (12 encoder and 12
+#: decoder layers, d 768, 12 heads of dim 64, 1500 frames), bf16; the
+#: JAX tree's weight count; a forward on 64 tokens, 8 decode steps over
+#: the primed cross rows, and one dense tier (4 slots) serving 16-token
+#: prompts
+WHISPER_ARCH = "whisper-small"
+WHISPER_PARAMS = 238_187_520
+WHISPER_TOKENS = 64
+WHISPER_STEPS = 8
+WHISPER_TIER = "edge"
+#: the vlm slice: internvl2-76b's reduced config (80 layers of d 8192 do
+#: not fit one card)
+VLM_ARCH = "internvl2-76b"
 #: served trees at full width: leaf -> shape
 FULL_WIDTH = {
     LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
@@ -222,6 +252,15 @@ FULL_WIDTH = {
                   ("mamba_layers", "mamba", "out_proj"): (38, 4096, 2048),
                   ("shared", "attn", "wq"): (2048, 32, 64),
                   ("shared", "mlp", "wi_gate"): (2048, 8192)},
+    XLSTM_ARCH: {("blocks", "0", "wq"): (1536, 4, 384),
+                 ("blocks", "0", "w_up"): (768, 3072),
+                 ("blocks", "3", "r_i"): (4, 192, 192),
+                 ("blocks", "3", "w_up"): (768, 2 * 1023),
+                 ("blocks", "9", "w_down"): (1023, 768)},
+    WHISPER_ARCH: {("encoder", "attn", "wq"): (12, 768, 12, 64),
+                   ("decoder", "cross_attn", "wk"): (12, 768, 12, 64),
+                   ("decoder", "mlp", "wi"): (12, 768, 3072),
+                   ("embed", "table"): (51_968, 768)},
 }
 
 
@@ -673,21 +712,30 @@ def _randn(torch, rng, shape, dtype):
                            device=DEVICE).to(dtype)
 
 
-def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None):
+def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None,
+                causal=True, Tk=None):
     """``Dv`` (default D) is the value dim: MLA prefill scores over 192
-    dims and returns 128."""
+    dims and returns 128.  ``causal=False`` drops the causal mask
+    (whisper's encoder), and then ``Tk`` (default T) may give the keys a
+    length of their own (its cross attention); such a row's shape ends
+    in ("non-causal", Tk)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
     Dv = D if Dv is None else Dv
+    Tk = T if Tk is None else Tk
     q = _randn(torch, rng, (BH, T, D), dtype)
-    k = _randn(torch, rng, (BHkv, T, D), dtype)
-    v = _randn(torch, rng, (BHkv, T, Dv), dtype)
+    k = _randn(torch, rng, (BHkv, Tk, D), dtype)
+    v = _randn(torch, rng, (BHkv, Tk, Dv), dtype)
     # the yardstick takes every head's kv; repeat them outside its timing
     kx, vx = (x.repeat_interleave(BH // BHkv, 0) for x in (k, v))
-    dist = np.arange(T)[:, None] - np.arange(T)[None, :]
-    allowed = (dist >= 0) & ((dist < window) if window > 0 else True)
+    dist = np.arange(T)[:, None] - np.arange(Tk)[None, :]
+    allowed = np.ones(dist.shape, bool)
+    if causal:
+        allowed &= dist >= 0
+    if window > 0:
+        allowed &= dist < window
     mask = torch.as_tensor(allowed, device=DEVICE)
     pairs = BH * int(allowed.sum())
     it = q.element_size()
@@ -700,14 +748,17 @@ def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None):
         if window > 0:
             return F.scaled_dot_product_attention(q4, k4, v4,
                                                   attn_mask=mask)[0]
-        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0]
+        return F.scaled_dot_product_attention(q4, k4, v4,
+                                              is_causal=causal)[0]
 
-    shape = (BH, BHkv, T, D, window) + ((Dv,) if Dv != D else ())
+    shape = ((BH, BHkv, T, D, window) + ((Dv,) if Dv != D else ())
+             + (() if causal else ("non-causal", Tk)))
     return check_attention(
         torch, "flash_attention", shape, dtype_name,
-        lambda: fa.flash_attention(q, k, v, causal=True, window=window),
-        lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window),
-        library, it * (BH * T * (D + Dv) + BHkv * T * (D + Dv)),
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+        lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window),
+        library, it * (BH * T * (D + Dv) + BHkv * Tk * (D + Dv)),
         pairs * 2 * (D + Dv))
 
 
@@ -2394,6 +2445,487 @@ def phase_hybrid_parity(torch):
                              f"{[k for k, v in checks.items() if not v]}")
 
 
+# ---------------------------------------------------------------------------
+# the last model families: whisper's attention shapes, xlstm-125m,
+# whisper-small, the vlm prefix
+# ---------------------------------------------------------------------------
+
+def phase_whisper_kernels(torch):
+    """whisper-small's attention shapes (12 heads of dim 64 on 12 kv
+    heads, 1500 encoder frames, two sequences): flash without the causal
+    mask over the 1500 frames (the encoder), flash from 16 and 64
+    decoder tokens to the 1500 frames (the cross attention of a forward),
+    and dense decode over 1500 rows, every one valid (the decode step's
+    cross attention), at the dense tiers' B 1, 4 and 8; in bf16 and in
+    fp32 (the parity cut's instances)."""
+    rng = np.random.default_rng(SEED + 15)
+    F = 1500
+    BH = 2 * 12
+    main = {"encoder": check_flash(torch, rng, BH, BH, F, 64, 0,
+                                   "bfloat16", causal=False)}
+    rows = [main["encoder"],
+            check_flash(torch, rng, BH, BH, F, 64, 0, "float32",
+                        causal=False)]
+    for T in (16, 64):
+        rows.append(check_flash(torch, rng, BH, BH, T, 64, 0, "bfloat16",
+                                causal=False, Tk=F))
+    main["cross"] = rows[-1]
+    rows.append(check_flash(torch, rng, BH, BH, 64, 64, 0, "float32",
+                            causal=False, Tk=F))
+    for dt in ("bfloat16", "float32"):
+        for B in (1, 4, 8):
+            rows.append(check_decode(torch, rng, B, 12, 12, F, 64, [F] * B,
+                                     dt))
+            if dt == "bfloat16" and B == 4:
+                main["decode"] = rows[-1]
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"whisper's attention shapes disagree with the "
+                             f"plain versions: {bad}")
+    return main
+
+
+def o1_attention(tree):
+    """Every ``wq`` / ``wk`` leaf (..., d, H, hd) rescaled from the
+    init's fan-in over the heads (std 1/sqrt(H)) to a fan-in over d
+    (1/sqrt(d)): attention scores O(1), as a trained model's.  At the
+    init's scale whisper's scores reach the hundreds, and an fp32
+    softmax over 1500 frames turns ill-conditioned."""
+    import math
+    from repro_torch.params import tree_map_with_path
+
+    def scale(path, x):
+        if path[-1] in ("wq", "wk"):
+            return x * math.sqrt(x.shape[-2] / x.shape[-3])
+        return x
+    return tree_map_with_path(scale, tree)
+
+
+def serve_recurrent_tiers(torch, pool, counts, batches):
+    """Request batches at every tier of a pool of dense engines that
+    admit prompts through the decode step, then ``measure()``."""
+    outs = {t: [pool.dispatch(t, b, steps=LM_STEPS) for b in bs]
+            for t, bs in batches.items()}
+    measured = pool.measure(**HYBRID_MEASURE)
+    torch.cuda.synchronize()
+    calls = {c: sum(v[c] for v in counts.values())
+             for c in ("admit", "decode", "prompt_tokens")}
+    return outs, measured, calls
+
+
+def phase_xlstm(torch):
+    """xlstm-125m at full width in bf16, weights drawn on the card from a
+    seed: (a) forward and loss on a (2, 256) batch, (b) the three dense
+    tiers of ``lm_tiers()`` (its default arch) serving request batches of
+    16-token prompts, each admitted token by token through the decode
+    step, and ``measure()``.  The JAX package has no kernel for xLSTM,
+    so neither path launches one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path
+    from repro_torch.routing import LatencyModel
+    from repro_torch.serving import ReplicaPool, lm_tiers
+
+    cfg = get_config(XLSTM_ARCH)
+    m = cfg.model
+    api = make_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(
+        torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = dict(flatten_with_path(params))
+    n_params = sum(x.numel() for x in leaves.values())
+    specs = lm_tiers()
+    pool = ReplicaPool(full_width_tiers(specs), shared_params=params,
+                       device=DEVICE)
+    counts = {t: {"admit": 0, "decode": 0, "prompt_tokens": 0}
+              for t in pool.tiers}
+    for tier in pool.tiers:
+        count_calls(pool.engine(tier), counts[tier])
+    rng = np.random.default_rng(SEED + 12)
+    toks, labels = (torch.as_tensor(rng.integers(0, m.vocab_size,
+                                                 XLSTM_BATCH), device=DEVICE)
+                    for _ in range(2))
+    batches = {t: [rng.integers(0, m.vocab_size,
+                                (pool.specs[t].batch_size, HYBRID_PROMPT))
+                   for _ in range(LM_BATCHES_PER_TIER)] for t in pool.tiers}
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, aux = api.forward(params, {"tokens": toks})
+        loss = api.loss(params, {"tokens": toks, "labels": labels})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs, measured, calls = serve_recurrent_tiers(torch, pool, counts,
+                                                  batches)
+    serving_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    lat = LatencyModel.from_measurements(measured, decode_tokens=LM_STEPS)
+    all_out = [o for os_ in outs.values() for o in os_]
+    fp32_leaves = {k[-1] for k, x in leaves.items()
+                   if x.dtype == torch.float32}
+    checks = {
+        "default_lm_tiers": {s.arch for s in specs} == {XLSTM_ARCH},
+        "full_width": (m.d_model == 768 and m.num_layers == 12
+                       and m.xlstm.slstm_layers == (3, 9)
+                       and all(tuple(leaves[k].shape) == v
+                               for k, v in FULL_WIDTH[XLSTM_ARCH].items())
+                       and params["embed"]["table"].dtype == torch.bfloat16
+                       and fp32_leaves == {"w_i", "w_f", "b_i", "b_f",
+                                           "b_z", "b_o"}
+                       and n_params == XLSTM_PARAMS),
+        "forward_finite": bool(logits.isfinite().all()
+                               and loss.isfinite().all()),
+        "forward_shape": (tuple(logits.shape) == XLSTM_BATCH
+                          + (m.padded_vocab,)
+                          and logits.dtype == torch.bfloat16
+                          and float(aux) == 0.0),
+        "shapes": all(tuple(o.shape) == (pool.specs[t].batch_size, LM_STEPS)
+                      for t, os_ in outs.items() for o in os_),
+        # greedy ids range over the padded vocabulary (50,432 rows, of
+        # which 50,304 are the tokenizer's), as in the JAX engine
+        "token_ids": all(bool(((o >= 0) & (o < m.padded_vocab)).all())
+                         for o in all_out),
+        "admitted_token_by_token": calls["prompt_tokens"] == HYBRID_PROMPT
+        * calls["admit"] and calls["admit"] > 0,
+        "latency_model": all(np.isfinite(lat.infer_ms(t))
+                             and lat.infer_ms(t) > 0 for t in pool.tiers),
+        # the JAX package has no Pallas kernel for xLSTM: no launch
+        "no_kernel": set(launches.values()) == {0},
+    }
+    emit({"phase": "xlstm_slice", "arch": XLSTM_ARCH, "params": n_params,
+          "config_param_count": m.param_count(), "layers": m.num_layers,
+          "d_model": m.d_model, "init_seconds": init_s,
+          "forward_seconds": forward_s, "serving_seconds": serving_s,
+          "loss": float(loss), "engine_calls": counts, "launches": launches,
+          "measured": {t: dataclasses.asdict(mm)
+                       for t, mm in measured.items()},
+          "calibrated_infer_ms": {t: lat.infer_ms(t) for t in pool.tiers},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"xlstm_slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches, pool, batches
+
+
+def phase_recurrent_profile(torch, phase, pool, batches, forward=None):
+    """One decode step per dense tier with every row admitted (8-token
+    prompts), and, given, one call of ``forward``: device ms by kernel
+    and idle share."""
+    short = {t: [b[:, :HYBRID_PROFILE_PROMPT] for b in bs]
+             for t, bs in batches.items()}
+    out = {"phase": phase, "per_decode_step": profile_decode_steps(
+        torch, {"dense": pool}, short)}
+    if forward is not None:
+        forward()
+        out["forward"] = profile_once(torch, forward)
+    emit(out)
+
+
+def expected_whisper_launches(m, frames, forwards, decode_rows, serving):
+    """Per encoding one non-causal flash a layer; per forward the
+    encoding's and, a decoder layer, one causal and one cross flash; per
+    decode step (the recurrent prefill's too) one ``decode_attention`` a
+    decoder layer for the self ring and one for the cross rows."""
+    from repro_torch.kernels import ops
+    zero = {k: 0 for k in ops.launch_counts()}
+    flash = m.encoder_layers * (frames + forwards) \
+        + 2 * m.num_layers * forwards
+    return {**zero, "flash_attention": flash,
+            "decode_attention": 2 * m.num_layers * (decode_rows + serving)}
+
+
+def phase_whisper(torch):
+    """whisper-small at full width in bf16, weights drawn on the card from
+    a seed: ``encode`` of (2, 1500, 768) frames, the forward and loss on
+    64 tokens, ``prime_cross_cache`` and 8 greedy decode steps over the
+    primed cross rows, then one dense tier answering request batches as
+    the JAX engine serves whisper (prompts through the decode step,
+    against the zero cross rows of a fresh cache).  Launches are counted
+    from 0 before and read after each part."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, make_model
+    from repro_torch.params import flatten_with_path
+    from repro_torch.serving import ReplicaPool, lm_tiers
+
+    cfg = get_config(WHISPER_ARCH)
+    m = cfg.model
+    api = make_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(
+        torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = dict(flatten_with_path(params))
+    n_params = sum(x.numel() for x in leaves.values())
+    spec = [s for s in lm_tiers(WHISPER_ARCH) if s.tier == WHISPER_TIER]
+    pool = ReplicaPool(full_width_tiers(spec), shared_params=params,
+                       device=DEVICE)
+    counts = {WHISPER_TIER: {"admit": 0, "decode": 0, "prompt_tokens": 0}}
+    count_calls(pool.engine(WHISPER_TIER), counts[WHISPER_TIER])
+    rng = np.random.default_rng(SEED + 14)
+    F = m.frontend.num_positions
+    frames = _randn(torch, rng, (2, F, m.d_model), torch.bfloat16)
+    toks, labels = (torch.as_tensor(rng.integers(
+        0, m.vocab_size, (2, WHISPER_TOKENS)), device=DEVICE)
+        for _ in range(2))
+    batches = {WHISPER_TIER: [rng.integers(
+        0, m.vocab_size, (pool.specs[WHISPER_TIER].batch_size,
+                          HYBRID_PROMPT)) for _ in range(LM_BATCHES_PER_TIER)]}
+    batch = {"tokens": toks, "labels": labels, "frames": frames}
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = encdec.encode(params, m, frames)
+        logits, aux = api.forward(params, batch)
+        loss = api.loss(params, batch)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        after_forward = ops.launch_counts()
+        cache = encdec.prime_cross_cache(params, m, api.init_cache(
+            2, WHISPER_STEPS + 1, device=DEVICE), enc)
+        tok, steps = toks[:, :1], []
+        for t in range(WHISPER_STEPS):
+            lg, cache = api.decode_step(params, tok,
+                                        torch.full((2,), t, device=DEVICE),
+                                        cache)
+            steps.append(lg[:, -1])
+            tok = torch.argmax(lg[:, -1], -1)[:, None]
+    torch.cuda.synchronize()
+    after_decode = ops.launch_counts()
+    t0 = time.perf_counter()
+    outs, measured, calls = serve_recurrent_tiers(torch, pool, counts,
+                                                  batches)
+    serving_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    serving = {k: launches[k] - after_decode[k] for k in launches}
+    decoding = {k: after_decode[k] - after_forward[k] for k in launches}
+    want_forward = expected_whisper_launches(m, 1, 2, 0, 0)
+    want_decode = expected_whisper_launches(m, 0, 0, WHISPER_STEPS, 0)
+    want_serving = expected_whisper_launches(
+        m, 0, 0, 0, calls["prompt_tokens"] + calls["decode"])
+    step_logits = torch.stack(steps, 1)
+    checks = {
+        "full_width": (m.d_model == 768 and m.num_layers == 12
+                       and m.encoder_layers == 12 and F == 1500
+                       and all(tuple(leaves[k].shape) == v
+                               for k, v in FULL_WIDTH[WHISPER_ARCH].items())
+                       and params["embed"]["table"].dtype == torch.bfloat16
+                       and n_params == WHISPER_PARAMS),
+        "encoder_shape": (tuple(enc.shape) == (2, F, m.d_model)
+                          and bool(enc.isfinite().all())),
+        "forward_finite": bool(logits.isfinite().all()
+                               and loss.isfinite().all()),
+        "forward_shape": (tuple(logits.shape) == (2, WHISPER_TOKENS,
+                                                  m.padded_vocab)
+                          and float(aux) == 0.0),
+        "primed_decode_finite": bool(step_logits.isfinite().all()),
+        "shapes": all(tuple(o.shape) == (pool.specs[t].batch_size, LM_STEPS)
+                      for t, os_ in outs.items() for o in os_),
+        "token_ids": all(bool(((o >= 0) & (o < m.padded_vocab)).all())
+                         for os_ in outs.values() for o in os_),
+        "forward_launches": after_forward == want_forward,
+        "decode_launches": decoding == want_decode,
+        "serving_launches": serving == want_serving
+        and serving["decode_attention"] > 0,
+    }
+    emit({"phase": "whisper_slice", "arch": WHISPER_ARCH, "params": n_params,
+          "config_param_count": m.param_count(), "layers": m.num_layers,
+          "encoder_layers": m.encoder_layers, "d_model": m.d_model,
+          "frames": F, "init_seconds": init_s, "forward_seconds": forward_s,
+          "serving_seconds": serving_s, "loss": float(loss),
+          "engine_calls": counts, "launches": launches,
+          "forward_launches": after_forward,
+          "expected_forward_launches": want_forward,
+          "decode_launches": decoding, "expected_decode_launches": want_decode,
+          "serving_launches": serving,
+          "expected_serving_launches": want_serving,
+          "measured": {t: dataclasses.asdict(mm)
+                       for t, mm in measured.items()},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"whisper_slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+    def forward():
+        with torch.no_grad():
+            api.forward(params, batch)
+    return launches, pool, batches, forward
+
+
+def phase_recurrent_parity(torch, arch, phase, **cut):
+    """``arch`` at full width cut by ``cut`` (its depth), fp32, weights
+    from a CPU seed with O(1) attention scores (:func:`o1_attention`):
+    the forward, and the dense engine's greedy run of two 16-token
+    prompts, on the card (kernels) and on the CPU (plain versions): the
+    forward's logits and those of every decode step (the prompts' too,
+    which the engine feeds through the decode step), and the tokens.
+    whisper also holds 8 decode steps over cross rows primed from the
+    encoder on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, make_model
+    from repro_torch.params import from_numpy_tree, to_numpy_tree
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(arch)
+    m = dataclasses.replace(cfg.model, **cut, dtype="float32",
+                            param_dtype="float32")
+    pcfg = dataclasses.replace(cfg, model=m)
+    api = make_model(pcfg)
+    tree = to_numpy_tree(o1_attention(api.init_params(
+        torch.Generator().manual_seed(SEED), "cpu")))
+    rng = np.random.default_rng(SEED + 13)
+    batch = {"tokens": rng.integers(0, m.vocab_size, (2, HYBRID_PROMPT))}
+    audio = m.family == "audio"
+    if audio:
+        batch["frames"] = rng.normal(size=(2, m.frontend.num_positions,
+                                           m.d_model)).astype(np.float32)
+    prompts = rng.integers(0, m.vocab_size, (2, HYBRID_PROMPT))
+    logits, tokens, steps, primed, launches = {}, {}, {}, {}, {}
+    with torch.no_grad():
+        for dev in (DEVICE, "cpu"):
+            ops.reset_launches()
+            params = from_numpy_tree(tree, dev)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            logits[dev] = api.forward(params, b)[0].float().cpu()
+            eng = ServeEngine(pcfg, params, batch_size=2, max_len=64,
+                              device=dev)
+            sink = steps[dev] = []
+            record_decode_logits(eng, sink)
+            tokens[dev] = eng.generate(prompts, LM_STEPS).cpu()
+            if audio:
+                cache = encdec.prime_cross_cache(
+                    params, m, api.init_cache(2, 16, device=dev),
+                    encdec.encode(params, m, b["frames"]))
+                primed[dev] = []
+                for t in range(WHISPER_STEPS):
+                    lg, cache = api.decode_step(
+                        params, b["tokens"][:, t:t + 1],
+                        torch.full((2,), t, device=dev), cache)
+                    primed[dev].append(lg[:, -1].float().cpu())
+            launches[dev] = ops.launch_counts()
+            del params, eng
+    err = (logits[DEVICE] - logits["cpu"]).abs().max().item()
+    step_err = max((a - c).abs().max().item()
+                   for a, c in zip(steps[DEVICE], steps["cpu"]))
+    checks = {"forward_logits_match_cpu": err <= PARITY_LOGIT_TOL,
+              "decode_logits_match_cpu": (
+                  len(steps[DEVICE]) == len(steps["cpu"])
+                  == 2 * HYBRID_PROMPT + LM_STEPS - 1
+                  and step_err <= PARITY_LOGIT_TOL),
+              "tokens_match_cpu": torch.equal(tokens[DEVICE],
+                                              tokens["cpu"]),
+              "cpu_launches_none": set(launches["cpu"].values()) == {0}}
+    row = {}
+    if audio:
+        row["primed_decode_max_abs_err"] = max(
+            (a - c).abs().max().item()
+            for a, c in zip(primed[DEVICE], primed["cpu"]))
+        checks["primed_decode_match_cpu"] = \
+            row["primed_decode_max_abs_err"] <= PARITY_LOGIT_TOL
+        checks["card_ran_the_kernels"] = (
+            launches[DEVICE]["flash_attention"] > 0
+            and launches[DEVICE]["decode_attention"] > 0)
+    emit({"phase": phase, "arch": arch, "layers": m.num_layers,
+          "encoder_layers": m.encoder_layers, "d_model": m.d_model,
+          "dtype": m.dtype, "forward_logits_max_abs_err": err,
+          "decode_logits_max_abs_err": step_err,
+          "decode_steps": len(steps[DEVICE]), "tol": PARITY_LOGIT_TOL,
+          "card_launches": launches[DEVICE], **row,
+          "tokens": {d: v.tolist() for d, v in tokens.items()},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+
+def phase_vlm(torch):
+    """internvl2-76b's language model behind the stub's patch prefix, at
+    ``.reduced()`` size (80 layers of d 8192 do not fit one card), fp32,
+    weights from a CPU seed with O(1) attention scores: the forward and
+    loss with 16 patch embeddings, and a dense and a paged engine's
+    greedy run of two 12-token prompts, on the card and on the CPU:
+    logits of the forward and of every decode step, the loss and the
+    tokens.  Launches of the card's run are counted from 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.params import from_numpy_tree, to_numpy_tree
+    from repro_torch.serving import PagedServeEngine, ServeEngine
+
+    cfg = get_config(VLM_ARCH).reduced()
+    m = dataclasses.replace(cfg.model, dtype="float32", param_dtype="float32")
+    pcfg = dataclasses.replace(cfg, model=m)
+    api = make_model(pcfg)
+    tree = to_numpy_tree(o1_attention(api.init_params(
+        torch.Generator().manual_seed(SEED), "cpu")))
+    rng = np.random.default_rng(SEED + 16)
+    P = m.frontend.num_positions
+    labels = rng.integers(0, m.vocab_size, (2, 16))
+    batch = {"tokens": rng.integers(0, m.vocab_size, (2, 16)),
+             "labels": labels,
+             "patches": rng.normal(size=(2, P, m.d_model)).astype(
+                 np.float32)}
+    prompts = rng.integers(0, m.vocab_size, (2, 12))
+    out = {}
+    with torch.no_grad():
+        for dev in (DEVICE, "cpu"):
+            ops.reset_launches()
+            params = from_numpy_tree(tree, dev)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            row = {"logits": api.forward(params, b)[0].float().cpu(),
+                   "loss": float(api.loss(params, b))}
+            for name, eng in (
+                    ("dense", ServeEngine(pcfg, params, batch_size=2,
+                                          max_len=64, device=dev)),
+                    ("paged", PagedServeEngine(pcfg, params, max_seqs=2,
+                                               max_len=64, device=dev))):
+                sink = row[f"{name}_steps"] = []
+                record_decode_logits(eng, sink)
+                row[f"{name}_tokens"] = eng.generate(prompts, LM_STEPS).cpu()
+            row["launches"] = ops.launch_counts()
+            out[dev] = row
+    card, cpu = out[DEVICE], out["cpu"]
+    err = (card["logits"] - cpu["logits"]).abs().max().item()
+    step_err = {name: max((a - c).abs().max().item() for a, c in zip(
+        card[f"{name}_steps"], cpu[f"{name}_steps"]))
+        for name in ("dense", "paged")}
+    launches = card["launches"]
+    checks = {
+        "prefix_logits_shape": tuple(card["logits"].shape) == (
+            2, P + 16, m.padded_vocab),
+        "forward_logits_match_cpu": err <= PARITY_LOGIT_TOL,
+        "loss_matches_cpu": abs(card["loss"] - cpu["loss"])
+        <= PARITY_LOGIT_TOL,
+        "decode_logits_match_cpu": all(
+            len(card[f"{n}_steps"]) == LM_STEPS - 1
+            and step_err[n] <= PARITY_LOGIT_TOL for n in step_err),
+        "tokens_match_cpu": all(torch.equal(card[f"{n}_tokens"],
+                                            cpu[f"{n}_tokens"])
+                                for n in step_err),
+        "launches": all(launches[k] > 0 for k in (
+            "flash_attention", "decode_attention",
+            "paged_decode_attention")),
+    }
+    emit({"phase": "vlm_slice", "arch": f"{VLM_ARCH} (reduced)",
+          "layers": m.num_layers, "d_model": m.d_model, "patches": P,
+          "dtype": m.dtype, "forward_logits_max_abs_err": err,
+          "loss": {"card": card["loss"], "cpu": cpu["loss"]},
+          "decode_logits_max_abs_err": step_err, "tol": PARITY_LOGIT_TOL,
+          "launches": launches, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"vlm_slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2507,6 +3039,30 @@ def main() -> int:
         phase_lm_parity(torch, GEMMA_ARCH, phase, numpy_gemma_params,
                         layers=GEMMA_PARITY_LAYERS, prompt_len=LONG_PROMPT,
                         max_len=LONG_MAX_LEN, steps=LONG_STEPS)
+        phase = at("whisper_kernels")
+        whisper_rows = phase_whisper_kernels(torch)
+        phase = at("xlstm_slice")
+        xlstm_launches, pool, batches = phase_xlstm(torch)
+        phase = at("xlstm_profile")
+        phase_recurrent_profile(torch, phase, pool, batches)
+        del pool
+        torch.cuda.empty_cache()
+        phase = at("xlstm_parity")
+        xl = get_config(XLSTM_ARCH).model.xlstm
+        phase_recurrent_parity(torch, XLSTM_ARCH, phase, num_layers=2,
+                               xlstm=dataclasses.replace(xl,
+                                                         slstm_layers=(1,)))
+        phase = at("whisper_slice")
+        whisper_launches, pool, batches, forward = phase_whisper(torch)
+        phase = at("whisper_profile")
+        phase_recurrent_profile(torch, phase, pool, batches, forward)
+        del pool, forward
+        torch.cuda.empty_cache()
+        phase = at("whisper_parity")
+        phase_recurrent_parity(torch, WHISPER_ARCH, phase, num_layers=2,
+                               encoder_layers=2)
+        phase = at("vlm_slice")
+        vlm_launches = phase_vlm(torch)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
@@ -2517,7 +3073,9 @@ def main() -> int:
              "lm_slice": lm_launches,
              "moe_slice": moe_launches, "hybrid_slice": hybrid_launches,
              "gemma_slice": gemma_launches, "gemma_long": long_launches,
-             "gemma_scheduler": sched_launches}
+             "gemma_scheduler": sched_launches,
+             "xlstm_slice": xlstm_launches,
+             "whisper_slice": whisper_launches, "vlm_slice": vlm_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     csrc = "src/repro_torch/kernels/csrc"
     attn = (("flash_attention", 70), ("decode_attention", 57),
@@ -2540,7 +3098,17 @@ def main() -> int:
           "flash_attention_hybrid": kernel_entry(
               "flash_attention", f"{csrc}/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:70",
-              hybrid_launches["flash_attention"], hybrid_flash_row)})
+              hybrid_launches["flash_attention"], hybrid_flash_row),
+          # whisper: the encoder's non-causal flash over 1500 frames, the
+          # forward's cross attention (64 tokens to 1500 frames) and the
+          # decode step's cross rows (B 4, C 1500)
+          **{f"{name}_whisper_{part}": kernel_entry(
+              name, f"{csrc}/{name}.cu",
+              f"src/repro/kernels/{name}.py:{line}",
+              whisper_launches[name], whisper_rows[part])
+             for name, line, part in (("flash_attention", 70, "encoder"),
+                                      ("flash_attention", 70, "cross"),
+                                      ("decode_attention", 57, "decode"))}})
     print(smi, flush=True)
     emit({"kernels": [
         kernel_entry("gru_seq", f"{csrc}/gru_seq.cu",

@@ -4,10 +4,9 @@ simulation loop closed, the three steps of ``examples/tiered_serving.py``.
   1. cluster + deploy with a tiered replica pool (the paper's
      "replication for free": device / edge / cloud each keep a model copy)
   2. serve real traffic through the continuous-batching scheduler on the
-     edge replica of an LM tier layout (one-shot prefill in
-     ``flash_attention``, decode in ``decode_attention``, slot reuse,
-     TTFT/TPOT accounting); the reference serves xlstm-125m there, which
-     is not ported yet, so this serves gemma3-1b (reduced by default)
+     edge replica of an LM tier layout of xlstm-125m (reduced), as the
+     reference does: prompts fed token by token through the decode step,
+     slot reuse, TTFT/TPOT accounting
   3. measure the engines and run the routing simulator in CALIBRATED mode
      (per-tier service times from step 2's hardware, not the closed-form
      constant) and compare with the constant paper model
@@ -54,7 +53,7 @@ def main(argv=None) -> dict:
     # 2. real traffic through the edge replica's scheduler -----------------
     # (the paper's GRU serves one window per request; an LM tier shows the
     # continuous-batching path)
-    lm_pool = ReplicaPool(lm_tiers("gemma3-1b"), device=args.device)
+    lm_pool = ReplicaPool(lm_tiers("xlstm-125m"), device=args.device)
     engine = lm_pool.engine("edge")
     engine.measure(prompt_len=16, decode_steps=4)          # warm-up
     events = poisson_requests(lam, duration_s=1.0, seed=0)

@@ -35,7 +35,7 @@ SIGNATURES = {
     "gru_seq_floor": (_P,) + (_I,) * 5 + (_P,),
     "fedavg_reduce_f32": (_P, _P, _P, _I, _L, _P),
     "fedavg_reduce_bf16": (_P, _P, _P, _I, _L, _P),
-    **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 7 + (_P,)
+    **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},
     **{f"decode_attention_{t}": (_P,) * 5 + (_I,) * 6 + (_F, _P)
        for t in ("f32", "bf16")},

@@ -11,6 +11,11 @@
 // callers pass the kv heads once instead of repeating them G times; with
 // BHkv = BH it is the JAX signature.  Unlike the TPU kernel, which
 // asserts T % block == 0, any T works: rows and keys past T are masked.
+// Without the causal mask the keys may have a length of their own, Tk
+// (k/v (BHkv,Tk,D|Dv), key j at position j): whisper's decoder
+// cross-attends from its S tokens to the encoder's 1500 frames, and its
+// encoder attends over the 1500 frames without the mask (1500 is no
+// multiple of the 64-row tiles, so both tails are cut there).
 //
 // What bounds it on this card: at the stablelm prefill shape (BH = 32,
 // T = 64, D = 64, bf16) one call moves 1.0 MB (q, k, v in, out back) and
@@ -98,7 +103,7 @@ template <typename T, int kChunks>
 __global__ void __launch_bounds__(kWarps * kWarp)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int G, int T_,
-                       int D, int Dv, int causal, int window, float scale) {
+                       int Tk, int D, int Dv, int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                          // (kBlockRows, D), pre-scaled
   float* ks = qs + kBlockRows * D;           // (kKeys, D + 1)
@@ -108,8 +113,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * kBlockRows;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const T* qb = q + static_cast<size_t>(bh) * T_ * D;
-  const T* kb = k + static_cast<size_t>(kvh) * T_ * D;
-  const T* vb = v + static_cast<size_t>(kvh) * T_ * Dv;
+  const T* kb = k + static_cast<size_t>(kvh) * Tk * D;
+  const T* vb = v + static_cast<size_t>(kvh) * Tk * Dv;
 
   for (int i = threadIdx.x; i < kBlockRows * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D;
@@ -123,17 +128,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // keys any row of this tile can see: [k_lo, k_hi)
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(T_, q0 + kBlockRows) : T_;
+  const int k_hi = causal ? min(Tk, q0 + kBlockRows) : Tk;
   for (int kt = (k_lo / kKeys) * kKeys; kt < k_hi; kt += kKeys) {
     __syncthreads();  // previous tile fully used (and qs written)
     for (int i = threadIdx.x; i < kKeys * D; i += blockDim.x) {
       const int j = i / D, d = i - j * D;
       ks[j * (D + 1) + d] =
-          kt + j < T_ ? to_float(kb[static_cast<size_t>(kt + j) * D + d]) : 0.0f;
+          kt + j < Tk ? to_float(kb[static_cast<size_t>(kt + j) * D + d]) : 0.0f;
     }
     for (int i = threadIdx.x; i < kKeys * Dv; i += blockDim.x) {
       const int j = i / Dv, d = i - j * Dv;
-      vs[i] = kt + j < T_ ? to_float(vb[static_cast<size_t>(kt + j) * Dv + d]) : 0.0f;
+      vs[i] = kt + j < Tk ? to_float(vb[static_cast<size_t>(kt + j) * Dv + d]) : 0.0f;
     }
     __syncthreads();
     const int kpos = kt + lane;
@@ -143,7 +148,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int qpos = q0 + r;
       if (qpos >= T_) continue;  // uniform across the warp
       const int dist = qpos - kpos;
-      const bool ok = kpos < T_ && (!causal || dist >= 0) &&
+      const bool ok = kpos < Tk && (!causal || dist >= 0) &&
                       (window <= 0 || dist < window);
       fold_chunk(st[i], qs + r * D, ks, vs, D, Dv, 1.0f, 0.0f, ok, lane);
     }
@@ -344,7 +349,7 @@ template <int kNo, bool kVec>
 __global__ void __launch_bounds__(kGroup)
 flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ out, int G,
-                             int T_, int D, int Dv, int causal, int window,
+                             int T_, int Tk, int D, int Dv, int causal, int window,
                              float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Dp = round16(D);
@@ -357,8 +362,8 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest tiles first
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const bf16* qb = q + static_cast<size_t>(bh) * T_ * D;
-  const bf16* kb = k + static_cast<size_t>(kvh) * T_ * D;
-  const bf16* vb = v + static_cast<size_t>(kvh) * T_ * Dv;
+  const bf16* kb = k + static_cast<size_t>(kvh) * Tk * D;
+  const bf16* vb = v + static_cast<size_t>(kvh) * Tk * Dv;
 
   // zero the padding columns [D, Dp) of Q and K and [Dv, kNo) of V once;
   // copies never write them
@@ -367,12 +372,12 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
   // keys any row of the block can see: [k_lo, k_hi), in whole tiles
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(T_, q0 + kTile) : T_;
+  const int k_hi = causal ? min(Tk, q0 + kTile) : Tk;
   const int t_first = k_lo / kTile, t_end = (k_hi + kTile - 1) / kTile;
   const auto load_kv = [&](int t) {
     const int stage = (t - t_first) % kStages;
-    load_tile<kVec>(ks + stage * q_bytes, kb, t * kTile, T_, D);
-    load_tile<kVec>(vs + stage * v_bytes, vb, t * kTile, T_, Dv);
+    load_tile<kVec>(ks + stage * q_bytes, kb, t * kTile, Tk, D);
+    load_tile<kVec>(vs + stage * v_bytes, vb, t * kTile, Tk, Dv);
   };
 
   load_tile<kVec>(qs, qb, q0, T_, D);
@@ -417,7 +422,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
     // online softmax on the fragment; s[n * 4 + e] is row r_a + (e / 2)
     // * 8, key n * 8 + c_l + e % 2 of the tile
-    const bool need_mask = kt + kTile > T_ || (causal && kt + kTile - 1 > r_w) ||
+    const bool need_mask = kt + kTile > Tk || (causal && kt + kTile - 1 > r_w) ||
                            (window > 0 && r_w + 15 - kt >= window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -426,7 +431,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       for (int e = 0; e < 4; ++e) {
         if (need_mask) {
           const int r = r_a + (e / 2) * 8, c = kt + n * 8 + c_l + (e % 2);
-          const bool ok = c < T_ && (!causal || r >= c) && (window <= 0 || r - c < window);
+          const bool ok = c < Tk && (!causal || r >= c) && (window <= 0 || r - c < window);
           s[n * 4 + e] = ok ? s[n * 4 + e] : kNegInf;
         }
         mx[e / 2] = fmaxf(mx[e / 2], s[n * 4 + e]);
@@ -505,7 +510,8 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
 template <int kNo, bool kVec>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int BH, int BHkv,
-                 int T_, int D, int Dv, int causal, int window, cudaStream_t stream) {
+                 int T_, int Tk, int D, int Dv, int causal, int window,
+                 cudaStream_t stream) {
   constexpr auto kernel = &flash_attention_wgmma_kernel<kNo, kVec>;
   // the Q tile, the K/V ring, and up to 1 KB to align the first tile
   const size_t smem = (1 + kStages) * ((round16(D) + 63) / 64 * kBlk) +
@@ -515,24 +521,28 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int BH,
   const dim3 grid(BH, (T_ + kTile - 1) / kTile);
   kernel<<<grid, kGroup, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), BH / BHkv, T_, D, Dv, causal, window,
+      static_cast<bf16*>(out), BH / BHkv, T_, Tk, D, Dv, causal, window,
       1.4426950408889634f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kVec>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int BH, int BHkv,
-                int T_, int D, int Dv, int causal, int window, cudaStream_t stream) {
+                int T_, int Tk, int D, int Dv, int causal, int window,
+                cudaStream_t stream) {
   if (Dv <= 64)
-    return launch_wgmma<64, kVec>(q, k, v, out, BH, BHkv, T_, D, Dv, causal, window, stream);
+    return launch_wgmma<64, kVec>(q, k, v, out, BH, BHkv, T_, Tk, D, Dv, causal, window,
+                                  stream);
   if (Dv <= 128)
-    return launch_wgmma<128, kVec>(q, k, v, out, BH, BHkv, T_, D, Dv, causal, window, stream);
-  return launch_wgmma<256, kVec>(q, k, v, out, BH, BHkv, T_, D, Dv, causal, window, stream);
+    return launch_wgmma<128, kVec>(q, k, v, out, BH, BHkv, T_, Tk, D, Dv, causal, window,
+                                   stream);
+  return launch_wgmma<256, kVec>(q, k, v, out, BH, BHkv, T_, Tk, D, Dv, causal, window,
+                                 stream);
 }
 
 template <int kChunks>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, int BHkv,
-               int T_, int D, int Dv, int causal, int window, void* stream) {
+               int T_, int Tk, int D, int Dv, int causal, int window, void* stream) {
   using T = float;
   constexpr auto kernel = &flash_attention_kernel<T, kChunks>;
   const size_t smem =
@@ -542,7 +552,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, i
   const dim3 grid(BH, (T_ + kBlockRows - 1) / kBlockRows);
   kernel<<<grid, kWarps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), BH / BHkv, T_, D, Dv, causal, window,
+      static_cast<T*>(out), BH / BHkv, T_, Tk, D, Dv, causal, window,
       1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -550,24 +560,24 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int BH, i
 }  // namespace
 
 // Launch on `stream`; return cudaGetLastError() (0 when accepted).  The
-// caller checks shapes: BHkv divides BH, T >= 1, D and Dv in 1..256,
-// window 0 (none) or in 1..T-1.
+// caller checks shapes: BHkv divides BH, T >= 1, Tk >= 1 (Tk = T when
+// causal), D and Dv in 1..256, window 0 (none) or in 1..T-1.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* out, int BH, int BHkv, int T, int D, int Dv,
-                                   int causal, int window, void* stream) {
+                                   void* out, int BH, int BHkv, int T, int Tk, int D,
+                                   int Dv, int causal, int window, void* stream) {
   if (Dv <= 4 * kWarp)
-    return launch_f32<4>(q, k, v, out, BH, BHkv, T, D, Dv, causal, window, stream);
-  return launch_f32<8>(q, k, v, out, BH, BHkv, T, D, Dv, causal, window, stream);
+    return launch_f32<4>(q, k, v, out, BH, BHkv, T, Tk, D, Dv, causal, window, stream);
+  return launch_f32<8>(q, k, v, out, BH, BHkv, T, Tk, D, Dv, causal, window, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* out, int BH, int BHkv, int T, int D, int Dv,
-                                    int causal, int window, void* stream) {
+                                    void* out, int BH, int BHkv, int T, int Tk, int D,
+                                    int Dv, int causal, int window, void* stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const bool vec = D % 8 == 0 && Dv % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (vec) return launch_bf16<true>(q, k, v, out, BH, BHkv, T, D, Dv, causal, window, s);
-  return launch_bf16<false>(q, k, v, out, BH, BHkv, T, D, Dv, causal, window, s);
+  if (vec) return launch_bf16<true>(q, k, v, out, BH, BHkv, T, Tk, D, Dv, causal, window, s);
+  return launch_bf16<false>(q, k, v, out, BH, BHkv, T, Tk, D, Dv, causal, window, s);
 }

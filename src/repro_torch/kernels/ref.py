@@ -44,18 +44,19 @@ def fedavg_reduce_ref(stacked: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """q (BH,T,D); k/v (BHkv,T,D) with BHkv dividing BH (query row bh
-    reads kv row bh // G, G = BH/BHkv; G = 1 is the JAX signature) ->
-    (BH,T,Dv) in q's dtype.  ``window <= 0`` means no window."""
+    """q (BH,T,D); k/v (BHkv,Tk,D) with BHkv dividing BH (query row bh
+    reads kv row bh // G, G = BH/BHkv; G = 1 and Tk = T is the JAX
+    signature) -> (BH,T,Dv) in q's dtype: queries at positions 0..T-1,
+    keys at 0..Tk-1.  ``window <= 0`` means no window."""
     G = q.shape[0] // k.shape[0]
     k = k.repeat_interleave(G, dim=0)
     v = v.repeat_interleave(G, dim=0)
-    T = q.shape[1]
+    T, Tk = q.shape[1], k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) \
         / math.sqrt(q.shape[-1])
-    pos = torch.arange(T, device=q.device)
-    d = pos[:, None] - pos[None, :]
-    mask = torch.ones((T, T), dtype=torch.bool, device=q.device)
+    d = (torch.arange(T, device=q.device)[:, None]
+         - torch.arange(Tk, device=q.device)[None, :])
+    mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= d >= 0
     if window > 0:

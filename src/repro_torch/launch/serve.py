@@ -8,11 +8,9 @@ Counterpart of ``repro/launch/serve.py``, with its flags and one more,
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 Like the reference, it serves the arch's reduced config (random weights
-from seed 0) from one dense engine of ``--slots`` slots.  The default
-arch is ``gemma3-1b``, not the reference's ``xlstm-125m``: xLSTM is not
-ported yet (ROADMAP.md), and gemma3 is the dense transformer whose
-serving path this driver was ported with.  ``--device cpu`` runs the
-kernels' plain versions on the CPU; the default is the card.
+from seed 0) from one dense engine of ``--slots`` slots, and its default
+arch is ``xlstm-125m``.  ``--device cpu`` runs the kernels' plain
+versions on the CPU; the default is the card.
 """
 from __future__ import annotations
 
@@ -31,7 +29,7 @@ from repro_torch.serving import (ContinuousBatchingScheduler, ServeEngine,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--slots", type=int, default=8,
                     help="continuous-batching slots (concurrency cap)")
     ap.add_argument("--requests", type=int, default=32)

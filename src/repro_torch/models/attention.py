@@ -32,8 +32,14 @@ rope, in every GQA path) and ``logit_soft_cap``, which the JAX module
 applies in decode only (:func:`gqa_decode`, :func:`paged_gqa_decode`)
 and not in forward or prefill; the port keeps that asymmetry.  Local and
 global layers differ only in the window and rope table the caller passes.
-Cross attention and MLA's query compression (``q_lora_rank > 0``) are
-not ported yet (ROADMAP.md) and raise.
+
+Cross attention (whisper's decoder) is :func:`gqa_forward` with
+``kv_source`` and :func:`gqa_decode` with ``cross_kv``, as in JAX: on the
+card the forward runs ``ops.flash_attention`` without the causal mask
+over a key length of its own (the F encoder frames), and the decode step
+runs ``ops.decode_attention`` with every one of the F rows valid.  MLA's
+query compression (``q_lora_rank > 0``) is not ported yet (ROADMAP.md)
+and raises.
 """
 from __future__ import annotations
 
@@ -128,28 +134,32 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool, window) -> torch.Tensor:
-    """Causal attention over positions 0..S-1 through
-    ``ops.flash_attention``: q (B,S,H,D), k/v (B,S,Hkv,D) -> (B,S,H,Dv).
-    Heads fold into the kernel's BH axis, query head h of sequence b at
-    row b*H + h and kv head h // G at row b*Hkv + h // G, which the
-    kernel finds as row // G, so the kv heads are passed once."""
+    """Attention of queries at positions 0..S-1 over keys at 0..Sk-1
+    through ``ops.flash_attention``: q (B,S,H,D), k/v (B,Sk,Hkv,D) ->
+    (B,S,H,Dv); Sk differs from S only without the causal mask (cross
+    attention).  Heads fold into the kernel's BH axis, query head h of
+    sequence b at row b*H + h and kv head h // G at row b*Hkv + h // G,
+    which the kernel finds as row // G, so the kv heads are passed
+    once."""
     B, S, H, D = q.shape
-    Hkv, Dv = k.shape[2], v.shape[3]
+    Dv = v.shape[3]
 
     def fold(t):
-        return t.transpose(1, 2).reshape(-1, S, t.shape[-1]).contiguous()
+        return t.transpose(1, 2).reshape(-1, t.shape[1],
+                                         t.shape[-1]).contiguous()
 
     out = ops.flash_attention(fold(q), fold(k), fold(v), causal=causal,
                               window=0 if window is None else int(window))
     return out.reshape(B, H, S, Dv).transpose(1, 2)
 
 
-def _causal_attention(q, k, v, positions, causal, window):
-    """Self-attention over ``positions`` = 0..S-1: the flash kernel on
-    the card, :func:`_sdpa` on the CPU."""
+def _attention(q, k, v, q_pos, k_pos, causal, window):
+    """Full-sequence attention, queries at ``q_pos`` = 0..S-1 over keys at
+    ``k_pos`` = 0..Sk-1: the flash kernel on the card, :func:`_sdpa` on
+    the CPU."""
     if q.is_cuda:
         return _flash(q, k, v, causal, window)
-    return _sdpa(q, k, v, positions, positions, causal, window, 0.0)
+    return _sdpa(q, k, v, q_pos, k_pos, causal, window, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -183,16 +193,32 @@ def init_kv_cache(batch: int, capacity: int, num_kv_heads: int,
     )
 
 
+def _cross_q(p: Dict[str, Any], a: AttentionConfig,
+             x: torch.Tensor) -> torch.Tensor:
+    """Cross attention's query: no rope."""
+    q = _project(x, p["wq"])
+    return _rms_head_norm(q, p["q_norm"]) if a.qk_norm else q
+
+
 def gqa_forward(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
                 positions: torch.Tensor, inv_freq: Optional[torch.Tensor],
                 window=None, causal: bool = True,
                 kv_source: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (B,S,d), positions 0..S-1 -> (B,S,d)."""
+    """x (B,S,d), positions 0..S-1 -> (B,S,d).  ``kv_source`` (B,F,d)
+    switches to cross attention: keys and values from the encoder output
+    at positions 0..F-1, no rope and no causal mask."""
     check_supported(a)
-    if kv_source is not None:
-        raise NotImplementedError(f"cross attention {NOT_PORTED}")
-    q, k, v = _qkv(p, a, x, positions, inv_freq)
-    out = _causal_attention(q, k, v, positions, causal, window)
+    if kv_source is None:
+        q, k, v = _qkv(p, a, x, positions, inv_freq)
+        k_pos = positions
+    else:
+        q = _cross_q(p, a, x)
+        k, v = _project(kv_source, p["wk"]), _project(kv_source, p["wv"])
+        if a.qk_norm:
+            k = _rms_head_norm(k, p["k_norm"])
+        causal = False
+        k_pos = torch.arange(kv_source.shape[1], device=x.device)
+    out = _attention(q, k, v, positions, k_pos, causal, window)
     return _out_proj(out, p["wo"])
 
 
@@ -226,7 +252,7 @@ def gqa_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     ``length``; causality keeps pad keys out of every valid query."""
     check_supported(a)
     q, k, v = _qkv(p, a, x, positions, inv_freq)
-    out = _causal_attention(q, k, v, positions, True, window)
+    out = _attention(q, k, v, positions, positions, True, window)
     slots = prefill_slots(cache.capacity, positions, length)
     _ring_write(cache.k, k, slots)
     _ring_write(cache.v, v, slots)
@@ -239,10 +265,16 @@ def gqa_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
 def gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
                pos: torch.Tensor, cache: KVCache,
                inv_freq: Optional[torch.Tensor], window=None,
+               cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                ) -> Tuple[torch.Tensor, KVCache]:
     """Single-token decode.  x (B,1,d); pos () or (B,) absolute position
-    of each row.  Writes row b's K/V at ring slot ``index[b] % C``."""
+    of each row.  Writes row b's K/V at ring slot ``index[b] % C``.  With
+    ``cross_kv`` = (k, v), each (B,F,Hkv,D), the query attends to every
+    one of the F precomputed encoder rows instead (no rope, no mask, no
+    soft cap, as in JAX) and the ring is left as it is."""
     check_supported(a)
+    if cross_kv is not None:
+        return _cross_decode(p, a, x, *cross_kv), cache
     B = x.shape[0]
     pos = pos.long().expand(B) if pos.dim() == 0 else pos.long()
     q, k, v = _qkv(p, a, x, pos[:, None], inv_freq)
@@ -264,6 +296,24 @@ def gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
         out = _sdpa(q, kc, vc, pos[:1], torch.zeros_like(cache.pos[0]),
                     False, None, a.logit_soft_cap, k_valid=valid)
     return _out_proj(out, p["wo"]), cache
+
+
+def _cross_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
+                  ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One query a row over all F encoder rows of ``ck`` / ``cv``: the
+    dense decode kernel on the card (every slot valid), :func:`_sdpa` on
+    the CPU."""
+    q = _cross_q(p, a, x)
+    kc, vc = ck.to(q.dtype), cv.to(q.dtype)
+    B, F = kc.shape[:2]
+    if q.is_cuda:
+        valid = torch.ones((B, F), dtype=torch.bool, device=x.device)
+        out = ops.decode_attention(q[:, 0].contiguous(), kc, vc,
+                                   valid)[:, None]
+    else:
+        k_pos = torch.arange(F, device=x.device)
+        out = _sdpa(q, kc, vc, k_pos[:1], k_pos, False, None, 0.0)
+    return _out_proj(out, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +383,7 @@ def paged_gqa_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     differs: K/V scatter through the block table into pages."""
     check_supported(a)
     q, k, v = _qkv(p, a, x, positions, inv_freq)
-    out = _causal_attention(q, k, v, positions, True, window)
+    out = _attention(q, k, v, positions, positions, True, window)
     num_pages = cache.k_pages.shape[0] - 1
     pages, slots = prefill_page_ids(block_tables, positions, length,
                                     cache.page_size, num_pages)
@@ -445,7 +495,7 @@ def _mla_attend(p, a: AttentionConfig, x: torch.Tensor,
                                             k_rope.shape[-1])
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope_h], dim=-1)
-    out = _causal_attention(q_full, k_full, v, positions, True, None)
+    out = _attention(q_full, k_full, v, positions, positions, True, None)
     return _out_proj(out, p["wo"]), c_kv, k_rope
 
 

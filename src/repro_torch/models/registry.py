@@ -1,16 +1,19 @@
 """Unified model API of the port: one entry point per architecture
-family.  Counterpart of ``repro/models/registry.py``; the families
-ported so far:
+family.  Counterpart of ``repro/models/registry.py``, for every family
+the JAX package has:
 
   - rnn (paper):   batch = {"windows": (B,T,1) f32, "targets": (B,1) f32}
   - dense, moe:    batch = {"tokens": (B,S) int, "labels": (B,S) int};
                    the moe family's loss adds the routers' aux loss
-  - hybrid:        the same batch; plain CE loss.  Like the JAX
-                   package's, it has no one-shot ``prefill`` and no paged
-                   entries: the serving engine prefills it token by token
-                   through ``decode_step``
+  - vlm:           + "patches": (B,P,d) stub patch embeddings, a prefix
+                   whose P label positions the loss pads with -100
+  - audio:         + "frames": (B,F,d) stub frame embeddings (encoder)
+  - hybrid, ssm:   the LM batch; plain CE loss
 
-The ssm, vlm and audio families wait for their slices (ROADMAP.md).
+As in the JAX package, the hybrid (zamba2), ssm (xLSTM) and audio
+(whisper) families have no one-shot ``prefill`` and no paged entries:
+the serving engine prefills them token by token through
+``decode_step``, and a paged engine refuses them.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import gru, hybrid, transformer
+from repro_torch.models import encdec, gru, hybrid, transformer, xlstm
 from repro_torch.models.common import to_dtype
 
 
@@ -81,17 +84,41 @@ def _cache_dtype(cfg: ArchConfig):
     return to_dtype(cfg.run.cache_dtype) if cfg.run.cache_dtype else None
 
 
+def _extra(batch: Dict[str, torch.Tensor], m) -> Optional[torch.Tensor]:
+    if m.family == "vlm":
+        return batch.get("patches")
+    if m.family == "audio":
+        return batch.get("frames")
+    return None
+
+
+def _lm_forward_and_loss(cfg: ArchConfig, mod):
+    """The LM families' forward and loss (CE plus the MoE aux loss), the
+    prefix of the vlm and audio families taken from the batch."""
+    m = cfg.model
+
+    def fwd(params, batch):
+        extra = _extra(batch, m)
+        kw = {} if extra is None else {"extra_embeds": extra}
+        return mod.forward(params, m, batch["tokens"], **kw)
+
+    def loss(params, batch):
+        logits, aux = fwd(params, batch)
+        labels = batch["labels"]
+        if m.family == "vlm" and "patches" in batch:
+            pad = labels.new_full((labels.shape[0],
+                                   batch["patches"].shape[1]), -100)
+            labels = torch.cat([pad, labels], dim=1)
+        return cross_entropy_loss(logits, labels, m.vocab_size) + aux
+
+    return fwd, loss
+
+
 def _transformer_api(cfg: ArchConfig) -> ModelApi:
     m = cfg.model
     transformer.check_supported(m)
     cache_dtype = _cache_dtype(cfg)
-
-    def fwd(params, batch):
-        return transformer.forward(params, m, batch["tokens"])
-
-    def loss(params, batch):
-        logits, aux = fwd(params, batch)
-        return cross_entropy_loss(logits, batch["labels"], m.vocab_size) + aux
+    fwd, loss = _lm_forward_and_loss(cfg, transformer)
 
     return ModelApi(
         cfg=cfg,
@@ -104,8 +131,9 @@ def _transformer_api(cfg: ArchConfig) -> ModelApi:
         decode_step=lambda params, tokens, pos, cache, moe_per_row=False:
             transformer.decode_step(params, m, tokens, pos, cache,
                                     moe_per_row=moe_per_row),
-        prefill=lambda params, tokens, cache, length=None:
-            transformer.prefill(params, m, tokens, cache, length=length),
+        prefill=lambda params, tokens, cache, length=None, **kw:
+            transformer.prefill(params, m, tokens, cache, length=length,
+                                **kw),
         init_paged_cache=lambda num_pages, page_size, device=None:
             transformer.init_paged_cache(m, num_pages, page_size,
                                          dtype=cache_dtype, device=device),
@@ -118,40 +146,38 @@ def _transformer_api(cfg: ArchConfig) -> ModelApi:
     )
 
 
-def _hybrid_api(cfg: ArchConfig) -> ModelApi:
+def _recurrent_api(cfg: ArchConfig, mod) -> ModelApi:
+    """The families served through the decode step alone: no one-shot
+    prefill and no paged cache."""
     m = cfg.model
     cache_dtype = _cache_dtype(cfg)
-
-    def fwd(params, batch):
-        return hybrid.forward(params, m, batch["tokens"])
-
-    def loss(params, batch):
-        logits, _ = fwd(params, batch)
-        return cross_entropy_loss(logits, batch["labels"], m.vocab_size)
+    fwd, loss = _lm_forward_and_loss(cfg, mod)
 
     return ModelApi(
         cfg=cfg,
         init_params=lambda generator, device=None:
-            hybrid.init_params(generator, m, device),
+            mod.init_params(generator, m, device),
         forward=fwd,
         loss=loss,
-        init_cache=lambda b, n, device=None: hybrid.init_cache(
+        init_cache=lambda b, n, device=None: mod.init_cache(
             m, b, n, dtype=cache_dtype, device=device),
-        # the dense engine asks every family for per-row MoE capacity; a
-        # hybrid has no MoE layer, so the flag changes nothing
+        # the dense engine asks every family for per-row MoE capacity;
+        # these have no MoE layer, so the flag changes nothing
         decode_step=lambda params, tokens, pos, cache, moe_per_row=False:
-            hybrid.decode_step(params, m, tokens, pos, cache),
+            mod.decode_step(params, m, tokens, pos, cache),
     )
+
+
+#: the module of each family served through its decode step alone
+_RECURRENT = {"hybrid": hybrid, "ssm": xlstm, "audio": encdec}
 
 
 def make_model(cfg: ArchConfig) -> ModelApi:
     family = cfg.model.family
     if family == "rnn":
         return _rnn_api(cfg)
-    if family in ("dense", "moe"):
+    if family in ("dense", "moe", "vlm"):
         return _transformer_api(cfg)
-    if family == "hybrid":
-        return _hybrid_api(cfg)
-    raise NotImplementedError(
-        f"family {family!r} is not ported to PyTorch yet; see ROADMAP.md "
-        "for the order of slices")
+    if family in _RECURRENT:
+        return _recurrent_api(cfg, _RECURRENT[family])
+    raise ValueError(f"unknown model family {family!r}")

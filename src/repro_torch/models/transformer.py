@@ -1,5 +1,6 @@
-"""Decoder-only transformer of the dense and moe families (stablelm,
-h2o-danube, gemma3, deepseek-v2-lite, qwen2-moe): the counterpart of
+"""Decoder-only transformer of the dense, moe and vlm families (stablelm,
+h2o-danube, gemma3, llama3-405b, internvl2's language model,
+deepseek-v2-lite, qwen2-moe): the counterpart of
 ``repro/models/transformer.py``.
 
 Parameters keep the JAX tree: ``embed/table``, ``lm_head/w``,
@@ -16,9 +17,12 @@ unwindowed at 1M).  Caches keep the JAX layout: ``{"lead": {...},
 index, local layers keeping only ``min(max_len, window)`` slots.  The
 paged cache is uniform for every config (windows are masks there).
 Caches are written in place (see ``models/attention.py``).  MLA layers
-rotate ``qk_rope_head_dim`` dims, as JAX's ``stacked_rope`` does.
-Sinusoidal positions (``rope_theta == 0``) are not ported yet
-(ROADMAP.md) and raise.
+rotate ``qk_rope_head_dim`` dims, as JAX's ``stacked_rope`` does.  A
+config with ``rope_theta == 0`` rotates nothing and adds
+:func:`sinusoidal_positions` to the embeddings instead, in every path.
+:func:`forward` and :func:`prefill` take the vlm family's prefix
+(``extra_embeds`` (B,P,d), the stub's patch embeddings) before the
+tokens.
 """
 from __future__ import annotations
 
@@ -41,9 +45,6 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.attention.rope_theta == 0.0:
-        raise NotImplementedError(
-            f"sinusoidal positions (rope_theta == 0) {attn.NOT_PORTED}")
     if cfg.attention.kind not in ("full", "swa", "local_global", "mla"):
         raise NotImplementedError(
             f"attention kind {cfg.attention.kind!r} {attn.NOT_PORTED}")
@@ -97,9 +98,35 @@ def _is_mla(cfg: ModelConfig) -> bool:
     return cfg.attention.kind == "mla"
 
 
-def _inv_freq(cfg: ModelConfig, device, i: int = 0) -> torch.Tensor:
-    """Layer ``i``'s rope frequencies."""
+def sinusoidal_positions(S: int, d: int, offset=0,
+                         device=None) -> torch.Tensor:
+    """(S, d) position encodings of positions ``offset`` .. ``offset`` +
+    S - 1: the sines then the cosines (concatenated, not interleaved) of
+    angles p / 10000 ** (2k / d), k < d / 2, in fp32.  An ``offset`` of
+    shape (B,) gives (B, S, d), each row from its own offset (JAX vmaps
+    the scalar form over the rows)."""
+    off = torch.as_tensor(offset, device=device)
+    p = torch.arange(S, device=off.device) + off[..., None]
+    k = torch.arange(d // 2, device=off.device)
+    ang = p[..., None] / (10000.0 ** (2 * k / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _with_positions(cfg: ModelConfig, x: torch.Tensor,
+                    offset=0) -> torch.Tensor:
+    """``x`` (B,S,d) plus the sinusoidal positions from ``offset`` (()
+    or (B,)) when the config has no rope, else ``x``."""
+    if cfg.attention.rope_theta != 0.0:
+        return x
+    return x + sinusoidal_positions(x.shape[1], cfg.d_model, offset,
+                                    x.device).to(x.dtype)
+
+
+def _inv_freq(cfg: ModelConfig, device, i: int = 0):
+    """Layer ``i``'s rope frequencies; None without rope."""
     a = cfg.attention
+    if layer_theta(cfg, i) == 0.0:
+        return None
     dim = a.mla.qk_rope_head_dim if _is_mla(cfg) else a.head_dim
     return torch.from_numpy(rope_frequencies(
         dim, layer_theta(cfg, i), a.rope_fraction)).to(device)
@@ -206,12 +233,24 @@ def _head(params, cfg, x):
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (logits (B,S,V), aux loss summed over the MoE
-    layers; 0 without MoE)."""
-    check_supported(cfg)
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings after the prefix ``extra_embeds`` (if any), with
+    the sinusoidal positions of a config without rope."""
     x = embed_tokens(params, cfg, tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return _with_positions(cfg, x)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            extra_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S), after the prefix ``extra_embeds`` (B,P,d) if given
+    -> (logits (B,P+S,V), aux loss summed over the MoE layers; 0 without
+    MoE)."""
+    check_supported(cfg)
+    x = _embed(params, cfg, tokens, extra_embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     a = cfg.attention
@@ -266,15 +305,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache,
-            length: Optional[int] = None):
+            length: Optional[int] = None,
+            extra_embeds: Optional[torch.Tensor] = None):
     """One-shot prefill: the full-sequence pass of :func:`forward`, and
     every layer writes its cache for positions ``[0, length)`` in one
     scatter.  ``tokens`` (B,S) may be right-padded beyond ``length`` (pad
     tokens still enter the MoE dispatch, as in JAX); returns (logits
-    (B,S,V), cache ready for decode at ``length``)."""
+    (B,S,V), cache ready for decode at ``length``).  With a prefix
+    ``extra_embeds`` (B,P,d) the positions run over the P + S embeddings
+    while ``length`` still defaults to S, as in JAX."""
     check_supported(cfg)
     length = tokens.shape[1] if length is None else int(length)
-    x = embed_tokens(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     a = cfg.attention
     for p, moe_layer, c, window, inv_freq in _layers(params, cfg, x.device,
@@ -300,6 +342,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
+    x = _with_positions(cfg, x, pos)
     a = cfg.attention
     groups = x.shape[0] if moe_per_row else 1
     for p, moe_layer, c, window, inv_freq in _layers(params, cfg, x.device,
@@ -347,7 +390,7 @@ def paged_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     pages_per_seq) pool page ids.  Returns (logits (B,S,V), cache)."""
     check_supported(cfg)
     length = tokens.shape[1] if length is None else int(length)
-    x = embed_tokens(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, None)
     positions = torch.arange(x.shape[1], device=x.device)
     a = cfg.attention
     for p, moe_layer, c, window, inv_freq in _layers(params, cfg, x.device,
@@ -373,6 +416,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     x = embed_tokens(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
+    x = _with_positions(cfg, x, pos)
     a = cfg.attention
     for p, moe_layer, c, window, inv_freq in _layers(params, cfg, x.device,
                                                      cache):

@@ -20,19 +20,24 @@ extends page by page and eviction reclaims them.  Its decode step is one
 program over all rows in JAX too, so there an MoE layer's capacity is
 pooled over the rows, free rows included.
 
-A family without a one-shot ``prefill`` (the zamba2 hybrid, whose state
-is recurrent) is admitted token by token through ``decode_step`` on the
-slot's batch-1 cache, as the JAX engine's scan over decode steps does;
-only :class:`ServeEngine` serves it (recurrent state is O(1) per
-sequence, so there is nothing to page).
+A family without a one-shot ``prefill`` (the zamba2 hybrid and xLSTM,
+whose states are recurrent, and whisper's encoder-decoder) is admitted
+token by token through ``decode_step`` on the slot's batch-1 cache, as
+the JAX engine's scan over decode steps does; only :class:`ServeEngine`
+serves it (recurrent state is O(1) per sequence, so there is nothing to
+page).
 
 Caches are written in place (``models/attention.py``), so ``measure()``
 clones them before it admits its probe sequences and puts the clones
-back after: in-flight sequences resume where they were.  A cache's
-``"layers"`` entry is one stacked cache (batch axis 1) or, for a config
-whose layers' windows differ (gemma3), a dict of per-layer rings (batch
-axis 0), as the hybrid's ``"shared"`` rings are.  Both engines run on
-the GPU unless the caller passes ``device="cpu"``.
+back after: in-flight sequences resume where they were.  Each family
+keeps the batch on its own axis: 1 in a stacked cache (the
+transformer's ``"layers"``, the hybrid's ``"mamba"``, whisper's
+``"self"`` ring and bare ``cross_k`` / ``cross_v``), 0 in a per-layer one
+(gemma3's per-layer rings, the hybrid's ``"shared"`` rings, xLSTM's
+states).  An admission resets its slot to a fresh batch-1 cache made
+once at construction, and finds each leaf's batch axis by comparing the
+two.  Both engines run on the GPU unless the caller passes
+``device="cpu"``.
 
 With a :class:`~repro_torch.telemetry.Telemetry` attached, the engines
 record what the JAX engines record, at the same calls: ``serve.admit``
@@ -54,7 +59,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import make_model
-from repro_torch.params import flatten_with_path, from_numpy_tree, tree_map
+from repro_torch.params import (flatten_with_path, from_numpy_tree,
+                                tree_map, tree_map_with_path)
 from repro_torch.serving.page_pool import PagePool
 from repro_torch.telemetry import Telemetry, maybe as _maybe_tel
 
@@ -93,20 +99,15 @@ def _restore(cache, saved) -> None:
         dst.copy_(src)
 
 
-def _emptied(cache):
-    """A cache view (a ring :class:`~repro_torch.models.attention.KVCache`
-    or MLA cache, or an :class:`~repro_torch.models.ssm.SSMState`) reset
-    in place to a fresh cache: positions -1 (empty slots), everything
-    else 0 (a fresh SSM state is all zeros)."""
-    for name, x in zip(cache._fields, cache):
-        x.fill_(-1 if name == "pos" else 0)
-    return cache
-
-
-def _slot_view(cache, slot: int, axis: int):
-    """Batch row ``slot`` of every leaf (views: writes go through),
-    emptied as a fresh batch-1 cache is."""
-    return _emptied(type(cache)(*(x.narrow(axis, slot, 1) for x in cache)))
+def _batch_axis(full: torch.Tensor, one: torch.Tensor) -> Optional[int]:
+    """The axis on which a leaf of the engine's cache and the same leaf of
+    a batch-1 cache differ: the batch axis, wherever the family keeps it
+    (0 in a per-layer cache, 1 in a stacked one); None when the engine has
+    one slot, whose view is then the whole leaf."""
+    for ax, (a, b) in enumerate(zip(full.shape, one.shape)):
+        if a != b:
+            return ax
+    return None
 
 
 def _argmax(logits: torch.Tensor) -> torch.Tensor:
@@ -283,21 +284,30 @@ class ServeEngine(_EngineBase):
             raise ValueError(
                 f"{cfg.name}: family {cfg.model.family!r} has no decode "
                 "cache — serve it per-request via ReplicaPool instead")
+        # the JAX engine's slot template: a fresh batch-1 cache, which
+        # every admission copies into its slot (a fresh state is not all
+        # zeros: empty ring slots hold position -1, an xLSTM stabiliser
+        # -1e30), and each leaf's batch axis in the engine's cache
+        fresh = flatten_with_path(self.api.init_cache(1, self.max_len,
+                                                      device=self.device))
+        self._fresh = dict(fresh)
+        self._batch_axes = {
+            path: _batch_axis(full, one) for (path, full), (_, one)
+            in zip(flatten_with_path(self.cache), fresh)}
         self.pos = torch.zeros((batch_size,), dtype=torch.int64,
                                device=self.device)
         self.next_tok = torch.zeros((batch_size, 1), dtype=torch.int64,
                                     device=self.device)
 
     def _slot_cache(self, slot: int):
-        """Slot ``slot`` of every layer's cache, as views, emptied as a
-        fresh batch-1 cache is (the JAX engine prefills a fresh template
-        and inserts it): a dict of per-layer caches (the transformer's
-        ``lead`` and per-layer ``layers``, the hybrid's ``shared`` rings)
-        at batch axis 0, a stacked cache (``layers``, the hybrid's
-        ``mamba`` states) at batch axis 1."""
-        return {key: ({k: _slot_view(ck, slot, 0) for k, ck in c.items()}
-                      if isinstance(c, dict) else _slot_view(c, slot, 1))
-                for key, c in self.cache.items()}
+        """Slot ``slot`` of every leaf of the cache, as views (writes go
+        through), reset to the fresh batch-1 template: the JAX engine
+        prefills a copy of its template and inserts it into the slot."""
+        def view(path, x):
+            ax = self._batch_axes[path]
+            v = x if ax is None else x.narrow(ax, slot, 1)
+            return v.copy_(self._fresh[path])
+        return tree_map_with_path(view, self.cache)
 
     # -- slot management ----------------------------------------------------
 

@@ -13,10 +13,13 @@ runs in the ``gru_seq`` CUDA kernel on the card.  The LM engines' prefill
 and decode attention run in the ``flash_attention``, ``decode_attention``
 and ``paged_decode_attention`` kernels (MLA models: ``flash_attention``
 and ``paged_mla_decode_attention``), and every MoE layer routes its
-tokens through ``topk_router``.  The zamba2 hybrid is served by dense
-engines only, its prompt fed token by token through the decode step, so
-its serving path runs ``decode_attention`` in the shared block and never
-the ``mamba_chunk_scan`` of its full-sequence forward.
+tokens through ``topk_router``.  The recurrent families are served by
+dense engines only, their prompts fed token by token through the decode
+step: the zamba2 hybrid's serving path runs ``decode_attention`` in the
+shared block and never the ``mamba_chunk_scan`` of its full-sequence
+forward; xlstm-125m, the default LM (:func:`lm_tiers`), runs PyTorch ops
+alone (the JAX package has no kernel for it); whisper's decoder runs
+``decode_attention`` over its self ring and its cross rows.
 
 ``measure()`` produces the per-tier timings that
 ``LatencyModel.from_measurements`` turns into a calibrated latency model
@@ -82,9 +85,9 @@ DEFAULT_TIERS: Tuple[TierSpec, ...] = (
 def lm_tiers(arch: str = "xlstm-125m", max_len: int = 256,
              ) -> Tuple[TierSpec, ...]:
     """Tier layout for a token-decoding LM: dense engines with 1, 4 and 8
-    slots, for a transformer or the zamba2 hybrid.  (The default arch is
-    the JAX package's; xlstm is not ported yet, so building its tiers
-    raises.)"""
+    slots, for any LM family; the default, as in the JAX package, is
+    xlstm-125m, whose prompts are fed token by token through the decode
+    step."""
     return (TierSpec("device", arch=arch, batch_size=1, max_len=max_len),
             TierSpec("edge", arch=arch, batch_size=4, max_len=max_len),
             TierSpec("cloud", arch=arch, batch_size=8, max_len=max_len))

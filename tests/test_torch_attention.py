@@ -353,6 +353,27 @@ def test_flash_attention_kernel_without_causal_mask(cuda_device, BH, BHkv, T,
     assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
 
 
+#: whisper's shapes (12 heads of dim 64: the encoder's 1500 frames, the
+#: decoder's cross attention from 16 or 64 tokens to them) and edge ones
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,BHkv,T,Tk,D", [(24, 24, 1500, 1500, 64),
+                                            (24, 24, 16, 1500, 64),
+                                            (24, 24, 64, 1500, 64),
+                                            (4, 2, 100, 77, 40),
+                                            (2, 1, 1, 130, 192)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_with_own_key_length(cuda_device, BH, BHkv,
+                                                    T, Tk, D, dtype):
+    r = np.random.default_rng(4)
+    q, k, v = (_tensor(_normal(r, s), dtype, cuda_device)
+               for s in ((BH, T, D), (BHkv, Tk, D), (BHkv, Tk, D)))
+    out = _launched_once(lambda: flash_attention(q, k, v, causal=False),
+                         flash_attention)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    assert out.shape == (BH, T, D)
+    assert_allclose(_to_np(out), _to_np(want), **TOL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,C", DECODE_EDGE)
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -189,8 +189,65 @@ def test_tree_counts_param_count_plus_norms(arch):
 
 
 def test_registry_knows_only_ported_configs():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("xlstm-125m")
+    """Every architecture of the JAX registry is ported: the same names
+    in the same order, each with a model in the port."""
+    import torch
+    from repro.configs.registry import _MODULES as JAX_MODULES
+    from repro_torch.configs.registry import _MODULES
+    from repro_torch.models import make_model
+    assert list(_MODULES) == list(JAX_MODULES)
+    assert {n: m.replace("repro_torch.", "repro.", 1)
+            for n, m in _MODULES.items()} == JAX_MODULES
+    for name in _MODULES:
+        cfg = get_config(name).reduced()
+        make_model(cfg).init_params(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-small",
+                                  "internvl2-76b", "llama3-405b"])
+@pytest.mark.parametrize("reduced", [False, True])
+def test_last_family_configs_are_the_same(arch, reduced):
+    j, t = jax_get_config(arch), get_config(arch)
+    if reduced:
+        j, t = j.reduced(), t.reduced()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.model.param_count() == j.model.param_count()
+    assert t.model.sub_quadratic == j.model.sub_quadratic
+
+
+@pytest.mark.parametrize("paper_model", [False, True])
+def test_all_configs_and_shapes_are_the_jax_ones(paper_model):
+    from repro.configs import all_configs as jax_all
+    from repro.configs import applicable_shapes as jax_shapes
+    from repro_torch.configs import ASSIGNED, all_configs, applicable_shapes
+    from repro.configs import ASSIGNED as JAX_ASSIGNED
+    assert ASSIGNED == JAX_ASSIGNED
+    t, j = all_configs(paper_model), jax_all(paper_model)
+    assert list(t) == list(j)
+    for name in t:
+        assert dataclasses.asdict(t[name]) == dataclasses.asdict(j[name])
+        assert ([dataclasses.asdict(x) for x in applicable_shapes(t[name])]
+                == [dataclasses.asdict(x) for x in jax_shapes(j[name])])
+
+
+def test_last_family_configs_are_the_published_shapes():
+    x = get_config("xlstm-125m").model
+    assert (x.family, x.num_layers, x.d_model, x.vocab_size,
+            x.attention.kind, x.xlstm.num_heads, x.xlstm.slstm_layers) == \
+        ("ssm", 12, 768, 50_304, "none", 4, (3, 9))
+    w = get_config("whisper-small").model
+    assert (w.family, w.num_layers, w.encoder_layers, w.d_model, w.d_ff,
+            w.attention.num_heads, w.attention.head_dim,
+            w.attention.rope_theta, w.frontend.num_positions) == \
+        ("audio", 12, 12, 768, 3072, 12, 64, 0.0, 1500)
+    v = get_config("internvl2-76b").model
+    assert (v.family, v.num_layers, v.d_model, v.frontend.kind) == \
+        ("vlm", 80, 8192, "vision_patches")
+    ll = get_config("llama3-405b").model
+    assert (ll.family, ll.num_layers, ll.d_model, ll.attention.kind) == \
+        ("dense", 126, 16_384, "full")
 
 
 def test_engine_measurement_has_the_same_fields():

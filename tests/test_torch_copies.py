@@ -26,7 +26,9 @@ COPIES = [
     "orchestration/controller.py", "orchestration/__init__.py",
     "routing/rules.py", "serving/workload.py", "sim/events.py",
     "sim/request_plane.py", "routing/simulator.py", "serving/page_pool.py",
-    "serving/scheduler.py",
+    "serving/scheduler.py", "configs/xlstm_125m.py",
+    "configs/whisper_small.py", "configs/internvl2_76b.py",
+    "configs/llama3_405b.py", "configs/__init__.py",
 ]
 #: copies with a documented difference: the names it adds
 DIFFERENCES = {"orchestration/controller.py": "device"}

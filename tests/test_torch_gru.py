@@ -125,11 +125,20 @@ def test_make_model_rnn_api_matches_forward():
 
 
 def test_make_model_other_families_wait_for_their_slice():
+    """Every family of the JAX registry has its API in the port (the
+    ssm, audio and vlm families since the last of the model slices); a
+    family the registry does not know raises."""
+    from repro_torch.configs import get_config
+    for arch, family in (("xlstm-125m", "ssm"), ("whisper-small", "audio"),
+                         ("internvl2-76b", "vlm")):
+        cfg = get_config(arch).reduced()
+        assert cfg.model.family == family
+        assert make_model(cfg).init_cache(1, 8, device="cpu") is not None
     _, tcfg = _cfgs(True)
-    ssm = dataclasses.replace(
-        tcfg, model=dataclasses.replace(tcfg.model, family="ssm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(ssm)
+    other = dataclasses.replace(
+        tcfg, model=dataclasses.replace(tcfg.model, family="diffusion"))
+    with pytest.raises(ValueError, match="unknown model family"):
+        make_model(other)
 
 
 def test_entry_points_default_to_the_gpu():

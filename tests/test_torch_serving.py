@@ -145,15 +145,16 @@ def test_pool_runs_on_the_gpu_unless_asked_for_the_cpu():
 
 
 def test_lm_paths_wait_for_their_slice():
-    """The LM tiers serve the ported dense family; the families of later
-    slices still raise, naming ROADMAP.md."""
+    """The LM tiers serve every family, the default one (xlstm-125m, as
+    in JAX) included; the GRU tiers have no engine."""
     _, tpool = _pools()
     with pytest.raises(TypeError):
         tpool.engine("device")
     assert [s.arch for s in rep.lm_tiers()] == ["xlstm-125m"] * 3
-    xl = rep.ReplicaPool(rep.lm_tiers(), device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        xl.dispatch("edge", np.zeros((1, 6), np.int64))
+    xl = rep.ReplicaPool(rep.lm_tiers(max_len=32), device="cpu")
+    out = xl.dispatch("edge", np.zeros((1, 6), np.int64), steps=3)
+    assert out.shape == (1, 3)
+    assert xl.engine("edge").cfg.model.family == "ssm"
     with pytest.raises(ValueError):
         rep.ReplicaPool([rep.TierSpec("fog")], device="cpu")
     lm = rep.ReplicaPool([rep.TierSpec("edge", arch="stablelm-1.6b",

@@ -235,14 +235,14 @@ def test_rope_rotates_half_split_pairs():
     np.testing.assert_array_equal(got[..., 8:].numpy(), x[..., 8:])
 
 
-@pytest.mark.parametrize("field,value", [("rope_theta", 0.0),
-                                         ("kind", "none"),
+@pytest.mark.parametrize("field,value", [("kind", "none"),
                                          ("mla_q_lora_rank", 64)])
 def test_unported_attention_features_raise(field, value):
-    """What the port still refuses: sinusoidal positions, attention
-    kinds outside the dense and moe families, MLA query compression.
+    """What the port's transformer refuses: attention kind "none" (the
+    xLSTM family's, which has its own model), MLA query compression.
     (gemma3's ``qk_norm``, ``logit_soft_cap`` and ``local_global`` are
-    ported: tests/test_torch_gemma3.py.)"""
+    ported: tests/test_torch_gemma3.py; sinusoidal positions:
+    tests/test_torch_encdec.py and the case below.)"""
     _, tcfg, _, _ = jax_setup()
     if field == "mla_q_lora_rank":
         tcfg = get_config("deepseek-v2-lite-16b").reduced()
@@ -254,3 +254,61 @@ def test_unported_attention_features_raise(field, value):
         tcfg.model, attention=a))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_model(bad)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_sinusoidal_positions_take_rope_s_place(paged):
+    """A dense config with ``rope_theta == 0`` (as internvl2's and
+    whisper's attention would have it) rotates nothing and adds the
+    sinusoidal positions to the embeddings in every path: forward, the
+    one-shot (dense or paged) prefill and decode steps, whose per-row
+    positions (B,) give each row its own position encoding."""
+    jcfg, tcfg, params, npp = jax_setup()
+    jcfg, tcfg = (dataclasses.replace(c, model=dataclasses.replace(
+        c.model, attention=dataclasses.replace(c.model.attention,
+                                               rope_theta=0.0)))
+        for c in (jcfg, tcfg))
+    jm, tm = jcfg.model, tcfg.model
+    tp = from_numpy_tree(npp, "cpu")
+    B, S, length = 2, 8, 6
+    tok = tokens(B, S, tm.vocab_size)
+    tok[:, length:] = 0
+    assert_allclose(make_model(tcfg).forward(tp, {"tokens": torch.as_tensor(
+        tok)})[0].numpy(), np.asarray(jax_make_model(jcfg).forward(
+            params, {"tokens": jnp.asarray(tok)})[0]), **TOL)
+    if paged:
+        bt = _scattered_table(B, 4, 9)
+        jc = jtf.init_paged_cache(jm, 9, 4)
+        tc = transformer.init_paged_cache(tm, 9, 4, device="cpu")
+        jl, jc = jtf.paged_prefill(params, jm, jnp.asarray(tok), jc,
+                                   jnp.asarray(bt), length=length)
+        tl, tc = transformer.paged_prefill(tp, tm, torch.as_tensor(tok), tc,
+                                           torch.as_tensor(bt), length=length)
+    else:
+        jc = jtf.init_cache(jm, B, 16)
+        tc = transformer.init_cache(tm, B, 16, device="cpu")
+        jl, jc = jtf.prefill(params, jm, jnp.asarray(tok), jc, length=length)
+        tl, tc = transformer.prefill(tp, tm, torch.as_tensor(tok), tc,
+                                     length=length)
+    assert_allclose(tl[:, :length].numpy(), np.asarray(jl)[:, :length],
+                    **TOL)
+    nxt = np.array(jnp.argmax(jl[:, length - 1], -1))
+    for step in range(4):
+        pos = length + step
+        if paged:
+            rows = np.full((B,), pos, np.int32)
+            jl, jc = jtf.paged_decode_step(params, jm,
+                                           jnp.asarray(nxt[:, None]),
+                                           jnp.asarray(rows), jc,
+                                           jnp.asarray(bt))
+            tl, tc = transformer.paged_decode_step(
+                tp, tm, torch.as_tensor(nxt[:, None]),
+                torch.as_tensor(rows), tc, torch.as_tensor(bt))
+        else:
+            jl, jc = jtf.decode_step(params, jm, jnp.asarray(nxt[:, None]),
+                                     jnp.int32(pos), jc)
+            tl, tc = transformer.decode_step(tp, tm,
+                                             torch.as_tensor(nxt[:, None]),
+                                             torch.full((B,), pos), tc)
+        assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        nxt = np.array(jnp.argmax(jl[:, -1], -1))
