@@ -65,6 +65,15 @@ through the entry points a user calls:
   counts), each with a 2-layer fp32 cut on the card and on the CPU, and
   internvl2-76b's reduced config with its patch prefix (forward, loss,
   both engines) on the card and on the CPU.
+- the LM training layer: hierarchical-FL training of gemma3-1b at its
+  published width (bf16, AdamW, 2 clusters of batch 4 x 64 tokens from
+  their TokenStream shards, 4 local rounds, a global round every 2: one
+  plain and one int8 with error feedback), every forward's attention in
+  ``flash_attention`` and both syncs' means in ``fedavg_reduce``, with
+  exact launch counts, bit-identical replicas after each sync, peak
+  memory and a profiled local round; then a 2-layer fp32 cut trained
+  and synced on the card and on the CPU, and the reduced
+  deepseek-v2-lite at two microbatches (``topk_router``).
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -231,6 +240,27 @@ WHISPER_TIER = "edge"
 #: the vlm slice: internvl2-76b's reduced config (80 layers of d 8192 do
 #: not fit one card)
 VLM_ARCH = "internvl2-76b"
+#: the LM training slice: gemma3-1b at full width, bf16, 2 clusters of
+#: batch 4 x 64 tokens, AdamW lr 1e-3; 4 local rounds, a global round
+#: every 2 (l = 2): first plain, then int8 with error feedback
+TRAIN_ARCH = GEMMA_ARCH
+TRAIN_CLUSTERS = 2
+TRAIN_BATCH = 4
+TRAIN_SEQ = 64
+TRAIN_ROUNDS = 4
+TRAIN_GLOBAL_EVERY = 2
+TRAIN_LR = 1e-3
+#: tests/test_torch_training.py's tolerances: losses relative; updates
+#: in units of the larger of lr and the leaf's largest update
+TRAIN_LOSS_RTOL = 3e-5
+TRAIN_UPDATE_TOL = 1e-3
+#: the card-vs-CPU training cut: 2 layers, fp32, batch 2, 2 local SGD
+#: steps; and the reduced MoE at 2 microbatches
+TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_BATCH = 2
+TRAIN_PARITY_STEPS = 2
+TRAIN_PARITY_LR = 1e-3
+TRAIN_MOE_K = 2
 #: served trees at full width: leaf -> shape
 FULL_WIDTH = {
     LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
@@ -574,15 +604,22 @@ def check_gru_seq(torch, rng, B, T, h):
     return row
 
 
-def check_fedavg_reduce(torch, rng, C, N, dtype_name):
+def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50)):
+    """``rng`` a numpy generator, or a torch one on the card for the LM
+    syncs' replica matrices (C N of ~1.6e9 is too many numpy draws);
+    ``iters`` the kernel's and the plain version's timed calls."""
     from repro_torch.kernels import fedavg_reduce as fr
     from repro_torch.kernels import ref
     dev = torch.device(DEVICE)
     dtype = getattr(torch, dtype_name)
-    x = torch.as_tensor(rng.normal(size=(C, N)), dtype=torch.float32,
-                        device=dev).to(dtype)
-    w = torch.as_tensor(rng.uniform(0.5, 2.0, C), dtype=torch.float32,
-                        device=dev)
+    if isinstance(rng, np.random.Generator):
+        x = torch.as_tensor(rng.normal(size=(C, N)), dtype=torch.float32,
+                            device=dev).to(dtype)
+        w = torch.as_tensor(rng.uniform(0.5, 2.0, C), dtype=torch.float32,
+                            device=dev)
+    else:
+        x = torch.randn((C, N), generator=rng, device=dev, dtype=dtype)
+        w = torch.rand((C,), generator=rng, device=dev) * 1.5 + 0.5
     out = fr.fedavg_reduce(x, w)
     plain = ref.fedavg_reduce_ref(x, w)
     torch.cuda.synchronize()
@@ -597,7 +634,7 @@ def check_fedavg_reduce(torch, rng, C, N, dtype_name):
            "max_abs_err": err, "tol": tol, "ok": ok,
            **timings(torch, lambda: fr.fedavg_reduce(x, w),
                      lambda: ref.fedavg_reduce_ref(x, w),
-                     lambda: torch.matmul(wn, x), 200, 50),
+                     lambda: torch.matmul(wn, x), *iters),
            "bound_ms": bound_ms, "bound_by": bound_by}
     emit({"phase": "kernel_check", **row})
     return row
@@ -2926,6 +2963,331 @@ def phase_vlm(torch):
     return launches
 
 
+def stacked_lm_batch(torch, streams, device):
+    """One TokenStream batch a cluster, stacked on a leading axis."""
+    batches = [s.next_batch() for s in streams]
+    return {k: torch.as_tensor(np.stack([b[k] for b in batches]),
+                               device=device) for k in batches[0]}
+
+
+def replicas_identical(torch, stacked) -> bool:
+    from repro_torch.params import flatten_with_path
+    return all(torch.equal(x[0], x[c]) for _, x in flatten_with_path(stacked)
+               for c in range(1, x.shape[0]))
+
+
+def expected_train_launches(m, steps, microbatches, sync_groups):
+    """Kernel launches of ``steps`` cluster steps (each a forward at
+    ``microbatches`` slices: one flash a layer, one router a MoE layer;
+    the backward is the plain versions') and of the syncs: one
+    ``fedavg_reduce`` a dtype group of a plain sync, one an int8 sync."""
+    forwards = steps * microbatches
+    moe_layers = m.num_layers - m.moe.first_dense_layers if m.moe else 0
+    want = {k: 0 for k in ("gru_seq", "fedavg_reduce", "flash_attention",
+                           "decode_attention", "paged_decode_attention",
+                           "paged_mla_decode_attention", "topk_router",
+                           "mamba_chunk_scan")}
+    want["flash_attention"] = m.num_layers * forwards
+    want["topk_router"] = moe_layers * forwards
+    want["fedavg_reduce"] = sync_groups
+    return want
+
+
+def phase_train(torch):
+    """The LM training layer's main path: hierarchical-FL training of
+    gemma3-1b at its published width in bf16 (random weights drawn on
+    the card from a seed) through the entry points a user calls.  Two
+    clusters, each a replica and a TokenStream shard (batch 4 of 64
+    tokens), AdamW (lr 1e-3, fp32 moments); 4 local rounds with a global
+    round every 2: first ``hfl_global_round`` (bf16, through
+    ``fedavg_reduce``), then ``compressed_global_sync`` (int8 deltas
+    with error feedback since the first sync; their fp32 mean through
+    ``fedavg_reduce``).  Every forward's attention is ``flash_attention``
+    (D 256), its backward the plain version's.  Then one profiled local
+    round, and ``fedavg_reduce`` and ``flash_attention`` held against
+    their plain versions at the path's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.fl.collectives import (cluster_divergence,
+                                            dtype_groups, stack_for_clusters)
+    from repro_torch.fl.compression import (compressed_global_sync,
+                                            init_ef_state, sync_bytes)
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path
+    from repro_torch.training import (AdamW, hfl_global_round,
+                                      init_hfl_opt_state,
+                                      make_hfl_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    m = cfg.model
+    api = make_model(cfg)
+    C = TRAIN_CLUSTERS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
+                             DEVICE)
+    leaves = dict(flatten_with_path(params))
+    n_params = param_count(params)
+    full_width = (all(tuple(leaves[k].shape) == v
+                      for k, v in FULL_WIDTH[TRAIN_ARCH].items())
+                  and {x.dtype for x in leaves.values()} == {torch.bfloat16}
+                  and n_params == m.param_count() + norm_params(m))
+    stacked = stack_for_clusters(params, C)
+    del params, leaves
+    opt = AdamW(lr=TRAIN_LR, state_dtype=cfg.run.opt_state_dtype)
+    opt_state = init_hfl_opt_state(opt, stacked)
+    local = make_hfl_train_step(api, cfg, opt)
+    streams = [TokenStream(TokenStreamConfig(
+        vocab_size=m.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH),
+        shard=c) for c in range(C)]
+    groups = len(dtype_groups([x for _, x in flatten_with_path(stacked)]))
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    losses, round_ms, syncs, ef = [], [], [], None
+    for t in range(TRAIN_ROUNDS):
+        batch = stacked_lm_batch(torch, streams, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stacked, opt_state, loss = local(stacked, opt_state, batch)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.tolist())
+        if (t + 1) % TRAIN_GLOBAL_EVERY == 0:
+            compressed = ef is not None
+            div = float(cluster_divergence(stacked))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if compressed:
+                stacked, ef = compressed_global_sync(stacked, ef)
+            else:
+                stacked = hfl_global_round(stacked)
+            torch.cuda.synchronize()
+            syncs.append({"kind": "int8" if compressed else "plain",
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "divergence_before": div,
+                          "sync_bytes": sync_bytes(stacked, compressed),
+                          "replicas_identical": replicas_identical(
+                              torch, stacked)})
+            if not compressed:      # the anchor: params at the last sync
+                ef = init_ef_state(stacked)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    want = expected_train_launches(m, C * TRAIN_ROUNDS,
+                                   cfg.run.microbatches, groups + 1)
+
+    # one more local round, profiled (its launches are not the path's)
+    batch = stacked_lm_batch(torch, streams, DEVICE)
+    step_profile = profile_once(
+        torch, lambda: local(stacked, opt_state, batch), top=8)
+    del stacked, opt_state, ef, batch
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    fed_rows = [check_fedavg_reduce(torch, gen, C, n_params, name, (5, 2))
+                for name in ("bfloat16", "float32")]
+    rng = np.random.default_rng(SEED + 21)
+    B, H, Hkv = TRAIN_BATCH, m.attention.num_heads, m.attention.num_kv_heads
+    flash_rows = [check_flash(torch, rng, B * H, B * Hkv, TRAIN_SEQ,
+                              m.attention.head_dim, w, "bfloat16")
+                  for w in (m.attention.window, 0)]
+    flat_losses = [x for row in losses for x in row]
+    checks = {
+        "full_width": full_width,
+        "losses_finite": bool(np.isfinite(flat_losses).all())
+        and len(flat_losses) == C * TRAIN_ROUNDS,
+        "launches": launches == want,
+        "syncs": [s["kind"] for s in syncs] == ["plain", "int8"],
+        "replicas_identical_after_each_sync": all(
+            s["replicas_identical"] for s in syncs),
+        "fedavg_reduce_matches_plain": all(r["ok"] for r in fed_rows),
+        "flash_attention_matches_plain": all(r["ok"] for r in flash_rows),
+    }
+    emit({"phase": "train_slice", "seconds": time.perf_counter() - t_phase,
+          "arch": TRAIN_ARCH, "layers": m.num_layers, "d_model": m.d_model,
+          "params": n_params, "dtype": m.param_dtype, "clusters": C,
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "rounds": TRAIN_ROUNDS,
+          "global_every": TRAIN_GLOBAL_EVERY, "lr": TRAIN_LR,
+          "opt_state_dtype": cfg.run.opt_state_dtype,
+          "losses": losses, "round_ms": round_ms, "syncs": syncs,
+          "peak_memory_bytes": peak_bytes,
+          "local_round_profile": step_profile,
+          "launches": launches, "expected_launches": want,
+          "fedavg_reduce_shapes": [r["shape"] for r in fed_rows],
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"train_slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches, fed_rows, flash_rows[0]
+
+
+def update_tol(lr, dw) -> float:
+    """tests/test_torch_training.py's: 1e-3 of the larger of the step's
+    learning rate and the leaf's largest update."""
+    return TRAIN_UPDATE_TOL * max(lr, float(dw.abs().max()))
+
+
+def phase_train_parity(torch):
+    """gemma3-1b at its published width cut to 2 layers, fp32, numpy
+    weights (``numpy_gemma_params``): 2 clusters of batch 2 x 64 tokens,
+    2 local steps, then a plain and an int8 sync of the same replicas,
+    on the card and on the CPU.  The CPU side holds about 15 GB of host
+    memory: the stacked fp32 replicas, the error-feedback state, the int8
+    sync's fp32 deltas and the 262,144-row tied embedding's gradients.
+    SGD, whose update ``-lr * g`` shows every gradient (AdamW's first
+    steps turn a gradient at the rounding floor into a whole step of
+    either sign; tests/test_torch_training.py).  Losses within 3e-5
+    relative; updates, the divergence and the plain sync within 1e-3 of
+    the larger of lr and the leaf's largest update; the int8 sync and
+    its residual within that plus one quantization step (the card's and
+    the CPU's deltas may round to neighbouring int8 levels).  Then the
+    reduced deepseek-v2-lite at ``microbatches = 2`` (its ``.reduced()``
+    sets 1), fp32: one SGD step on both, the router in ``topk_router``
+    on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.fl.collectives import (cluster_divergence, global_sync,
+                                            stack_for_clusters)
+    from repro_torch.fl.compression import (compressed_global_sync,
+                                            init_ef_state)
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path, from_numpy_tree
+    from repro_torch.training import (SGD, init_hfl_opt_state,
+                                      make_hfl_train_step, make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    m = dataclasses.replace(cfg.model, num_layers=TRAIN_PARITY_LAYERS,
+                            dtype="float32", param_dtype="float32")
+    pcfg = dataclasses.replace(cfg, model=m)
+    api = make_model(pcfg)
+    tree = numpy_gemma_params(np.random.default_rng(SEED + 22), m)
+    C, lr = TRAIN_CLUSTERS, TRAIN_PARITY_LR
+    streams = [TokenStream(TokenStreamConfig(
+        vocab_size=m.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_PARITY_BATCH, seed=1), shard=c) for c in range(C)]
+    batches = [stacked_lm_batch(torch, streams, "cpu")
+               for _ in range(TRAIN_PARITY_STEPS)]
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        ops.reset_launches()
+        stacked = stack_for_clusters(from_numpy_tree(tree, dev), C)
+        ef = init_ef_state(stacked)
+        opt = SGD(lr=lr)
+        state = init_hfl_opt_state(opt, stacked)
+        local = make_hfl_train_step(api, pcfg, opt)
+        losses = []
+        for b in batches:
+            stacked, state, loss = local(
+                stacked, state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(loss.cpu())
+        run = {"losses": torch.stack(losses), "trained": stacked,
+               "divergence": float(cluster_divergence(stacked)),
+               "plain": global_sync(stacked)}
+        run["int8"], ef = compressed_global_sync(stacked, ef)
+        run["residual"] = ef.residual
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            run["launches"] = ops.launch_counts()
+        runs[dev] = run
+        del stacked, state, ef
+    card, cpu = runs[DEVICE], runs["cpu"]
+    x0 = {p: torch.as_tensor(x) for p, x in flatten_with_path(tree)}
+    keys = ("trained", "plain", "int8", "residual")
+    card_leaves = {k: dict(flatten_with_path(card[k])) for k in keys}
+    errs = {k: 0.0 for k in keys}
+    largest_update = 0.0
+    for p, w in flatten_with_path(cpu["trained"]):
+        dw = w - x0[p]
+        tol = update_tol(lr, dw)
+        largest_update = max(largest_update, float(dw.abs().max()))
+        # one int8 level of the leaf's largest cluster delta
+        q_step = float(dw.abs().amax(dim=tuple(range(1, dw.dim()))).max()
+                       ) / 127.0
+        for key in keys:
+            extra = q_step if key in ("int8", "residual") else 0.0
+            want = dict(flatten_with_path(cpu[key]))[p]
+            got = card_leaves[key][p].cpu()
+            errs[key] = max(errs[key], float((got - want).abs().max())
+                            / (tol + extra))
+    loss_err = float(((card["losses"] - cpu["losses"]).abs()
+                      / cpu["losses"].abs()).max())
+    div_err = abs(card["divergence"] - cpu["divergence"]) / (
+        TRAIN_UPDATE_TOL * max(lr, largest_update))
+    launches = card["launches"]
+    want = expected_train_launches(m, C * TRAIN_PARITY_STEPS, 1, 2)
+    result = {"losses": {"card": card["losses"].tolist(),
+                         "cpu": cpu["losses"].tolist()},
+              "divergence": {"card": card["divergence"],
+                             "cpu": cpu["divergence"]}}
+    del runs, card, cpu, card_leaves
+
+    # the reduced MoE at two microbatches: topk_router on the card
+    mcfg = get_config(MOE_ARCH).reduced()
+    mcfg = dataclasses.replace(
+        mcfg, model=dataclasses.replace(mcfg.model, dtype="float32",
+                                        param_dtype="float32"),
+        run=dataclasses.replace(mcfg.run, microbatches=TRAIN_MOE_K))
+    mapi = make_model(mcfg)
+    mtree = mapi.init_params(torch.Generator().manual_seed(SEED), "cpu")
+    mbatch = TokenStream(TokenStreamConfig(
+        vocab_size=mcfg.model.vocab_size, seq_len=32, batch_size=4,
+        seed=2)).next_batch()
+    moe = {}
+    for dev in (DEVICE, "cpu"):
+        ops.reset_launches()
+        params = from_numpy_tree(mtree, dev)
+        opt = SGD(lr=lr)
+        new, _, loss = make_train_step(mapi, mcfg, opt)(
+            params, opt.init(params),
+            {k: torch.as_tensor(v, device=dev) for k, v in mbatch.items()})
+        moe[dev] = {"loss": float(loss), "new": dict(flatten_with_path(new)),
+                    "launches": ops.launch_counts()}
+    moe_err = max(
+        float((moe[DEVICE]["new"][p].cpu() - moe["cpu"]["new"][p]
+               ).abs().max()) / update_tol(lr, moe["cpu"]["new"][p] - x)
+        for p, x in flatten_with_path(mtree))
+    moe_loss_err = abs(moe[DEVICE]["loss"] - moe["cpu"]["loss"]) / abs(
+        moe["cpu"]["loss"])
+    moe_want = expected_train_launches(mcfg.model, 1, TRAIN_MOE_K, 0)
+
+    checks = {
+        "losses_match_cpu": loss_err <= TRAIN_LOSS_RTOL,
+        "updates_match_cpu": errs["trained"] <= 1.0,
+        "divergence_matches_cpu": div_err <= 1.0,
+        "plain_sync_matches_cpu": errs["plain"] <= 1.0,
+        "int8_sync_matches_cpu": (errs["int8"] <= 1.0
+                                  and errs["residual"] <= 1.0),
+        "launches": launches == want,
+        "moe_loss_matches_cpu": moe_loss_err <= TRAIN_LOSS_RTOL,
+        "moe_updates_match_cpu": moe_err <= 1.0,
+        "moe_launches": moe[DEVICE]["launches"] == moe_want,
+    }
+    emit({"phase": "train_parity", "seconds": time.perf_counter() - t_phase,
+          "arch": TRAIN_ARCH, "layers": m.num_layers, "d_model": m.d_model,
+          "dtype": m.dtype, "clusters": C,
+          "batch": [TRAIN_PARITY_BATCH, TRAIN_SEQ],
+          "steps": TRAIN_PARITY_STEPS, "lr": lr, **result,
+          "loss_max_rel_err": loss_err,
+          # errors in units of their tolerance (<= 1 holds)
+          "update_err_over_tol": errs, "divergence_err_over_tol": div_err,
+          "launches": launches, "expected_launches": want,
+          "moe": {"arch": f"{MOE_ARCH} (reduced)", "microbatches":
+                  TRAIN_MOE_K, "loss": {d: v["loss"] for d, v in moe.items()},
+                  "loss_max_rel_err": moe_loss_err,
+                  "update_err_over_tol": moe_err,
+                  "launches": moe[DEVICE]["launches"],
+                  "expected_launches": moe_want},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"train_parity checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3063,6 +3425,12 @@ def main() -> int:
                                encoder_layers=2)
         phase = at("vlm_slice")
         vlm_launches = phase_vlm(torch)
+        torch.cuda.empty_cache()
+        phase = at("train_slice")
+        train_launches, train_fed_rows, train_flash_row = phase_train(torch)
+        torch.cuda.empty_cache()
+        phase = at("train_parity")
+        phase_train_parity(torch)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
@@ -3075,7 +3443,8 @@ def main() -> int:
              "gemma_slice": gemma_launches, "gemma_long": long_launches,
              "gemma_scheduler": sched_launches,
              "xlstm_slice": xlstm_launches,
-             "whisper_slice": whisper_launches, "vlm_slice": vlm_launches}
+             "whisper_slice": whisper_launches, "vlm_slice": vlm_launches,
+             "train_slice": train_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     csrc = "src/repro_torch/kernels/csrc"
     attn = (("flash_attention", 70), ("decode_attention", 57),
@@ -3108,7 +3477,19 @@ def main() -> int:
               whisper_launches[name], whisper_rows[part])
              for name, line, part in (("flash_attention", 70, "encoder"),
                                       ("flash_attention", 70, "cross"),
-                                      ("decode_attention", 57, "decode"))}})
+                                      ("decode_attention", 57, "decode"))},
+          # the LM training path: gemma3's forward at B 4 (BH 16 on 4 kv
+          # rows, T 64, D 256) and the two syncs' (C 2, N 792,797,824)
+          # replica matrices, bf16 (plain) and fp32 (int8 deltas)
+          "flash_attention_train": kernel_entry(
+              "flash_attention", f"{csrc}/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              train_launches["flash_attention"], train_flash_row),
+          **{f"fedavg_reduce_train_{row['dtype']}": kernel_entry(
+              "fedavg_reduce", f"{csrc}/fedavg_reduce.cu",
+              "src/repro/kernels/fedavg_reduce.py:26",
+              train_launches["fedavg_reduce"], row)
+             for row in train_fed_rows}})
     print(smi, flush=True)
     emit({"kernels": [
         kernel_entry("gru_seq", f"{csrc}/gru_seq.cu",

@@ -48,6 +48,16 @@ def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
     return tree_map_with_path(lambda _, x: fn(x), tree)
 
 
+def tree_map_multi(fn: Callable[..., Tuple[Any, ...]], *trees: Tree
+                   ) -> Tuple[Tree, ...]:
+    """``fn`` leaf by leaf over nested-dict trees of one structure; ``fn``
+    returns a tuple, and the result is one tree per element of it."""
+    flat = [flatten_with_path(t) for t in trees]
+    paths = [p for p, _ in flat[0]]
+    outs = [fn(*(f[i][1] for f in flat)) for i in range(len(paths))]
+    return tuple(unflatten(paths, list(col)) for col in zip(*outs))
+
+
 def unflatten(paths: List[Path], leaves: List[Any]) -> Dict[Any, Any]:
     """Inverse of :func:`flatten_with_path` for trees of nested dicts."""
     out: Dict[Any, Any] = {}

@@ -332,3 +332,126 @@ def test_reduced_gru_loss_differentiates_on_the_card(cuda_device, B):
     for g, w in zip(grads["cuda"], grads["cpu"]):
         assert g.abs().max() > 0
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the LM training step through the boundary
+# ---------------------------------------------------------------------------
+
+def _lm_case(arch, k, device="cpu"):
+    """fp32 reduced ``arch`` at ``microbatches = k``: (api, cfg, params,
+    batch) from seed 0."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.params import tree_map
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype="float32",
+                                       param_dtype="float32"),
+        run=dataclasses.replace(cfg.run, microbatches=k))
+    api = make_model(cfg)
+    params = tree_map(lambda x: x.to(device), api.init_params(
+        torch.Generator().manual_seed(0), "cpu"))
+    r = np.random.default_rng(5)
+    batch = {key: torch.as_tensor(r.integers(0, cfg.model.vocab_size,
+                                             (4, 8)), device=device)
+             for key in ("tokens", "labels")}
+    return api, cfg, params, batch
+
+
+@pytest.mark.parametrize("arch,k,kernels", [
+    ("gemma3-1b", 1, ("flash_attention",)),
+    ("deepseek-v2-lite-16b", 2, ("flash_attention", "topk_router"))])
+def test_train_step_through_the_boundary_equals_the_plain_one(
+        monkeypatch, arch, k, kernels):
+    """The LM train step (``repro_torch.training``) with each kernel the
+    path reaches replaced by a graph-cutting stand-in behind
+    ``with_grad`` (the card's route: kernel forward, plain backward):
+    the updated parameters equal the plain route's (the same ops; only
+    the order autograd sums a leaf's contributions in may differ), and
+    every forward went through the stand-ins.  Attention takes the card's
+    dispatch (``_flash``) on both routes; on the CPU the model runs its
+    own ``_sdpa``."""
+    from repro_torch.models import attention
+    from repro_torch.params import flatten_with_path
+    from repro_torch.training import SGD, make_train_step
+    monkeypatch.setattr(attention, "_attention",
+                        lambda q, k, v, q_pos, k_pos, causal, window:
+                        attention._flash(q, k, v, causal, window))
+    api, cfg, params, batch = _lm_case(arch, k)
+    opt = SGD(lr=1e-2)
+    want, _, want_loss = make_train_step(api, cfg, opt)(
+        params, opt.init(params), batch)
+    calls = {name: 0 for name in kernels}
+
+    def routed(name):
+        wrapper = getattr(ops, name)
+
+        def call(*args, **kw):
+            n = next((i for i, a in enumerate(args)
+                      if not torch.is_tensor(a)), len(args))
+
+            def plain(*t):
+                return wrapper(*t, *args[n:], **kw)
+
+            def kernel(*t):
+                calls[name] += 1
+                return _stand_in(plain)(*t)
+            return _grad.with_grad(kernel, plain, *args[:n])
+        return call
+
+    for name in kernels:
+        monkeypatch.setattr(ops, name, routed(name))
+    got, _, got_loss = make_train_step(api, cfg, opt)(
+        params, opt.init(params), batch)
+    assert float(got_loss) == float(want_loss)
+    layers = cfg.model.num_layers
+    assert calls["flash_attention"] == layers * k
+    if "topk_router" in calls:
+        assert calls["topk_router"] > 0
+    for (p, g), (_, w), (_, o) in zip(flatten_with_path(got),
+                                      flatten_with_path(want),
+                                      flatten_with_path(params)):
+        torch.testing.assert_close(g, w, atol=1e-7, rtol=1e-6, msg=str(p))
+    assert any(not torch.equal(g, o) for (_, g), (_, o) in zip(
+        flatten_with_path(got), flatten_with_path(params)))
+
+
+@pytest.mark.cuda
+def test_lm_hfl_step_and_sync_on_the_card(cuda_device):
+    """The reduced fp32 gemma3's HFL step at 2 clusters on the card
+    against the CPU: the same losses (3e-5 relative) and SGD updates
+    (1e-3 of the leaf's largest), ``flash_attention`` launched once a
+    layer and cluster, and ``global_sync`` one ``fedavg_reduce``."""
+    from repro_torch.fl.collectives import global_sync, stack_for_clusters
+    from repro_torch.params import flatten_with_path
+    from repro_torch.training import (SGD, init_hfl_opt_state,
+                                      make_hfl_train_step)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        api, cfg, params, batch = _lm_case("gemma3-1b", 1, dev)
+        stacked = stack_for_clusters(params, 2)
+        batch = {key: torch.stack([v, v.flip(0)]) for key, v in
+                 batch.items()}
+        opt = SGD(lr=1e-2)
+        before = dict(ops.launch_counts())
+        stacked, _, losses = make_hfl_train_step(api, cfg, opt)(
+            stacked, init_hfl_opt_state(opt, stacked), batch)
+        synced = global_sync(stacked)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            assert after["flash_attention"] - before["flash_attention"] \
+                == 2 * cfg.model.num_layers
+            assert after["fedavg_reduce"] - before["fedavg_reduce"] == 1
+        out[dev.type] = (losses.cpu(), [x.cpu() for _, x in
+                                        flatten_with_path(synced)],
+                         [x.cpu() for _, x in flatten_with_path(params)])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=3e-5,
+                               atol=0)
+    for g, w, o in zip(*out["cuda"][1:2], out["cpu"][1], out["cpu"][2]):
+        du, dw = g - o, w - o
+        tol = 1e-3 * max(1e-2, float(dw.abs().max()))
+        assert float((du - dw).abs().max()) <= tol

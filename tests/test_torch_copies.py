@@ -28,7 +28,8 @@ COPIES = [
     "sim/request_plane.py", "routing/simulator.py", "serving/page_pool.py",
     "serving/scheduler.py", "configs/xlstm_125m.py",
     "configs/whisper_small.py", "configs/internvl2_76b.py",
-    "configs/llama3_405b.py", "configs/__init__.py",
+    "configs/llama3_405b.py", "configs/__init__.py", "data/tokens.py",
+    "data/__init__.py",
 ]
 #: copies with a documented difference: the names it adds
 DIFFERENCES = {"orchestration/controller.py": "device"}

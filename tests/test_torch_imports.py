@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py``,
-``examples/quickstart_torch.py`` and ``examples/tiered_serving_torch.py``
-import neither JAX nor anything of the JAX package ``repro``.  Checked
+``examples/quickstart_torch.py``, ``examples/tiered_serving_torch.py``
+and ``examples/train_lm_hfl_torch.py`` import neither JAX nor anything
+of the JAX package ``repro``.  Checked
 twice: at run time, importing every module of the port in a subprocess
 where a meta-path finder blocks ``jax``, ``jaxlib`` and ``repro``; and
 statically, by an AST scan of every import."""
@@ -60,6 +61,9 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     modules = _port_modules()
     assert "repro_torch.serving.replica" in modules
     assert "repro_torch.kernels.gru_cell" in modules
+    for m in ("training.optimizer", "training.train_step", "fl.collectives",
+              "fl.compression", "data.tokens", "launch.train"):
+        assert "repro_torch." + m in modules
     body = "".join(f"import {m}\n" for m in modules)
     body += "import sys\nprint(sorted(m for m in sys.modules " \
             "if m.split('.')[0] in BLOCKED))\n"
@@ -71,7 +75,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
 def _scanned_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "examples", "quickstart_torch.py"),
-             os.path.join(ROOT, "examples", "tiered_serving_torch.py")]
+             os.path.join(ROOT, "examples", "tiered_serving_torch.py"),
+             os.path.join(ROOT, "examples", "train_lm_hfl_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
