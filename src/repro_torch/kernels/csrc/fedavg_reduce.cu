@@ -46,15 +46,15 @@ __global__ void fedavg_reduce_kernel(const T* __restrict__ x,
                                      const float* __restrict__ w,
                                      T* __restrict__ out, int C,
                                      long long N) {
-  extern __shared__ float wn[];  // (C,) normalised weights
-  __shared__ float total;
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int c = 0; c < C; ++c) s += w[c];
-    total = s;
-  }
+  // (C,) normalised weights: the block's only shared memory, so C * 4
+  // bytes up to 48 KB launch without an opt-in
+  extern __shared__ float wn[];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) wn[c] = w[c];
   __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) wn[c] = w[c] / total;
+  float total = 0.0f;
+  for (int c = 0; c < C; ++c) total += wn[c];
+  __syncthreads();  // every thread has summed before wn is overwritten
+  for (int c = threadIdx.x; c < C; c += blockDim.x) wn[c] = wn[c] / total;
   __syncthreads();
 
   const long long n = static_cast<long long>(blockIdx.x) * blockDim.x +

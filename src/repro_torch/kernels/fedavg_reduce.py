@@ -12,7 +12,8 @@ from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
 from repro_torch.kernels._grad import with_grad
 
-#: largest replica count: C normalised weights in 48 KB of shared memory
+#: largest replica count: C normalised weights in the 48 KB of shared
+#: memory a block gets without an opt-in (the kernel uses no other)
 MAX_REPLICAS = 12288
 _ENTRY = {torch.float32: "fedavg_reduce_f32",
           torch.bfloat16: "fedavg_reduce_bf16"}

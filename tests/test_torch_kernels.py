@@ -253,6 +253,22 @@ def test_fedavg_reduce_kernel_matches_plain(cuda_device, C, N, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fedavg_reduce_kernel_takes_max_replicas(cuda_device, dtype):
+    """C = MAX_REPLICAS: its C * 4 bytes of weights fill the 48 KB a block
+    gets without an opt-in, so any other shared memory refuses the
+    launch."""
+    x, w = _fedavg_inputs(fr_mod.MAX_REPLICAS, 40)
+    xt = torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    wt = torch.from_numpy(w).to(cuda_device)
+    out = fr_mod.fedavg_reduce(xt, wt)
+    torch.cuda.synchronize()
+    want = ref.fedavg_reduce_ref(xt, wt)
+    assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                    **TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     x = torch.zeros((3, 10), dtype=torch.float16, device=cuda_device)
     w = torch.ones(3, device=cuda_device)
