@@ -6,8 +6,8 @@ reports what the attention kernels, the SSD scan, the router and the
 GRU's cluster kernel compiled to (tensor-core, 16-byte load,
 warp-reduction and cluster-barrier instructions, registers, spills),
 holds each kernel against its plain PyTorch version on the card (the
-router beside an empty kernel's launch floor, the GRU beside a kernel
-that only exchanges its state), differentiates the reduced GRU's loss
+router and FedAvg beside an empty kernel's launch floor, the GRU beside
+a kernel that only exchanges its state), differentiates the reduced GRU's loss
 on the card through ``gru_seq`` against the CPU, then drives these paths
 through the entry points a user calls:
 
@@ -402,17 +402,21 @@ def phase_build():
 #: GQA decode kernels (dense and paged), flash's bf16 (tensor-core) and
 #: fp32 (CUDA-core) kernels, the MLA decode's bf16 tensor-core kernel,
 #: the SSD scan's three kernels (every instance), the router's register
-#: kernel and the GRU's cluster kernel (every instance)
+#: kernel, the GRU's cluster kernel and both FedAvg instances (every
+#: count and dtype)
 SASS_KERNELS = ("decode_attention_kernel", "paged_decode_attention_kernel",
                 "flash_attention_wgmma_kernel", "flash_attention_kernel",
                 "paged_mla_decode_mma_kernel", "mamba_chunk_local_kernel",
                 "mamba_chunk_pass_kernel", "mamba_chunk_outputs_kernel",
-                "topk_router_kernel", "gru_seq_cluster_kernel")
+                "topk_router_kernel", "gru_seq_cluster_kernel",
+                "fedavg_reduce_vec_kernel", "fedavg_reduce_scalar_kernel")
 #: opcodes the sass phase counts (``LDG.E.128``: 16-byte global loads;
-#: ``REDUX``: warp reductions in one instruction; ``UCGABAR_ARV``: the
-#: arrival at a cluster barrier, what ``barrier.cluster.arrive``
-#: compiles to on sm_90a)
-SASS_OPCODES = ("HGMMA", "HMMA", "LDG.E.128", "REDUX", "UCGABAR_ARV")
+#: ``LDG.E.EF.128``: the same with the streaming (evict-first) hint,
+#: what ``__ldcs`` of a 16-byte vector compiles to; ``REDUX``: warp
+#: reductions in one instruction; ``UCGABAR_ARV``: the arrival at a
+#: cluster barrier, what ``barrier.cluster.arrive`` compiles to on sm_90a)
+SASS_OPCODES = ("HGMMA", "HMMA", "LDG.E.128", "LDG.E.EF.128", "REDUX",
+                "UCGABAR_ARV")
 
 
 def ptxas_report(log: str) -> dict:
@@ -474,7 +478,9 @@ def phase_sass():
     -v``.  Fails unless every bf16 flash instance, the bf16 MLA decode
     kernel and the two product kernels of every bf16 tensor-core instance
     of the SSD scan have tensor-core instructions, the vector instances of both GQA
-    decode kernels load K/V in 16 bytes, every instance of the
+    decode kernels load K/V in 16 bytes, every vector instance of
+    ``fedavg_reduce`` (each compile-time count and the run-time one, in
+    both dtypes) loads in 16 bytes and spills nothing, every instance of the
     router's register kernel selects with REDUX, every instance of
     the GRU's cluster kernel has its cluster barrier and spills
     nothing, and every instance gemma3's head dim 256 takes (the decode
@@ -504,6 +510,12 @@ def phase_sass():
               if is_kernel(fn, "topk_router_kernel")]
     gru = [r for fn, r in rows.items()
            if is_kernel(fn, "gru_seq_cluster_kernel")]
+    # template <typename T, int kC>: counts 1..8 and 0 (run time), fp32
+    # (If) and bf16 (I13__nv_bfloat16)
+    fed = {dt: [r for fn, r in rows.items()
+                if is_kernel(fn, "fedavg_reduce_vec_kernel") and tag in fn]
+           for dt, tag in (("float32", "IfLi"),
+                           ("bfloat16", "I13__nv_bfloat16Li"))}
     # the instances gemma3's head dim 256 takes: both decode kernels' rows
     # over 16 lanes, one query head a block (template <T, kVec, kLanes,
     # kDims, kGB>), flash's bf16 Dv-256 instances (template <kNo, kVec>)
@@ -536,6 +548,13 @@ def phase_sass():
               "gru_seq_cluster_no_spills": bool(gru) and all(
                   r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                   for r in gru),
+              # 9 counts in each dtype, streamed 16-byte loads, no spills
+              "fedavg_16_byte_loads": all(
+                  len(v) == 9 and all(
+                      r["LDG.E.EF.128"] + r["LDG.E.128"] > 0
+                      and r.get("spill_stores") == 0
+                      and r.get("spill_loads") == 0 for r in v)
+                  for v in fed.values()),
               # 2 kernels x 2 dtypes x 2 load widths, flash's two bf16
               # instances and its fp32 one
               "head_dim_256_no_spills": len(wide) == 11 and all(
@@ -604,12 +623,16 @@ def check_gru_seq(torch, rng, B, T, h):
     return row
 
 
-def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50)):
+def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50),
+                        offset=0):
     """``rng`` a numpy generator, or a torch one on the card for the LM
     syncs' replica matrices (C N of ~1.6e9 is too many numpy draws);
-    ``iters`` the kernel's and the plain version's timed calls."""
+    ``iters`` the kernel's and the plain version's timed calls;
+    ``offset`` elements of storage before the replicas (1: rows off any
+    16-byte boundary, so the scalar instance).  ``floor_ms`` times an
+    empty kernel on the instance's grid, timed as the kernel is."""
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import fedavg_reduce as fr
-    from repro_torch.kernels import ref
     dev = torch.device(DEVICE)
     dtype = getattr(torch, dtype_name)
     if isinstance(rng, np.random.Generator):
@@ -620,7 +643,13 @@ def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50)):
     else:
         x = torch.randn((C, N), generator=rng, device=dev, dtype=dtype)
         w = torch.rand((C,), generator=rng, device=dev) * 1.5 + 0.5
+    if offset:
+        flat = torch.empty(C * N + offset, dtype=dtype, device=dev)
+        x = flat[offset:].view(C, N).copy_(x)
     out = fr.fedavg_reduce(x, w)
+    inst = fr.instance(C, N, dtype, x.data_ptr(), out.data_ptr())
+    blocks = fr.grid(C, N, dtype, inst, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     plain = ref.fedavg_reduce_ref(x, w)
     torch.cuda.synchronize()
     tol = FEDAVG_TOL[dtype_name]
@@ -630,11 +659,18 @@ def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50)):
     wn = (w / w.sum()).to(dtype)
     it = x.element_size()
     bound_ms, bound_by = bound(C * N * it + C * 4 + N * it, 2 * C * N)
+
+    def floor():
+        build.launch("fedavg_reduce_floor", blocks, fr.threads(C, inst),
+                     torch.cuda.current_stream().cuda_stream)
+
     row = {"kernel": "fedavg_reduce", "shape": [C, N], "dtype": dtype_name,
+           "offset": offset, "instance": inst, "blocks": blocks,
            "max_abs_err": err, "tol": tol, "ok": ok,
            **timings(torch, lambda: fr.fedavg_reduce(x, w),
                      lambda: ref.fedavg_reduce_ref(x, w),
                      lambda: torch.matmul(wn, x), *iters),
+           "floor_ms": device_ms(torch, floor, 200),
            "bound_ms": bound_ms, "bound_by": bound_by}
     emit({"phase": "kernel_check", **row})
     return row
@@ -660,7 +696,16 @@ def phase_kernels(torch, n_params):
                for c in np.bincount(CLUSTER_IDS) if c]
     shapes += [(int((np.bincount(CLUSTER_IDS) > 0).sum()), n_params,
                 "float32"), (4, 513, "float32"), (4, 513, "bfloat16")]
+    # each instance in both dtypes with a ragged tail (N no multiple of a
+    # block's tile): the vector one at compile-time counts (C 2, 3) and
+    # past them (C 37), the scalar one on rows one element off a 16-byte
+    # boundary (the GRU's rows above take it at odd N)
+    shapes += [(2, 1_048_584, "bfloat16"), (3, 1_048_580, "float32"),
+               (37, 1_048_584, "bfloat16"), (37, 1_048_580, "float32")]
     fed_rows = [check_fedavg_reduce(torch, rng, *s) for s in shapes]
+    fed_rows += [check_fedavg_reduce(torch, rng, 5, n, d, offset=1)
+                 for n, d in ((1_048_584, "bfloat16"),
+                              (1_048_580, "float32"))]
     bad = [r for r in gru_rows + fed_rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "

@@ -3,8 +3,23 @@ weighted reduction over model replicas that every FedAvg round performs.
 Counterpart of ``repro/kernels/fedavg_reduce.py``.
 
 A CPU tensor takes the plain version (:func:`ref.fedavg_reduce_ref`); a
-CUDA tensor launches the kernel or raises."""
+CUDA tensor launches the kernel or raises.
+
+Two instances, picked by :func:`instance` from shape, dtype and pointer
+alignment alone, never in response to a failure:
+
+- ``"vector"`` where every replica row starts on a 16-byte boundary
+  (``N * item % 16 == 0``, ``x`` and ``out`` 16-byte aligned): each
+  thread loads 16-byte chunks (4 fp32 or 8 bf16 columns), all C rows of
+  a tile before its first multiply-add.  The LM syncs take it.
+- ``"scalar"`` for everything else, one element a load, 256 columns a
+  block: the GRU's odd N (148,737), views with a storage offset.
+
+Both walk N over a persistent grid of :func:`grid` blocks and give the
+same bits."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,8 +30,59 @@ from repro_torch.kernels._grad import with_grad
 #: largest replica count: C normalised weights in the 48 KB of shared
 #: memory a block gets without an opt-in (the kernel uses no other)
 MAX_REPLICAS = 12288
-_ENTRY = {torch.float32: "fedavg_reduce_f32",
-          torch.bfloat16: "fedavg_reduce_bf16"}
+#: the kernel's constants (``csrc/fedavg_reduce.cu``): the vector
+#: instance's threads a block, the compile-time counts (1..STATIC_C),
+#: the scalar instance's columns a tile (64 threads of 4 columns at
+#: compile-time counts, 256 of one at run time)
+THREADS, STATIC_C, SCALAR_TILE = 256, 8, 256
+#: blocks an SM of the persistent grid, per instance (the vector
+#: instance is held to 64 registers a thread: 4 blocks of 256 an SM)
+BLOCKS_PER_SM = {"vector": 4, "scalar": 8}
+_ITEM = {torch.float32: 4, torch.bfloat16: 2}
+_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def instance(C: int, N: int, dtype: torch.dtype, x_ptr: int,
+             out_ptr: int) -> str:
+    """The kernel instance that averages C replicas of N columns of
+    ``dtype`` from address ``x_ptr`` into ``out_ptr``."""
+    if not 1 <= C <= MAX_REPLICAS:
+        raise ValueError(f"replica count {C} outside 1..{MAX_REPLICAS}")
+    if dtype not in _ITEM:
+        raise TypeError(f"fedavg_reduce kernel takes float32 or bfloat16, "
+                        f"not {dtype}")
+    aligned = (N * _ITEM[dtype]) % 16 == 0 and x_ptr % 16 == 0 \
+        and out_ptr % 16 == 0
+    return "vector" if aligned else "scalar"
+
+
+def columns_per_tile(C: int, dtype: torch.dtype, inst: str) -> int:
+    """Columns a block covers a step of its grid-stride loop: its
+    threads' 16-byte chunks (U a thread: >= 64 bytes of loads in flight)
+    or ``SCALAR_TILE`` elements."""
+    if inst == "scalar":
+        return SCALAR_TILE
+    unroll = -(-4 // C) if C <= STATIC_C else 4
+    return THREADS * unroll * (16 // _ITEM[dtype])
+
+
+def threads(C: int, inst: str) -> int:
+    """Threads a block of instance ``inst`` at C replicas."""
+    if inst == "scalar" and C <= STATIC_C:
+        return 64
+    return THREADS
+
+
+def grid(C: int, N: int, dtype: torch.dtype, inst: str, sms: int) -> int:
+    """Blocks of the launch: one a tile, up to ``BLOCKS_PER_SM`` an SM;
+    past that each block walks several tiles."""
+    tiles = -(-N // columns_per_tile(C, dtype, inst))
+    return max(1, min(tiles, BLOCKS_PER_SM[inst] * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fedavg_reduce(stacked: torch.Tensor,
@@ -31,7 +97,7 @@ def fedavg_reduce(stacked: torch.Tensor,
         return ref.fedavg_reduce_ref(stacked, weights)
     if dev.type != "cuda":
         raise ValueError(f"fedavg_reduce runs on cpu or cuda, not {dev}")
-    if stacked.dtype not in _ENTRY:
+    if stacked.dtype not in _ITEM:
         raise TypeError(f"fedavg_reduce kernel takes float32 or bfloat16, "
                         f"not {stacked.dtype}")
     if weights.dtype != torch.float32:
@@ -46,9 +112,13 @@ def fedavg_reduce(stacked: torch.Tensor,
         out = torch.empty((N,), dtype=stacked.dtype, device=dev)
         if N == 0:
             return out
+        inst = instance(C, N, stacked.dtype, stacked.data_ptr(),
+                        out.data_ptr())
         with torch.cuda.device(dev):
-            build.launch(_ENTRY[stacked.dtype], stacked.data_ptr(),
-                         weights.data_ptr(), out.data_ptr(), C, N,
+            build.launch(f"fedavg_reduce_{inst}_{_NAME[stacked.dtype]}",
+                         stacked.data_ptr(), weights.data_ptr(),
+                         out.data_ptr(), C, N,
+                         grid(C, N, stacked.dtype, inst, _sms(dev.index)),
                          torch.cuda.current_stream().cuda_stream)
         fedavg_reduce.launches += 1
         return out

@@ -184,15 +184,16 @@ def test_sass_counts_reads_opcodes_per_function():
         "\t\tFunction : _Z3ldgv\n"
         "        /*0010*/  @!P1 LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;\n"
         "        /*0020*/  LDG.E.64 R8, desc[UR4][R2.64] ;\n"
+        "        /*0028*/  @!P0 LDG.E.EF.128 R12, desc[UR4][R2.64] ;\n"
         "        /*0030*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
         "        /*0040*/  REDUX.MAX.U32 UR5, R7 ;\n"
         "        /*0050*/  UCGABAR_ARV ;\n"
         "        /*0060*/  UCGABAR_WAIT ;\n")
     assert _chip_smoke().sass_counts(listing) == {
-        "_Z3mmav": {"HGMMA": 0, "HMMA": 2, "LDG.E.128": 0, "REDUX": 0,
-                    "UCGABAR_ARV": 0},
-        "_Z3ldgv": {"HGMMA": 1, "HMMA": 0, "LDG.E.128": 1, "REDUX": 1,
-                    "UCGABAR_ARV": 1}}
+        "_Z3mmav": {"HGMMA": 0, "HMMA": 2, "LDG.E.128": 0, "LDG.E.EF.128": 0,
+                    "REDUX": 0, "UCGABAR_ARV": 0},
+        "_Z3ldgv": {"HGMMA": 1, "HMMA": 0, "LDG.E.128": 1, "LDG.E.EF.128": 1,
+                    "REDUX": 1, "UCGABAR_ARV": 1}}
 
 
 # ---------------------------------------------------------------------------
@@ -234,13 +235,92 @@ def test_gru_seq_kernel_matches_plain(cuda_device, B, T, h):
     assert_allclose(out.cpu().numpy(), want.cpu().numpy(), **GRU_TOL)
 
 
+def _offset_view(x, offset):
+    """x (C, N) copied into storage that starts ``offset`` elements in: a
+    contiguous view whose rows lie off any 16-byte boundary."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("C,N,dtype", [
+    (2, 792_797_824, torch.bfloat16), (2, 792_797_824, torch.float32),
+    (32, 4096, torch.float32), (32, 4096, torch.bfloat16),
+    (2, 1_048_584, torch.bfloat16), (37, 4104, torch.float32)])
+def test_fedavg_reduce_instance_vector(C, N, dtype):
+    assert fr_mod.instance(C, N, dtype, 1 << 20, 2 << 20) == "vector"
+
+
+@pytest.mark.parametrize("C,N,dtype", [
+    (20, 148_737, torch.float32), (20, 148_737, torch.bfloat16),
+    (5, 148_737, torch.float32), (4, 513, torch.float32),
+    (4, 513, torch.bfloat16), (3, 1_048_580, torch.bfloat16)])
+def test_fedavg_reduce_instance_scalar(C, N, dtype):
+    assert fr_mod.instance(C, N, dtype, 1 << 20, 2 << 20) == "scalar"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fedavg_reduce_instance_of_an_offset_view(dtype):
+    x = torch.zeros((32, 4096), dtype=dtype)
+    out = torch.empty(4096, dtype=dtype)
+    aligned = _offset_view(x, 0)
+    assert aligned.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    assert fr_mod.instance(32, 4096, dtype, aligned.data_ptr(),
+                           out.data_ptr()) == "vector"
+    view = _offset_view(x, 1)
+    assert view.is_contiguous()
+    assert fr_mod.instance(32, 4096, dtype, view.data_ptr(),
+                           out.data_ptr()) == "scalar"
+    assert fr_mod.instance(32, 4096, dtype, aligned.data_ptr(),
+                           out.data_ptr() + view.element_size()) == "scalar"
+
+
+@pytest.mark.parametrize("C", [0, fr_mod.MAX_REPLICAS + 1])
+def test_fedavg_reduce_instance_rejects_replica_counts(C):
+    with pytest.raises(ValueError, match="replica count"):
+        fr_mod.instance(C, 4096, torch.float32, 0, 0)
+    with pytest.raises(TypeError):
+        fr_mod.instance(2, 4096, torch.float16, 0, 0)
+
+
+def test_fedavg_reduce_grid_is_persistent():
+    # the LM syncs: 4 resident blocks on each of 132 SMs walk 792M columns
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fr_mod.grid(2, 792_797_824, dtype, "vector", 132) == 528
+    # the GRU's replicas: one 256-column tile a block, 582 blocks, of 64
+    # threads at a compile-time count, of 256 at run time
+    for C in (20, 5):
+        assert fr_mod.grid(C, 148_737, torch.float32, "scalar", 132) == 582
+    assert fr_mod.threads(5, "scalar") == 64
+    assert fr_mod.threads(20, "scalar") == fr_mod.threads(5, "vector") == 256
+    # a misaligned view of the LM syncs' replicas: 8 blocks an SM
+    assert fr_mod.grid(2, 792_797_824, torch.float32, "scalar", 132) == 1056
+    # C 2 bf16: 2 chunks of 8 columns a thread, a 4096-column tile
+    assert fr_mod.columns_per_tile(2, torch.bfloat16, "vector") == 4096
+    assert fr_mod.columns_per_tile(3, torch.float32, "vector") == 2048
+    assert fr_mod.columns_per_tile(37, torch.float32, "vector") == 4096
+    assert fr_mod.grid(1, 1, torch.float32, "scalar", 132) == 1
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,N", [(20, 148737), (8, 148737), (3, 148737),
-                                 (4, 513), (32, 4096)])
+@pytest.mark.parametrize("C,N,offset", [
+    (20, 148737, 0), (8, 148737, 0), (3, 148737, 0), (4, 513, 0),
+    (32, 4096, 0),
+    # vector instance, N no multiple of a block's tile (ragged tail)
+    (2, 1_048_584, 0), (3, 1_048_580, 0),
+    # one replica; a run-time count past the compile-time ones
+    (1, 4100, 0), (37, 4104, 0),
+    # rows off any 16-byte boundary: the scalar instance
+    (32, 4096, 1),
+    # the largest count the wrapper admits
+    (fr_mod.MAX_REPLICAS, 40, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fedavg_reduce_kernel_matches_plain(cuda_device, C, N, dtype):
+def test_fedavg_reduce_kernel_matches_plain(cuda_device, C, N, offset,
+                                            dtype):
     x, w = _fedavg_inputs(C, N)
-    xt = torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    xt = _offset_view(torch.from_numpy(x).to(cuda_device,
+                                             getattr(torch, dtype)), offset)
     wt = torch.from_numpy(w).to(cuda_device)
     before = fr_mod.fedavg_reduce.launches
     out = fr_mod.fedavg_reduce(xt, wt)
@@ -250,6 +330,25 @@ def test_fedavg_reduce_kernel_matches_plain(cuda_device, C, N, dtype):
     want = ref.fedavg_reduce_ref(xt, wt)
     assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                     **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N", [(2, 1_048_584), (5, 8200), (37, 4104)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fedavg_reduce_instances_agree_bit_for_bit(cuda_device, C, N, dtype):
+    """The same replicas through the vector instance and, one element
+    into their storage, the scalar one give the same bits."""
+    x, w = _fedavg_inputs(C, N)
+    xt = torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    wt = torch.from_numpy(w).to(cuda_device)
+    view = _offset_view(xt, 1)
+    out = torch.empty(N, dtype=xt.dtype, device=cuda_device)
+    assert fr_mod.instance(C, N, xt.dtype, xt.data_ptr(),
+                           out.data_ptr()) == "vector"
+    assert fr_mod.instance(C, N, xt.dtype, view.data_ptr(),
+                           out.data_ptr()) == "scalar"
+    assert torch.equal(fr_mod.fedavg_reduce(xt, wt),
+                       fr_mod.fedavg_reduce(view, wt))
 
 
 @pytest.mark.cuda
