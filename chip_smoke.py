@@ -3131,8 +3131,10 @@ def phase_train(torch):
     del stacked, opt_state, ef, batch
     torch.cuda.empty_cache()
 
+    # 20 timed calls of the kernel: on an H100 a graph of 5 timed 1.88 ms
+    # in bf16 at this shape, against 1.63-1.65 eager or over 20 calls
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
-    fed_rows = [check_fedavg_reduce(torch, gen, C, n_params, name, (5, 2))
+    fed_rows = [check_fedavg_reduce(torch, gen, C, n_params, name, (20, 2))
                 for name in ("bfloat16", "float32")]
     rng = np.random.default_rng(SEED + 21)
     B, H, Hkv = TRAIN_BATCH, m.attention.num_heads, m.attention.num_kv_heads
