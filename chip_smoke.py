@@ -624,13 +624,16 @@ def check_gru_seq(torch, rng, B, T, h):
 
 
 def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50),
-                        offset=0):
+                        offset=0, more_readings=False):
     """``rng`` a numpy generator, or a torch one on the card for the LM
     syncs' replica matrices (C N of ~1.6e9 is too many numpy draws);
     ``iters`` the kernel's and the plain version's timed calls;
     ``offset`` elements of storage before the replicas (1: rows off any
     16-byte boundary, so the scalar instance).  ``floor_ms`` times an
-    empty kernel on the instance's grid, timed as the kernel is."""
+    empty kernel on the instance's grid, timed as the kernel is.  With
+    ``more_readings`` the kernel is also timed as a graph of 5 calls
+    (``ms_graph_of_5``) and by the profiler's device time over 20 eager
+    calls (``profiled_ms``)."""
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import fedavg_reduce as fr
     dev = torch.device(DEVICE)
@@ -648,8 +651,9 @@ def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50),
         x = flat[offset:].view(C, N).copy_(x)
     out = fr.fedavg_reduce(x, w)
     inst = fr.instance(C, N, dtype, x.data_ptr(), out.data_ptr())
-    blocks = fr.grid(C, N, dtype, inst, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    launch_shape = (inst == "vector", x.element_size(), C, N,
+                    fr.sms(x.device.index))
+    blocks = build.load().fedavg_reduce_blocks(*launch_shape)
     plain = ref.fedavg_reduce_ref(x, w)
     torch.cuda.synchronize()
     tol = FEDAVG_TOL[dtype_name]
@@ -661,7 +665,7 @@ def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50),
     bound_ms, bound_by = bound(C * N * it + C * 4 + N * it, 2 * C * N)
 
     def floor():
-        build.launch("fedavg_reduce_floor", blocks, fr.threads(C, inst),
+        build.launch("fedavg_reduce_floor", *launch_shape,
                      torch.cuda.current_stream().cuda_stream)
 
     row = {"kernel": "fedavg_reduce", "shape": [C, N], "dtype": dtype_name,
@@ -672,8 +676,19 @@ def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50),
                      lambda: torch.matmul(wn, x), *iters),
            "floor_ms": device_ms(torch, floor, 200),
            "bound_ms": bound_ms, "bound_by": bound_by}
+    if more_readings:
+        row["ms_graph_of_5"] = device_ms(torch, lambda: fr.fedavg_reduce(x, w),
+                                         5)
+        row["profiled_ms"] = fedavg_kernel_ms(kernel_split_ms(
+            torch, lambda: fr.fedavg_reduce(x, w)))
     emit({"phase": "kernel_check", **row})
     return row
+
+
+def fedavg_kernel_ms(kernels_ms: dict) -> float:
+    """The ``fedavg_reduce`` kernels' share of a profile's device ms by
+    kernel."""
+    return sum(v for k, v in kernels_ms.items() if "fedavg_reduce" in k)
 
 
 def phase_kernels(torch, n_params):
@@ -3124,17 +3139,29 @@ def phase_train(torch):
     want = expected_train_launches(m, C * TRAIN_ROUNDS,
                                    cfg.run.microbatches, groups + 1)
 
-    # one more local round, profiled (its launches are not the path's)
+    # one more sync of each kind and one more local round, profiled
+    # (their launches are not the path's): the kernel's device time inside
+    # the real syncs, beside the rows below
+    sync_profiles = {
+        "plain": profile_once(torch, lambda: hfl_global_round(stacked),
+                              top=None),
+        "int8": profile_once(torch, lambda: compressed_global_sync(stacked,
+                                                                   ef),
+                             top=None)}
+    fed_in_sync = {k: fedavg_kernel_ms(p["kernels_ms"])
+                   for k, p in sync_profiles.items()}
     batch = stacked_lm_batch(torch, streams, DEVICE)
     step_profile = profile_once(
         torch, lambda: local(stacked, opt_state, batch), top=8)
     del stacked, opt_state, ef, batch
     torch.cuda.empty_cache()
 
-    # 20 timed calls of the kernel: on an H100 a graph of 5 timed 1.88 ms
-    # in bf16 at this shape, against 1.63-1.65 eager or over 20 calls
+    # the kernel over 20 timed calls, and as a graph of 5 and by the
+    # profiler: on an H100 a graph of 5 once read 1.88 ms in bf16 here,
+    # against 1.63-1.65 eager or over 20 calls
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
-    fed_rows = [check_fedavg_reduce(torch, gen, C, n_params, name, (20, 2))
+    fed_rows = [check_fedavg_reduce(torch, gen, C, n_params, name, (20, 2),
+                                    more_readings=True)
                 for name in ("bfloat16", "float32")]
     rng = np.random.default_rng(SEED + 21)
     B, H, Hkv = TRAIN_BATCH, m.attention.num_heads, m.attention.num_kv_heads
@@ -3162,6 +3189,8 @@ def phase_train(torch):
           "losses": losses, "round_ms": round_ms, "syncs": syncs,
           "peak_memory_bytes": peak_bytes,
           "local_round_profile": step_profile,
+          "sync_profiles": sync_profiles,
+          "fedavg_reduce_in_sync_ms": fed_in_sync,
           "launches": launches, "expected_launches": want,
           "fedavg_reduce_shapes": [r["shape"] for r in fed_rows],
           "checks": checks})

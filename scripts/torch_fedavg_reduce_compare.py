@@ -1,40 +1,35 @@
 #!/usr/bin/env python3
-"""Time the port's ``fedavg_reduce`` kernel beside another build of it on
-one GPU, and check that the two give the same bits.
+"""Time the port's ``fedavg_reduce`` beside another checkout's on one GPU,
+and check that the two give the same bits.
 
-Builds ``src/repro_torch/kernels/csrc/fedavg_reduce.cu`` (with the other
-kernels, through ``build.load``) and, with ``--against``, a second
-source of the kernel with the one-column-a-thread entry points
-``fedavg_reduce_{f32,bf16}(x, w, out, C, N, stream)`` (the first
-design's, e.g. a parent commit's file unpacked by ``git archive``) into a
-library
-of its own.  At every ``fedavg_reduce`` shape ``chip_smoke.py`` gives
-the kernel (the GRU's replicas, the HFL rounds, the LM syncs' C 2, N
-792,797,824, the ragged and misaligned rows) it runs both on the same
-inputs, checks ``torch.equal``, and times them in turns (other, this,
-this, other) as ``chip_smoke.py`` times a kernel (CUDA-graph replay
-between CUDA events), beside an empty kernel on the same grid
-(``floor_ms``) and cuBLAS's ``w @ x``.  At the LM syncs' shape it also
-times this kernel over persistent grids of 1 to 8 blocks an SM.  With
-``--scalar-sweep`` it also builds the scalar instance at other shapes
-(threads a block, columns a thread, rows a step of the run-time-count
-loop: the ``FEDAVG_SCALAR_*`` macros) and times each, one tile a block,
-at the GRU's shapes.
-Prints the card's ``nvidia-smi`` name and power limit, each kernel
-function's registers, spills and global load / store opcodes, and one
-JSON line per shape; the lines also go to
-``results/fedavg_reduce_compare.jsonl``.
+``--against DIR`` names the root of another checkout of the repo (a
+parent commit unpacked by ``git archive <commit> --prefix=_parent/ | tar
+-x`` into the gitignored ``_parent/``).  Its ``repro_torch`` package is
+imported apart from this one's, so each side goes through its own wrapper
+``fedavg_reduce(stacked, weights)`` and builds its own kernels with its
+own ``build.load``: the tool works against any commit whose wrapper has
+that signature.  At every ``fedavg_reduce`` shape ``chip_smoke.py`` gives
+the kernel (the GRU's replicas, the HFL rounds, the ragged and
+misaligned rows, the LM syncs' C 2, N 792,797,824) it runs both on the
+same inputs, checks ``torch.equal``, and times them in turns (other,
+this, this, other) as ``chip_smoke.py`` times a kernel (CUDA-graph replay
+between CUDA events), beside an empty kernel on this kernel's grid
+(``floor_ms``) and cuBLAS's ``w @ x``.  The LM shapes are timed as
+graphs of 5 and of 20 calls.
 
-    python3 scripts/torch_fedavg_reduce_compare.py \\
-        [--against _parent/src/repro_torch/kernels/csrc/fedavg_reduce.cu]
+Prints the card's ``nvidia-smi`` name and power limit and one JSON line a
+shape; the lines also go to ``--out``.  Exits 1 if any shape's bits
+differ.
+
+    python3 scripts/torch_fedavg_reduce_compare.py --against _parent \\
+        [--out results/fedavg_reduce_compare.jsonl]
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -50,127 +45,63 @@ SHAPES = [(20, GRU_N, "float32", 0), (20, GRU_N, "bfloat16", 0),
           (37, 1_048_584, "bfloat16", 0), (37, 1_048_580, "float32", 0),
           (5, 1_048_584, "bfloat16", 1), (5, 1_048_580, "float32", 1),
           (2, LM_N, "bfloat16", 0), (2, LM_N, "float32", 0)]
-GRIDS_PER_SM = (1, 2, 3, 4, 6, 8)
-#: (threads a block, columns a thread, unroll) of the scalar sweep
-SCALAR_VARIANTS = ((256, 2, 4), (256, 1, 4), (128, 2, 4), (128, 1, 4),
-                   (64, 2, 4), (64, 4, 4), (128, 2, 8), (256, 1, 8))
-SWEEP_SHAPES = [(20, GRU_N, "float32"), (20, GRU_N, "bfloat16"),
-                (8, GRU_N, "float32"), (7, GRU_N, "float32"),
-                (5, GRU_N, "float32"), (4, GRU_N, "float32"),
-                (3, GRU_N, "float32")]
+#: calls a timed graph holds, as chip_smoke.py's kernel rows
+ITERS = 200
 
 
-def build_other(path: str, out_dir: str) -> ctypes.CDLL:
-    from repro_torch.kernels import build
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, "libfedavg_other.so")
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", path,
-                    "-o", lib], check=True, capture_output=True, text=True)
-    other = ctypes.CDLL(lib)
-    for name in ("fedavg_reduce_f32", "fedavg_reduce_bf16"):
-        fn = getattr(other, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
-                                               ctypes.c_longlong,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return other
+def _package_modules() -> list:
+    return [k for k in sys.modules
+            if k == "repro_torch" or k.startswith("repro_torch.")]
 
 
-def build_scalar_variants(out_dir: str) -> dict:
-    """{variant: library} of csrc/fedavg_reduce.cu built with each
-    SCALAR_VARIANTS shape, all nvcc processes started together."""
-    from repro_torch.kernels import build
-    os.makedirs(out_dir, exist_ok=True)
-    src = str(build.CSRC / "fedavg_reduce.cu")
-    procs = {}
-    for t, cols, unroll in SCALAR_VARIANTS:
-        lib = os.path.join(out_dir, f"libfedavg_{t}x{cols}u{unroll}.so")
-        procs[(t, cols, unroll)] = (lib, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-shared",
-             f"-DFEDAVG_SCALAR_THREADS={t}", f"-DFEDAVG_SCALAR_COLUMNS={cols}",
-             f"-DFEDAVG_SCALAR_UNROLL={unroll}", src, "-o", lib],
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
-    libs = {}
-    for key, (lib, proc) in procs.items():
-        if proc.wait():
-            raise RuntimeError(f"nvcc failed on scalar variant {key}")
-        cdll = ctypes.CDLL(lib)
-        for name in ("fedavg_reduce_scalar_f32", "fedavg_reduce_scalar_bf16"):
-            fn = getattr(cdll, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [
-                ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        libs[key] = cdll
-    return libs
-
-
-def compiled(chip_smoke, build) -> dict:
-    """Per fedavg kernel function: registers, spills (``ptxas -v``) and
-    the opcodes of its global loads and stores (``cuobjdump -sass``)."""
-    from pathlib import Path
-    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    listing = subprocess.run([str(cuobjdump), "-sass", str(build.build())],
-                             capture_output=True, text=True,
-                             check=True).stdout
-    regs = chip_smoke.ptxas_report(build.build_log())
-    funcs, fn = {}, None
-    for line in listing.splitlines():
-        line = line.strip()
-        if line.startswith("Function :"):
-            fn = line.split(":", 1)[1].strip()
-            if "fedavg" in fn:
-                funcs[fn] = {**regs.get(fn, {}), "ops": {}}
-            continue
-        if fn in funcs:
-            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?((?:LDG|STG)\S*)", line)
-            if op:
-                ops = funcs[fn]["ops"]
-                ops[op.group(1)] = ops.get(op.group(1), 0) + 1
-    return funcs
+def import_other(root: str):
+    """The ``fedavg_reduce`` wrapper module of the checkout at ``root``,
+    imported with its own ``repro_torch`` package; this checkout's
+    modules are put back afterwards."""
+    saved = {k: sys.modules.pop(k) for k in _package_modules()}
+    src = os.path.join(os.path.abspath(root), "src")
+    sys.path.insert(0, src)
+    try:
+        return importlib.import_module("repro_torch.kernels.fedavg_reduce")
+    finally:
+        sys.path.remove(src)
+        for k in _package_modules():
+            del sys.modules[k]
+        sys.modules.update(saved)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", default=None,
-                    help="another fedavg_reduce.cu with the first "
-                         "design's entry points, timed in turns with this "
-                         "one")
-    ap.add_argument("--iters", type=int, default=200)
-    ap.add_argument("--scalar-sweep", action="store_true",
-                    help="also time the scalar instance's other shapes")
+    ap.add_argument("--against", required=True,
+                    help="root of the other checkout")
+    ap.add_argument("--out", default=os.path.join(
+        ROOT, "results", "fedavg_reduce_compare.jsonl"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("fedavg_reduce compare: no CUDA device", file=sys.stderr)
         return 1
+    other = import_other(args.against)
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
-    import chip_smoke
     from chip_smoke import device_ms
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import fedavg_reduce as fr
+    assert other.fedavg_reduce is not fr.fedavg_reduce
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    build.load()
-    os.makedirs(os.path.join(ROOT, "results"), exist_ok=True)
-    log = open(os.path.join(ROOT, "results", "fedavg_reduce_compare.jsonl"),
-               "w")
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    log = open(args.out, "w")
 
     def emit(row):
         line = json.dumps(row)
         print(line, flush=True)
         log.write(line + "\n")
 
-    emit({"smi": smi, "functions": compiled(chip_smoke, build)})
-    other = (build_other(args.against, os.path.join(ROOT, "results",
-                                                    "fedavg_other"))
-             if args.against else None)
-    dev = torch.device("cuda")
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    emit({"smi": smi, "against": args.against})
+    dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     failed = 0
     for C, N, dtype_name, offset in SHAPES:
@@ -180,118 +111,49 @@ def main() -> int:
         x = flat[offset:].view(C, N)
         w = torch.rand((C,), generator=gen, device=dev) * 1.5 + 0.5
         out = fr.fedavg_reduce(x, w)
+        old = other.fedavg_reduce(x, w)
+        torch.cuda.synchronize()
         inst = fr.instance(C, N, dtype, x.data_ptr(), out.data_ptr())
-        blocks = fr.grid(C, N, dtype, inst, sms)
-        name = "f32" if dtype == torch.float32 else "bf16"
-        iters = 5 if N == LM_N else args.iters
+        shape = (inst == "vector", x.element_size(), C, N, fr.sms(0))
         row = {"shape": [C, N], "dtype": dtype_name, "offset": offset,
-               "instance": inst, "blocks": blocks}
+               "instance": inst,
+               "blocks": build.load().fedavg_reduce_blocks(*shape),
+               "bit_equal": bool(torch.equal(out, old)),
+               "max_abs_err_plain": (out.float() - ref.fedavg_reduce_ref(
+                   x, w).float()).abs().max().item()}
+        failed += not row["bit_equal"]
+        del old
 
         def this():
             return fr.fedavg_reduce(x, w)
 
+        def parent():
+            return other.fedavg_reduce(x, w)
+
         def floor():
-            build.launch("fedavg_reduce_floor", blocks, fr.threads(C, inst),
-                         stream())
+            build.launch("fedavg_reduce_floor", *shape,
+                         torch.cuda.current_stream().cuda_stream)
 
-        wn = (w / w.sum()).to(dtype)
-        plain = ref.fedavg_reduce_ref(x, w)
-        row["max_abs_err_plain"] = (out.float() - plain.float()).abs() \
-            .max().item()
-        del plain
-        if other is not None:
-            old = torch.empty_like(out)
-            fn = getattr(other, f"fedavg_reduce_{name}")
-
-            def parent():
-                rc = fn(x.data_ptr(), w.data_ptr(), old.data_ptr(), C, N,
-                        stream())
-                if rc:
-                    raise RuntimeError(f"other kernel: CUDA error {rc}")
-
-            parent()
-            torch.cuda.synchronize()
-            row["bit_equal"] = bool(torch.equal(out, old))
-            failed += not row["bit_equal"]
+        for iters in ((5, 20) if N == LM_N else (ITERS,)):
             turns = [device_ms(torch, f, iters)
                      for f in (parent, this, this, parent)]
-            row.update(ms=(turns[1] + turns[2]) / 2,
-                       other_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
-            del old
-        else:
-            row["ms"] = device_ms(torch, this, iters)
-        row.update(floor_ms=device_ms(torch, floor, args.iters),
-                   library_ms=device_ms(torch, lambda: wn @ x, iters))
+            row[f"graph_of_{iters}"] = {
+                "ms": (turns[1] + turns[2]) / 2,
+                "other_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns}
+        wn = (w / w.sum()).to(dtype)
+        row.update(floor_ms=device_ms(torch, floor, ITERS),
+                   library_ms=device_ms(torch, lambda: wn @ x,
+                                        20 if N == LM_N else ITERS))
         it = x.element_size()
         row["bound_ms"] = (C * N * it + 4 * C + N * it) / 3.35e12 * 1e3
-        if N == LM_N:
-            entry = f"fedavg_reduce_{inst}_{name}"
-            res = torch.empty_like(out)
-            row["grid_ms"] = {}
-            for per_sm in GRIDS_PER_SM:
-                def launch():
-                    build.launch(entry, x.data_ptr(), w.data_ptr(),
-                                 res.data_ptr(), C, N, per_sm * sms,
-                                 stream())
-                row["grid_ms"][per_sm] = device_ms(torch, launch, iters)
-            del res
         emit(row)
         del x, flat, out
         torch.cuda.empty_cache()
-    if args.scalar_sweep:
-        failed += scalar_sweep(torch, fr, other, emit, args.iters, gen)
     log.close()
     if failed:
-        print(f"{failed} shapes differ from the other build", file=sys.stderr)
+        print(f"{failed} shapes differ from the other checkout",
+              file=sys.stderr)
     return 1 if failed else 0
-
-
-def scalar_sweep(torch, fr, other, emit, iters, gen) -> int:
-    """Each SCALAR_VARIANTS build at SWEEP_SHAPES, one tile a block, in
-    turns (other build first and last); returns the shapes where a
-    variant's bits differ from the wrapper's."""
-    from chip_smoke import device_ms
-    libs = build_scalar_variants(os.path.join(ROOT, "results",
-                                              "fedavg_scalar"))
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    failed = 0
-    for C, N, dtype_name in SWEEP_SHAPES:
-        dtype = getattr(torch, dtype_name)
-        name = "f32" if dtype == torch.float32 else "bf16"
-        x = torch.randn((C, N), generator=gen, device="cuda", dtype=dtype)
-        w = torch.rand((C,), generator=gen, device="cuda") * 1.5 + 0.5
-        want = fr.fedavg_reduce(x, w)
-        calls, equal = {}, True
-        for (t, cols, unroll), lib in libs.items():
-            res = torch.empty_like(want)
-            fn = getattr(lib, f"fedavg_reduce_scalar_{name}")
-            blocks = -(-N // (t * cols))
-
-            def call(fn=fn, res=res, blocks=blocks):
-                rc = fn(x.data_ptr(), w.data_ptr(), res.data_ptr(), C, N,
-                        blocks, stream())
-                if rc:
-                    raise RuntimeError(f"scalar variant: CUDA error {rc}")
-
-            call()
-            torch.cuda.synchronize()
-            equal &= bool(torch.equal(res, want))
-            calls[f"{t}x{cols}u{unroll}"] = call
-        if other is not None:
-            old = torch.empty_like(want)
-            fn = getattr(other, f"fedavg_reduce_{name}")
-            calls = {"other": lambda: fn(x.data_ptr(), w.data_ptr(),
-                                         old.data_ptr(), C, N, stream()),
-                     **calls}
-        order = list(calls) + list(reversed(calls))
-        ms = {k: [] for k in calls}
-        for k in order:
-            ms[k].append(device_ms(torch, calls[k], iters))
-        emit({"sweep": "scalar", "shape": [C, N], "dtype": dtype_name,
-              "bit_equal": equal,
-              "ms": {k: sum(v) / len(v) for k, v in ms.items()}})
-        failed += not equal
-    return failed
 
 
 if __name__ == "__main__":

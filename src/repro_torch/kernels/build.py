@@ -35,7 +35,8 @@ SIGNATURES = {
     "gru_seq_floor": (_P,) + (_I,) * 5 + (_P,),
     **{f"fedavg_reduce_{i}_{t}": (_P, _P, _P, _I, _L, _I, _P)
        for i in ("vector", "scalar") for t in ("f32", "bf16")},
-    "fedavg_reduce_floor": (_I, _I, _P),
+    "fedavg_reduce_blocks": (_I, _I, _I, _L, _I),
+    "fedavg_reduce_floor": (_I, _I, _I, _L, _I, _P),
     **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},
     **{f"decode_attention_{t}": (_P,) * 5 + (_I,) * 6 + (_F, _P)

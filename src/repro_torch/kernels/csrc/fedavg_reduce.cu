@@ -21,8 +21,8 @@
 // divided the weights before its first load (3.1 million blocks): 4.2x
 // its bound in bf16.  Here:
 //
-// - a persistent grid (a few blocks an SM, the count from the wrapper)
-//   walks N in tiles, so the weights are normalised once a block;
+// - a persistent grid (a few blocks an SM, from the SM count the wrapper
+//   passes: launch_shape) walks N in tiles, so the weights are normalised once a block;
 // - the vector instance gives each thread 16-byte chunks (4 fp32 or 8
 //   bf16 columns) and issues the loads of all C rows for U chunks before
 //   its first multiply-add, U chosen so a thread has >= 64 bytes in
@@ -42,8 +42,8 @@
 //   launch without an opt-in (C <= 12,288).
 //
 // The wrapper picks the instance from shape, dtype and pointer alignment
-// alone (fedavg_reduce.instance) and the grid (fedavg_reduce.grid); the
-// grid only sets the speed, any grid >= 1 gives the same result.  The
+// alone (fedavg_reduce.instance); the grid only sets the speed, any grid
+// >= 1 gives the same result.  The
 // ragged end of N is masked in the kernel: no padding copy as on the TPU.
 //
 // Arithmetic, the same in every instance and in the first design, bit
@@ -61,36 +61,51 @@ constexpr int kStaticC = 8;    // compile-time counts 1..kStaticC
 
 // The scalar instance's block: 256 columns a tile, as 64 threads of 4
 // columns at compile-time counts and 256 threads of one column at run
-// time, the fastest of scripts/torch_fedavg_reduce_compare.py's sweep at
-// the GRU's shapes (a tile of 256 columns puts ~4.4 blocks on each SM at
-// N 148,737, against 2.2 at 512).  The sweep builds the kernel with one
-// shape for every count (FEDAVG_SCALAR_THREADS, _COLUMNS); the wrapper
-// mirrors the defaults (fedavg_reduce.threads, SCALAR_TILE).
-#ifdef FEDAVG_SCALAR_THREADS
-__host__ __device__ constexpr int scalar_threads(int) {
-  return FEDAVG_SCALAR_THREADS;
-}
-__host__ __device__ constexpr int scalar_columns(int) {
-  return FEDAVG_SCALAR_COLUMNS;
-}
-#else
+// time, the fastest of a sweep of block shapes at the GRU's shapes (a
+// tile of 256 columns puts ~4.4 blocks on each SM at N 148,737, against
+// 2.2 at 512).
 __host__ __device__ constexpr int scalar_threads(int C) {
   return C > 0 ? 64 : 256;
 }
 __host__ __device__ constexpr int scalar_columns(int C) {
   return C > 0 ? 4 : 1;
 }
-#endif
-#ifndef FEDAVG_SCALAR_UNROLL
-#define FEDAVG_SCALAR_UNROLL 4
-#endif
 // rows a step of the scalar instance's run-time-count loop
-constexpr int kScalarUnroll = FEDAVG_SCALAR_UNROLL;
+constexpr int kScalarUnroll = 4;
 
 // 16-byte chunks a thread a tile in the vector instance: >= 64 bytes of
 // loads in flight (4 rows' chunks at run-time C, one row at a time)
 __host__ __device__ constexpr int vec_unroll(int C) {
   return C == 0 ? 4 : (4 + C - 1) / C;
+}
+
+// Blocks an SM of the persistent grid: the vector instance is held to 64
+// registers a thread, so 4 blocks of kThreads fit an SM; the scalar
+// instance's blocks are smaller.
+constexpr int kVecBlocksPerSM = 4;
+constexpr int kScalarBlocksPerSM = 8;
+
+// The template count of C replicas: C itself up to kStaticC, else 0 (a
+// run-time count).
+constexpr int static_count(int C) { return C <= kStaticC ? C : 0; }
+
+struct Launch {
+  int blocks, threads;
+};
+
+// The grid of an instance over C replicas of N items of `item` bytes on a
+// card of `sms` SMs: one block a tile, up to a few blocks an SM; past
+// that each block walks several tiles.  Any grid gives the same result.
+Launch launch_shape(bool vec, int item, int C, long long N, int sms) {
+  const int k = static_count(C);
+  const int threads = vec ? kThreads : scalar_threads(k);
+  const long long tile = vec ? 1LL * kThreads * vec_unroll(k) * (16 / item)
+                             : 1LL * threads * scalar_columns(k);
+  const long long most =
+      1LL * (vec ? kVecBlocksPerSM : kScalarBlocksPerSM) * sms;
+  const long long tiles = (N + tile - 1) / tile;
+  return {static_cast<int>(tiles < most ? (tiles > 0 ? tiles : 1) : most),
+          threads};
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -173,7 +188,7 @@ __device__ __forceinline__ void normalise(const float* __restrict__ w,
 // i takes chunks i, i + kThreads, ..., so a warp's load is 512
 // contiguous bytes of one row.
 template <typename T, int kC>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, kVecBlocksPerSM)
     fedavg_reduce_vec_kernel(const uint4* __restrict__ x,
                              const float* __restrict__ w,
                              uint4* __restrict__ out, int C, long long R) {
@@ -285,22 +300,23 @@ __global__ void __launch_bounds__(scalar_threads(kC))
   }
 }
 
-// An empty kernel on the grid the wrapper gives (blocks of `threads`):
-// the launch floor that chip_smoke.py times beside the kernel (floor_ms).
+// An empty kernel on an instance's grid (launch_shape): the launch floor
+// that chip_smoke.py times beside the kernel (floor_ms).
 __global__ void fedavg_reduce_floor_kernel() {}
 
 template <typename T, int kC>
 void launch_one(bool vec, const void* x, const void* w, void* out, int C,
-                long long N, int blocks, cudaStream_t stream) {
+                long long N, Launch shape, cudaStream_t stream) {
   const size_t smem = kC > 0 ? 0 : static_cast<size_t>(C) * sizeof(float);
   if (vec) {
-    fedavg_reduce_vec_kernel<T, kC><<<blocks, kThreads, smem, stream>>>(
+    fedavg_reduce_vec_kernel<T, kC>
+        <<<shape.blocks, shape.threads, smem, stream>>>(
         static_cast<const uint4*>(x), static_cast<const float*>(w),
         static_cast<uint4*>(out), C,
         N / static_cast<long long>(16 / sizeof(T)));
   } else {
     fedavg_reduce_scalar_kernel<T, kC>
-        <<<blocks, scalar_threads(kC), smem, stream>>>(
+        <<<shape.blocks, shape.threads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(w),
         static_cast<T*>(out), C, N);
   }
@@ -308,18 +324,19 @@ void launch_one(bool vec, const void* x, const void* w, void* out, int C,
 
 template <typename T>
 int launch(bool vec, const void* x, const void* w, void* out, int C,
-           long long N, int blocks, void* stream_) {
+           long long N, int sms, void* stream_) {
   const auto stream = static_cast<cudaStream_t>(stream_);
+  const Launch shape = launch_shape(vec, sizeof(T), C, N, sms);
   switch (C) {
 #define FEDAVG_CASE(k)                                              \
   case k:                                                           \
-    launch_one<T, k>(vec, x, w, out, C, N, blocks, stream);         \
+    launch_one<T, k>(vec, x, w, out, C, N, shape, stream);          \
     break;
     FEDAVG_CASE(1) FEDAVG_CASE(2) FEDAVG_CASE(3) FEDAVG_CASE(4)
     FEDAVG_CASE(5) FEDAVG_CASE(6) FEDAVG_CASE(7) FEDAVG_CASE(8)
 #undef FEDAVG_CASE
     default:
-      launch_one<T, 0>(vec, x, w, out, C, N, blocks, stream);
+      launch_one<T, 0>(vec, x, w, out, C, N, shape, stream);
   }
   static_assert(kStaticC == 8, "the cases above list 1..kStaticC");
   return static_cast<int>(cudaGetLastError());
@@ -327,36 +344,47 @@ int launch(bool vec, const void* x, const void* w, void* out, int C,
 
 }  // namespace
 
-// Launch on `stream` over `blocks` blocks; return cudaGetLastError() (0
-// when the launch was accepted).  The caller checks shapes, guarantees
-// C, N >= 1, and takes the vector entries only where N * item % 16 == 0
-// and x and out are 16-byte aligned.
+// Launch on `stream` over the grid launch_shape gives for a card of `sms`
+// SMs; return cudaGetLastError() (0 when the launch was accepted).  The
+// caller checks shapes, guarantees C, N >= 1, and takes the vector
+// entries only where N * item % 16 == 0 and x and out are 16-byte
+// aligned.
 extern "C" int fedavg_reduce_vector_f32(const void* x, const void* w,
                                         void* out, int C, long long N,
-                                        int blocks, void* stream) {
-  return launch<float>(true, x, w, out, C, N, blocks, stream);
+                                        int sms, void* stream) {
+  return launch<float>(true, x, w, out, C, N, sms, stream);
 }
 
 extern "C" int fedavg_reduce_vector_bf16(const void* x, const void* w,
                                          void* out, int C, long long N,
-                                         int blocks, void* stream) {
-  return launch<__nv_bfloat16>(true, x, w, out, C, N, blocks, stream);
+                                         int sms, void* stream) {
+  return launch<__nv_bfloat16>(true, x, w, out, C, N, sms, stream);
 }
 
 extern "C" int fedavg_reduce_scalar_f32(const void* x, const void* w,
                                         void* out, int C, long long N,
-                                        int blocks, void* stream) {
-  return launch<float>(false, x, w, out, C, N, blocks, stream);
+                                        int sms, void* stream) {
+  return launch<float>(false, x, w, out, C, N, sms, stream);
 }
 
 extern "C" int fedavg_reduce_scalar_bf16(const void* x, const void* w,
                                          void* out, int C, long long N,
-                                         int blocks, void* stream) {
-  return launch<__nv_bfloat16>(false, x, w, out, C, N, blocks, stream);
+                                         int sms, void* stream) {
+  return launch<__nv_bfloat16>(false, x, w, out, C, N, sms, stream);
 }
 
-extern "C" int fedavg_reduce_floor(int blocks, int threads, void* stream) {
-  fedavg_reduce_floor_kernel<<<blocks, threads, 0,
+// The blocks of the launch an entry above makes: the vector (vec 1) or
+// scalar (vec 0) instance over items of `item` bytes.
+extern "C" int fedavg_reduce_blocks(int vec, int item, int C, long long N,
+                                    int sms) {
+  return launch_shape(vec != 0, item, C, N, sms).blocks;
+}
+
+// The empty kernel on the grid of that launch.
+extern "C" int fedavg_reduce_floor(int vec, int item, int C, long long N,
+                                   int sms, void* stream) {
+  const Launch shape = launch_shape(vec != 0, item, C, N, sms);
+  fedavg_reduce_floor_kernel<<<shape.blocks, shape.threads, 0,
                                static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

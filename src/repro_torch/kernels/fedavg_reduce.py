@@ -15,8 +15,8 @@ alignment alone, never in response to a failure:
 - ``"scalar"`` for everything else, one element a load, 256 columns a
   block: the GRU's odd N (148,737), views with a storage offset.
 
-Both walk N over a persistent grid of :func:`grid` blocks and give the
-same bits."""
+Both walk N over a persistent grid, a few blocks an SM, which the kernel
+works out from the SM count passed to it; any grid gives the same bits."""
 from __future__ import annotations
 
 import functools
@@ -30,14 +30,6 @@ from repro_torch.kernels._grad import with_grad
 #: largest replica count: C normalised weights in the 48 KB of shared
 #: memory a block gets without an opt-in (the kernel uses no other)
 MAX_REPLICAS = 12288
-#: the kernel's constants (``csrc/fedavg_reduce.cu``): the vector
-#: instance's threads a block, the compile-time counts (1..STATIC_C),
-#: the scalar instance's columns a tile (64 threads of 4 columns at
-#: compile-time counts, 256 of one at run time)
-THREADS, STATIC_C, SCALAR_TILE = 256, 8, 256
-#: blocks an SM of the persistent grid, per instance (the vector
-#: instance is held to 64 registers a thread: 4 blocks of 256 an SM)
-BLOCKS_PER_SM = {"vector": 4, "scalar": 8}
 _ITEM = {torch.float32: 4, torch.bfloat16: 2}
 _NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -56,32 +48,9 @@ def instance(C: int, N: int, dtype: torch.dtype, x_ptr: int,
     return "vector" if aligned else "scalar"
 
 
-def columns_per_tile(C: int, dtype: torch.dtype, inst: str) -> int:
-    """Columns a block covers a step of its grid-stride loop: its
-    threads' 16-byte chunks (U a thread: >= 64 bytes of loads in flight)
-    or ``SCALAR_TILE`` elements."""
-    if inst == "scalar":
-        return SCALAR_TILE
-    unroll = -(-4 // C) if C <= STATIC_C else 4
-    return THREADS * unroll * (16 // _ITEM[dtype])
-
-
-def threads(C: int, inst: str) -> int:
-    """Threads a block of instance ``inst`` at C replicas."""
-    if inst == "scalar" and C <= STATIC_C:
-        return 64
-    return THREADS
-
-
-def grid(C: int, N: int, dtype: torch.dtype, inst: str, sms: int) -> int:
-    """Blocks of the launch: one a tile, up to ``BLOCKS_PER_SM`` an SM;
-    past that each block walks several tiles."""
-    tiles = -(-N // columns_per_tile(C, dtype, inst))
-    return max(1, min(tiles, BLOCKS_PER_SM[inst] * sms))
-
-
 @functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
+def sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -117,8 +86,7 @@ def fedavg_reduce(stacked: torch.Tensor,
         with torch.cuda.device(dev):
             build.launch(f"fedavg_reduce_{inst}_{_NAME[stacked.dtype]}",
                          stacked.data_ptr(), weights.data_ptr(),
-                         out.data_ptr(), C, N,
-                         grid(C, N, stacked.dtype, inst, _sms(dev.index)),
+                         out.data_ptr(), C, N, sms(dev.index),
                          torch.cuda.current_stream().cuda_stream)
         fedavg_reduce.launches += 1
         return out
