@@ -632,8 +632,8 @@ def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50),
     16-byte boundary, so the scalar instance).  ``floor_ms`` times an
     empty kernel on the instance's grid, timed as the kernel is.  With
     ``more_readings`` the kernel is also timed as a graph of 5 calls
-    (``ms_graph_of_5``) and by the profiler's device time over 20 eager
-    calls (``profiled_ms``)."""
+    (``ms_graph_of_5``) and by CUDA events around each of 20 eager
+    launches (``eager_ms``)."""
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import fedavg_reduce as fr
     dev = torch.device(DEVICE)
@@ -679,16 +679,38 @@ def check_fedavg_reduce(torch, rng, C, N, dtype_name, iters=(200, 50),
     if more_readings:
         row["ms_graph_of_5"] = device_ms(torch, lambda: fr.fedavg_reduce(x, w),
                                          5)
-        row["profiled_ms"] = fedavg_kernel_ms(kernel_split_ms(
-            torch, lambda: fr.fedavg_reduce(x, w)))
+        row["eager_ms"] = launch_event_ms(
+            torch, lambda: [fr.fedavg_reduce(x, w) for _ in range(20)],
+            "fedavg_reduce_") / 20
     emit({"phase": "kernel_check", **row})
     return row
 
 
-def fedavg_kernel_ms(kernels_ms: dict) -> float:
-    """The ``fedavg_reduce`` kernels' share of a profile's device ms by
-    kernel."""
-    return sum(v for k, v in kernels_ms.items() if "fedavg_reduce" in k)
+def launch_event_ms(torch, fn, prefix: str) -> float:
+    """Device ms of the kernels that one call of ``fn`` launches through
+    entry points named ``prefix...``: CUDA events recorded on the
+    launching stream just before and after each such launch, summed.
+    Unlike ``torch.profiler`` this needs no CUPTI."""
+    from repro_torch.kernels import build
+    launch, pairs = build.launch, []
+
+    def timed(name, *args):
+        if not name.startswith(prefix):
+            return launch(name, *args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(name, *args)
+        end.record()
+        pairs.append((start, end))
+
+    build.launch = timed
+    try:
+        fn()
+    finally:
+        build.launch = launch
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs)
 
 
 def phase_kernels(torch, n_params):
@@ -3139,26 +3161,24 @@ def phase_train(torch):
     want = expected_train_launches(m, C * TRAIN_ROUNDS,
                                    cfg.run.microbatches, groups + 1)
 
-    # one more sync of each kind and one more local round, profiled
-    # (their launches are not the path's): the kernel's device time inside
-    # the real syncs, beside the rows below
-    sync_profiles = {
-        "plain": profile_once(torch, lambda: hfl_global_round(stacked),
-                              top=None),
-        "int8": profile_once(torch, lambda: compressed_global_sync(stacked,
-                                                                   ef),
-                             top=None)}
-    fed_in_sync = {k: fedavg_kernel_ms(p["kernels_ms"])
-                   for k, p in sync_profiles.items()}
+    # more syncs of each kind and one more local round (their launches
+    # are not the path's): the kernel's device time inside the real syncs,
+    # beside the rows below, and a profile of each sync
+    syncs_again = {"plain": lambda: hfl_global_round(stacked),
+                   "int8": lambda: compressed_global_sync(stacked, ef)}
+    fed_in_sync = {k: launch_event_ms(torch, fn, "fedavg_reduce_")
+                   for k, fn in syncs_again.items()}
+    sync_profiles = {k: profile_once(torch, fn, top=None)
+                     for k, fn in syncs_again.items()}
     batch = stacked_lm_batch(torch, streams, DEVICE)
     step_profile = profile_once(
         torch, lambda: local(stacked, opt_state, batch), top=8)
     del stacked, opt_state, ef, batch
     torch.cuda.empty_cache()
 
-    # the kernel over 20 timed calls, and as a graph of 5 and by the
-    # profiler: on an H100 a graph of 5 once read 1.88 ms in bf16 here,
-    # against 1.63-1.65 eager or over 20 calls
+    # the kernel over 20 timed calls, as a graph of 5 and eager: on an
+    # H100 a graph of 5 once read 1.88 ms in bf16 here, against 1.63-1.65
+    # eager or over 20 calls
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
     fed_rows = [check_fedavg_reduce(torch, gen, C, n_params, name, (20, 2),
                                     more_readings=True)
