@@ -73,7 +73,15 @@ through the entry points a user calls:
   exact launch counts, bit-identical replicas after each sync, peak
   memory and a profiled local round; then a 2-layer fp32 cut trained
   and synced on the card and on the CPU, and the reduced
-  deepseek-v2-lite at two microbatches (``topk_router``).
+  deepseek-v2-lite at two microbatches (``topk_router``);
+- the distributed HFL layer: the same gemma3-1b run with one FL cluster
+  a process, 2 ranks on the one card over gloo (``run_ranks``, a
+  (cluster 2, data 1) ``DeviceMesh``): each rank's local rounds through
+  ``make_hfl_local_step_shardmap``, a ``global_sync_shardmap``, a
+  ``compressed_global_sync_shardmap`` (int8 on the wire) and a
+  ``compressed_global_sync_manual`` on the same inputs; round-1 losses
+  against the single-process run, replicas bit-identical across ranks
+  after each sync, exact launches and the bytes each collective carried.
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -261,6 +269,13 @@ TRAIN_PARITY_BATCH = 2
 TRAIN_PARITY_STEPS = 2
 TRAIN_PARITY_LR = 1e-3
 TRAIN_MOE_K = 2
+#: the distributed slice: train_slice's configuration, schedule and seed
+#: with one FL cluster a process: 2 ranks sharing the one card over gloo
+#: (NCCL refuses two ranks on one device), a (cluster 2, data 1) mesh.
+#: Both ranks step at once: 28.6 GB peak each on an H100 80GB HBM3
+DIST_RANKS = TRAIN_CLUSTERS
+DIST_BACKEND = "gloo"
+DIST_TIMEOUT = 420
 #: served trees at full width: leaf -> shape
 FULL_WIDTH = {
     LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
@@ -714,6 +729,7 @@ def launch_event_ms(torch, fn, prefix: str) -> float:
 
 
 def phase_kernels(torch, n_params):
+    from repro_torch.kernels import fedavg_reduce as fr_mod
     rng = np.random.default_rng(SEED)
     gru_rows = [check_gru_seq(torch, rng, B, HISTORY, 128)
                 for B in TIER_BATCH.values()]
@@ -739,6 +755,10 @@ def phase_kernels(torch, n_params):
     # boundary (the GRU's rows above take it at odd N)
     shapes += [(2, 1_048_584, "bfloat16"), (3, 1_048_580, "float32"),
                (37, 1_048_584, "bfloat16"), (37, 1_048_580, "float32")]
+    # the most replicas the wrapper admits (a launch an earlier design
+    # refused: ROADMAP Queue 3), at tests/test_torch_kernels.py's N 40
+    shapes += [(fr_mod.MAX_REPLICAS, 40, "float32"),
+               (fr_mod.MAX_REPLICAS, 40, "bfloat16")]
     fed_rows = [check_fedavg_reduce(torch, rng, *s) for s in shapes]
     fed_rows += [check_fedavg_reduce(torch, rng, 5, n, d, offset=1)
                  for n, d in ((1_048_584, "bfloat16"),
@@ -3217,7 +3237,7 @@ def phase_train(torch):
     if not all(checks.values()):
         raise AssertionError(f"train_slice checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
-    return launches, fed_rows, flash_rows[0]
+    return launches, fed_rows, flash_rows[0], losses
 
 
 def update_tol(lr, dw) -> float:
@@ -3384,6 +3404,296 @@ def phase_train_parity(torch):
                              f"{[k for k, v in checks.items() if not v]}")
 
 
+def bit_sums(torch, tree):
+    """Per leaf: the sum of its bits read as integers, and the same over
+    every other element (a checksum of the exact bits), on the host."""
+    from repro_torch.params import flatten_with_path
+    out = []
+    for _, x in flatten_with_path(tree):
+        bits = x.reshape(-1).view(torch.int16 if x.element_size() == 2
+                                  else torch.int32)
+        out += [bits.sum(dtype=torch.int64), bits[1::2].sum(dtype=torch.int64)]
+    return torch.stack(out).cpu()
+
+
+def dist_rank(rank, results, conf):
+    """One FL cluster of dist_slice, in a process of its own (module level:
+    the spawned ranks import it).  Draws gemma3-1b on the card from the
+    seed, keeps its cluster's replica with a leading dim of 1, and
+    follows train_slice's schedule through the distributed entry points:
+    ``make_hfl_local_step_shardmap(make_train_step(...))`` a round,
+    ``global_sync_shardmap`` after round 2, ``compressed_global_sync_
+    shardmap`` after round 4 (the anchor taken at the first sync), then
+    ``compressed_global_sync_manual`` on the same inputs.  Launches and
+    collective bytes are counted from 0 over that path; the checks run
+    after it."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.fl.collectives import (collective_bytes, dtype_groups,
+                                            global_sync_shardmap,
+                                            make_hfl_local_step_shardmap,
+                                            reset_collective_bytes,
+                                            stack_for_clusters)
+    from repro_torch.fl.compression import (compressed_global_sync_manual,
+                                            compressed_global_sync_shardmap,
+                                            init_ef_state, sync_bytes)
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_hfl_mesh
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path
+    from repro_torch.training import AdamW, init_hfl_opt_state, make_train_step
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the parent built the kernels: a rank loads that library
+    prebuilt = (build.BUILD_ROOT / build.source_hash() / build.LIB_NAME
+                ).exists()
+    library = str(build.load()._name)
+    mesh = make_hfl_mesh(DEVICE)
+    group = mesh.get_group("cluster")
+    world = dist.get_world_size(group)
+    cfg = get_config(TRAIN_ARCH)
+    m = cfg.model
+    api = make_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
+                             DEVICE)
+    leaves = dict(flatten_with_path(params))
+    n_params = param_count(params)
+    full_width = (all(tuple(leaves[k].shape) == v
+                      for k, v in FULL_WIDTH[TRAIN_ARCH].items())
+                  and {x.dtype for x in leaves.values()} == {torch.bfloat16}
+                  and n_params == m.param_count() + norm_params(m))
+    local = stack_for_clusters(params, 1)
+    del params, leaves
+    n_leaves = len(flatten_with_path(local))
+    groups = len(dtype_groups([x for _, x in flatten_with_path(local)]))
+    opt = AdamW(lr=TRAIN_LR, state_dtype=cfg.run.opt_state_dtype)
+    opt_state = init_hfl_opt_state(opt, local)
+    step = make_hfl_local_step_shardmap(make_train_step(api, cfg, opt), mesh)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=m.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH),
+        shard=rank)
+    want_bytes = {
+        "plain": {"all_gather": {"cluster": sync_bytes(local, False)}},
+        "int8": {"all_gather": {"cluster": sync_bytes(local, True)
+                                + 4 * n_leaves}}}
+    want_bytes["manual"] = {**want_bytes["int8"],
+                            "all_reduce": {"data": 4 * n_leaves}}
+
+    def identical_across_ranks(tree) -> bool:
+        mine = bit_sums(torch, tree)
+        every = torch.empty((world,) + mine.shape, dtype=mine.dtype)
+        dist.all_gather(list(every.unbind(0)), mine, group=group)
+        return bool((every == every[0]).all())
+
+    # the wall time of the syncs' collectives (the card synchronised
+    # around each), read beside the syncs' own
+    in_collectives = []
+
+    def clocked(call):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(*args, **kwargs)
+            torch.cuda.synchronize()
+            in_collectives.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def timed(fn):
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        reset_collective_bytes()
+        in_collectives.clear()
+        gather, reduce = dist.all_gather, dist.all_reduce
+        dist.all_gather, dist.all_reduce = clocked(gather), clocked(reduce)
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            dist.all_gather, dist.all_reduce = gather, reduce
+        return out, ms, collective_bytes()
+
+    torch.cuda.synchronize()
+    startup_s = time.time() - conf["spawned_at"]
+    ops.reset_launches()
+    losses, round_ms, round_bytes, syncs, ef = [], [], [], [], None
+    for t in range(TRAIN_ROUNDS):
+        batch = {k: torch.as_tensor(v[None], device=DEVICE)
+                 for k, v in stream.next_batch().items()}
+        (local, opt_state, loss), ms, nbytes = timed(
+            lambda: step(local, opt_state, batch))
+        round_ms.append(ms)
+        round_bytes.append(nbytes)
+        losses.append(float(loss[0]))
+        del batch, loss
+        if (t + 1) % TRAIN_GLOBAL_EVERY:
+            continue
+        if ef is None:
+            local, ms, nbytes = timed(lambda: global_sync_shardmap(local, mesh))
+            syncs.append({"kind": "plain", "ms": ms, "bytes": nbytes,
+                          "collective_ms": list(in_collectives),
+                          "replicas_identical": identical_across_ranks(local)})
+            ef = init_ef_state(local)          # the anchor: this sync's
+            continue
+        if t + 1 == TRAIN_ROUNDS:               # no local round follows
+            del opt_state
+            torch.cuda.empty_cache()
+        before, ef_before = local, ef
+        (local, ef), ms, nbytes = timed(
+            lambda: compressed_global_sync_shardmap(before, ef_before, mesh))
+        syncs.append({"kind": "int8", "ms": ms, "bytes": nbytes,
+                      "collective_ms": list(in_collectives),
+                      "replicas_identical": identical_across_ranks(local)})
+        (man, man_ef), ms, nbytes = timed(
+            lambda: compressed_global_sync_manual(before, ef_before, mesh))
+        syncs.append({"kind": "manual", "ms": ms, "bytes": nbytes,
+                      "collective_ms": list(in_collectives),
+                      "replicas_identical": identical_across_ranks(man),
+                      "equals_shardmap": all(
+                          torch.equal(a, b) for tree_a, tree_b in
+                          ((man, local), (man_ef.anchor, ef.anchor),
+                           (man_ef.residual, ef.residual))
+                          for (_, a), (_, b) in zip(
+                              flatten_with_path(tree_a),
+                              flatten_with_path(tree_b)))})
+        del man, man_ef
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    # the int8 sync against the plain fp32 mean of the same replicas: within
+    # one quantization step (a leaf's largest cluster scale) of it
+    int8_err = 0.0
+    with torch.no_grad():
+        for (_, x), (_, a), (_, r), (_, new_a) in zip(
+                flatten_with_path(before), flatten_with_path(ef_before.anchor),
+                flatten_with_path(ef_before.residual),
+                flatten_with_path(ef.anchor)):
+            both = torch.empty((world,) + tuple(x.shape), dtype=x.dtype,
+                               device=x.device)
+            dist.all_gather(list(both.unbind(0)), x, group=group)
+            mean = both.float().mean(dim=0)
+            scale = ((x.float() - a + r).abs().max() / 127.0).reshape(1)
+            dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+            int8_err = max(int8_err, float((new_a - mean).abs().max()
+                                           / scale))
+            del both, mean
+    return {"rank": rank, "device": torch.cuda.current_device(),
+            "device_name": torch.cuda.get_device_name(), "mesh": str(mesh),
+            "backend": dist.get_backend(group), "prebuilt": prebuilt,
+            "library": library, "full_width": full_width,
+            "params": n_params, "leaves": n_leaves, "groups": groups,
+            "losses": losses, "round_ms": round_ms,
+            "round_bytes": round_bytes, "syncs": syncs,
+            "expected_sync_bytes": want_bytes,
+            "int8_err_over_step": int8_err, "launches": launches,
+            "peak_memory_bytes": peak_bytes, "startup_s": startup_s,
+            "rank_seconds": time.perf_counter() - t_start}
+
+
+def phase_dist(torch, train_losses):
+    """The distributed HFL layer's main path: train_slice's run with one
+    FL cluster a process (``dist_rank``), 2 ranks on the one card over
+    gloo, started by ``run_ranks`` (spawn, a ``FileStore``).  Every
+    forward's attention is ``flash_attention`` (D 256) and every sync's
+    mean ``fedavg_reduce``.  Holds each rank against train_slice's
+    cluster (round-1 losses within 3e-5 relative: same parameters, same
+    data), the replicas bit-identical across ranks after each sync, the
+    manual int8 sync equal to the shard_map one bit for bit, the int8
+    sync within one quantization step of the plain mean, exact launches
+    and the bytes each collective was handed.  Any failed rank fails the
+    phase."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_bytes, total_bytes = torch.cuda.mem_get_info()
+    held_bytes = torch.cuda.memory_allocated()
+    # what of that the parent can still reach from Python (the rest is
+    # the libraries' own: cuBLAS workspaces, graph pools)
+    reachable = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.is_cuda:
+            storage = obj.untyped_storage()
+            reachable[storage.data_ptr()] = storage.nbytes()
+    ranks = run_ranks(dist_rank, DIST_RANKS, backend=DIST_BACKEND,
+                      device=f"{DEVICE}:0", timeout=DIST_TIMEOUT,
+                      args=({"spawned_at": time.time()},))
+    cfg = get_config(TRAIN_ARCH)
+    # a plain sync's launches a dtype group, one an int8 sync, one manual
+    want = expected_train_launches(cfg.model, TRAIN_ROUNDS,
+                                   cfg.run.microbatches,
+                                   ranks[0]["groups"] + 2)
+    gaps = [[abs(r["losses"][t] - train_losses[t][c]) / abs(
+        train_losses[t][c]) for t in range(TRAIN_ROUNDS)]
+        for c, r in enumerate(ranks)]
+    kinds = ["plain", "int8", "manual"]
+    checks = {
+        "full_width": all(r["full_width"] for r in ranks),
+        "one_card": all(r["device"] == 0 for r in ranks),
+        "kernels_loaded_not_rebuilt": all(r["prebuilt"] for r in ranks),
+        "round1_losses_match_train_slice": all(
+            g[0] <= TRAIN_LOSS_RTOL for g in gaps),
+        "losses_finite": all(np.isfinite(r["losses"]).all()
+                             and len(r["losses"]) == TRAIN_ROUNDS
+                             for r in ranks),
+        "syncs": all([s["kind"] for s in r["syncs"]] == kinds
+                     for r in ranks),
+        "replicas_identical_after_each_sync": all(
+            s["replicas_identical"] for r in ranks for s in r["syncs"]),
+        "manual_equals_shardmap": all(
+            r["syncs"][2]["equals_shardmap"] for r in ranks),
+        "int8_within_one_step_of_plain_mean": all(
+            r["int8_err_over_step"] <= 1.0 for r in ranks),
+        "launches": all(r["launches"] == want for r in ranks),
+        "no_bytes_in_local_rounds": all(
+            b == {} for r in ranks for b in r["round_bytes"]),
+        "sync_bytes": all(s["bytes"] == r["expected_sync_bytes"][s["kind"]]
+                          for r in ranks for s in r["syncs"]),
+    }
+    emit({"phase": "dist_slice", "seconds": time.perf_counter() - t_phase,
+          "arch": TRAIN_ARCH, "ranks": DIST_RANKS, "backend": DIST_BACKEND,
+          "mesh": ranks[0]["mesh"],
+          "params": ranks[0]["params"], "leaves": ranks[0]["leaves"],
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "rounds": TRAIN_ROUNDS,
+          "global_every": TRAIN_GLOBAL_EVERY,
+          "free_bytes_before_spawn": free_bytes,
+          "total_bytes": total_bytes, "parent_held_bytes": held_bytes,
+          "parent_reachable_cuda_tensors": {
+              "storages": len(reachable), "bytes": sum(reachable.values())},
+          # on the card under gloo: all_gather of bf16 rows (plain), of
+          # int8 deltas and fp32 scales (int8), and all_reduce(MAX) of fp32
+          # maxima (manual) on CUDA tensors; barriers and checksums on CPU
+          "collectives": {k: sorted(v) for k, v in
+                          ranks[0]["expected_sync_bytes"].items()},
+          "loss_rel_gap_to_train_slice": gaps,
+          "max_loss_rel_gap": max(max(g) for g in gaps),
+          "tol": TRAIN_LOSS_RTOL,
+          **{k: [r[k] for r in ranks] for k in (
+              "losses", "round_ms", "syncs", "int8_err_over_step",
+              "peak_memory_bytes", "startup_s", "rank_seconds",
+              "launches")},
+          "expected_launches": want, "library": ranks[0]["library"],
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dist_slice checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in want}
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3416,6 +3726,8 @@ def main() -> int:
         print("chip_smoke: repro_torch was imported from outside this "
               "checkout", file=sys.stderr)
         return 1
+
+    from repro_torch.kernels import fedavg_reduce as fr
 
     t_start = time.perf_counter()
     marks = []
@@ -3523,10 +3835,13 @@ def main() -> int:
         vlm_launches = phase_vlm(torch)
         torch.cuda.empty_cache()
         phase = at("train_slice")
-        train_launches, train_fed_rows, train_flash_row = phase_train(torch)
+        (train_launches, train_fed_rows, train_flash_row,
+         train_losses) = phase_train(torch)
         torch.cuda.empty_cache()
         phase = at("train_parity")
         phase_train_parity(torch)
+        phase = at("dist_slice")
+        dist_launches = phase_dist(torch, train_losses)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
@@ -3540,7 +3855,7 @@ def main() -> int:
              "gemma_scheduler": sched_launches,
              "xlstm_slice": xlstm_launches,
              "whisper_slice": whisper_launches, "vlm_slice": vlm_launches,
-             "train_slice": train_launches}
+             "train_slice": train_launches, "dist_slice": dist_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     csrc = "src/repro_torch/kernels/csrc"
     attn = (("flash_attention", 70), ("decode_attention", 57),
@@ -3585,7 +3900,23 @@ def main() -> int:
               "fedavg_reduce", f"{csrc}/fedavg_reduce.cu",
               "src/repro/kernels/fedavg_reduce.py:26",
               train_launches["fedavg_reduce"], row)
-             for row in train_fed_rows}})
+             for row in train_fed_rows},
+          # the distributed path (both ranks' launches): the same shapes
+          # as the LM training path's, whose rows they carry
+          "flash_attention_dist": kernel_entry(
+              "flash_attention", f"{csrc}/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70",
+              dist_launches["flash_attention"], train_flash_row),
+          **{f"fedavg_reduce_dist_{row['dtype']}": kernel_entry(
+              "fedavg_reduce", f"{csrc}/fedavg_reduce.cu",
+              "src/repro/kernels/fedavg_reduce.py:26",
+              dist_launches["fedavg_reduce"], row)
+             for row in train_fed_rows},
+          # the most replicas the wrapper admits (ROADMAP Queue 3)
+          **{f"fedavg_reduce_max_replicas_{row['dtype']}": kernel_entry(
+              "fedavg_reduce", f"{csrc}/fedavg_reduce.cu",
+              "src/repro/kernels/fedavg_reduce.py:26", 0, row)
+             for row in fed_rows if row["shape"][0] == fr.MAX_REPLICAS}})
     print(smi, flush=True)
     emit({"kernels": [
         kernel_entry("gru_seq", f"{csrc}/gru_seq.cu",

@@ -1,0 +1,193 @@
+"""Device meshes over ``torch.distributed`` ranks, the counterpart of
+``make_hfl_mesh`` and ``make_test_mesh`` in ``repro/launch/mesh.py``.
+
+In JAX one process drives every device and a mesh is a grid of them.
+Here a mesh spans processes: every rank builds the same
+``DeviceMesh`` (``init_device_mesh`` with named dimensions) after its
+process group is up, and each mesh dimension is a process group.
+:func:`run_ranks` starts those processes on one host.
+
+The backend is the caller's choice and is never switched behind its
+back: ``nccl`` where each rank has a card of its own, ``gloo`` where
+ranks share one card or run on the CPU.  A failed ``init`` raises.
+
+The reference's TPU constants and ``make_production_mesh`` (256 and 512
+chips) belong to the dry-run layer, which is not ported yet."""
+from __future__ import annotations
+
+import os
+import shutil
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+BACKENDS = ("gloo", "nccl")
+
+
+def make_hfl_mesh(device_type: str, *, n_clusters: Optional[int] = None
+                  ) -> DeviceMesh:
+    """HFL mesh over every rank: a leading ``cluster`` axis of
+    ``n_clusters`` (default: one rank a cluster) and a ``data`` axis of
+    the ranks inside each cluster."""
+    world = dist.get_world_size()
+    n = world if n_clusters is None else n_clusters
+    if n < 1 or world % n:
+        raise ValueError(f"n_clusters {n} must divide the {world} ranks")
+    return init_device_mesh(device_type, (n, world // n),
+                            mesh_dim_names=("cluster", "data"))
+
+
+def make_test_mesh(device_type: str, shape: Sequence[int] = (2, 2, 2),
+                   axes: Sequence[str] = ("pod", "data", "model")
+                   ) -> DeviceMesh:
+    """Small mesh for tests; needs ``prod(shape)`` ranks."""
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def mesh_sizes(mesh: DeviceMesh) -> Dict[str, int]:
+    """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+_GROUPS: Dict[Tuple[Any, ...], Any] = {}
+
+
+def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
+    """The process group of this rank over the mesh axes ``axes`` taken
+    together (the ranks that share every other coordinate), as a JAX
+    collective over a tuple of axes.  One axis is the mesh's own group;
+    several are created once and cached, a collective call that every
+    rank of the world makes (the mesh must span it)."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in axes]
+    key = (tuple(mesh.mesh.shape), tuple(mesh.mesh.flatten().tolist()),
+           tuple(names), axes)
+    if key not in _GROUPS:
+        rest = [d for d in range(len(names)) if d not in dims]
+        grid = mesh.mesh.permute(rest + dims).reshape(
+            -1, int(torch.tensor([mesh.mesh.shape[d] for d in dims]).prod()))
+        mine, _ = dist.new_subgroups_by_enumeration(
+            [row.tolist() for row in grid])
+        _GROUPS[key] = mine
+    return _GROUPS[key]
+
+
+# ---------------------------------------------------------------------------
+# the launcher
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank: int, fn: Callable, world: int, backend: str,
+               device: str, store_path: str, results: str,
+               timeout: float, args: tuple) -> None:
+    """One rank: its device and process group, then ``fn``; its return
+    value goes to ``results/rank{rank}.pt``, a failure's traceback to
+    ``rank{rank}.err`` and a nonzero exit."""
+    # every rank is on this host: gloo talks over the loopback device
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group(
+            backend, store=store, rank=rank, world_size=world,
+            timeout=timedelta(seconds=timeout),
+            device_id=dev if backend == "nccl" else None)
+        try:
+            out = fn(rank, results, *args)
+            torch.save(out, os.path.join(results, f"rank{rank}.pt"))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(results, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+    for p in procs:
+        p.join(5)
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def run_ranks(fn: Callable, world: int, *, backend: str,
+              device: Any = "cpu", timeout: float = 120.0,
+              args: tuple = ()) -> List[Any]:
+    """Run ``fn(rank, results_dir, *args)`` in ``world`` processes on this
+    host, each in a process group of ``backend`` over a ``FileStore`` in a
+    temporary directory (no TCP port to race for), and return their
+    return values by rank: each rank writes its own to a file in
+    ``results_dir``, a temporary directory that is removed afterwards.
+
+    ``fn`` must be a module-level function: the processes are started
+    in *spawn* mode (the caller may hold CUDA), so they import it.
+    ``device`` is one device for every rank (``"cuda:0"``: ranks that
+    share a card) or a sequence of one a rank.  If a rank fails or the
+    ranks have not all finished within ``timeout`` seconds, the others
+    are killed and this raises, with the failed rank's traceback."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+    devices = ([str(device)] * world if isinstance(device, (str,
+               torch.device)) else [str(d) for d in device])
+    if len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    results = os.path.join(tmp, "results")
+    os.makedirs(results)
+    store_path = os.path.join(tmp, "store")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, fn, world, backend, devices[r], store_path,
+                               results, timeout, tuple(args)))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while True:
+            failed = [r for r, p in enumerate(procs)
+                      if p.exitcode not in (None, 0)]
+            if failed:
+                _stop(procs)
+                raise RuntimeError(_failure(results, procs))
+            if all(p.exitcode == 0 for p in procs):
+                break
+            if time.monotonic() > deadline:
+                _stop(procs)
+                raise TimeoutError(
+                    f"ranks {[r for r, p in enumerate(procs) if p.exitcode is None]}"
+                    f" of {world} still running after {timeout} s")
+            time.sleep(0.05)
+        return [torch.load(os.path.join(results, f"rank{r}.pt"),
+                           map_location="cpu", weights_only=False)
+                for r in range(world)]
+    finally:
+        _stop(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _failure(results: str, procs) -> str:
+    """Every stopped rank's exit code and traceback, the ranks that
+    raised first (a rank whose peer died fails in its collective)."""
+    lines = []
+    for r, p in enumerate(procs):
+        path = os.path.join(results, f"rank{r}.err")
+        text = open(path).read() if os.path.exists(path) else ""
+        lines.append(((not text, os.path.getmtime(path) if text else 0.0),
+                      f"rank {r} exited with code {p.exitcode}\n{text}"))
+    return "\n".join(t for _, t in sorted(lines))

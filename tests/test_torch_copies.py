@@ -8,6 +8,7 @@ tier fractions, and the communication costs are identical."""
 import ast
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -29,7 +30,9 @@ COPIES = [
     "serving/scheduler.py", "configs/xlstm_125m.py",
     "configs/whisper_small.py", "configs/internvl2_76b.py",
     "configs/llama3_405b.py", "configs/__init__.py", "data/tokens.py",
-    "data/__init__.py",
+    "data/__init__.py", "sim/budget.py", "sim/faults.py",
+    "sim/interference.py", "sim/cosim.py", "sim/reactive.py",
+    "sim/scenarios.py", "sim/__init__.py",
 ]
 #: copies with a documented difference: the names it adds
 DIFFERENCES = {"orchestration/controller.py": "device"}
@@ -42,7 +45,9 @@ def _rename(module):
 
 
 class _Normalise(ast.NodeTransformer):
-    """Drops docstrings and maps ``repro.`` imports to ``repro_torch.``."""
+    """Drops docstrings and maps ``repro.`` imports, and strings that are
+    a dotted path of one (``sim/__init__.py``'s lazy map), to
+    ``repro_torch.``."""
 
     def _drop_docstring(self, node):
         self.generic_visit(node)
@@ -64,6 +69,12 @@ class _Normalise(ast.NodeTransformer):
     def visit_Import(self, node):
         for alias in node.names:
             alias.name = _rename(alias.name)
+        return node
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str) and re.fullmatch(r"repro(\.\w+)+",
+                                                        node.value):
+            node.value = _rename(node.value)
         return node
 
 

@@ -1,11 +1,11 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py``,
-``examples/quickstart_torch.py``, ``examples/tiered_serving_torch.py``
-and ``examples/train_lm_hfl_torch.py`` import neither JAX nor anything
-of the JAX package ``repro``.  Checked
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and every
+``examples/*_torch.py`` import neither JAX nor anything of the JAX
+package ``repro``.  Checked
 twice: at run time, importing every module of the port in a subprocess
 where a meta-path finder blocks ``jax``, ``jaxlib`` and ``repro``; and
 statically, by an AST scan of every import."""
 import ast
+import glob
 import os
 import pkgutil
 import subprocess
@@ -62,7 +62,9 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.serving.replica" in modules
     assert "repro_torch.kernels.gru_cell" in modules
     for m in ("training.optimizer", "training.train_step", "fl.collectives",
-              "fl.compression", "data.tokens", "launch.train"):
+              "fl.compression", "data.tokens", "launch.train", "launch.mesh",
+              "sim.budget", "sim.faults", "sim.interference", "sim.cosim",
+              "sim.reactive", "sim.scenarios"):
         assert "repro_torch." + m in modules
     body = "".join(f"import {m}\n" for m in modules)
     body += "import sys\nprint(sorted(m for m in sys.modules " \
@@ -73,10 +75,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
 
 
 def _scanned_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "quickstart_torch.py"),
-             os.path.join(ROOT, "examples", "tiered_serving_torch.py"),
-             os.path.join(ROOT, "examples", "train_lm_hfl_torch.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += glob.glob(os.path.join(ROOT, "examples", "*_torch.py"))
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -91,6 +91,15 @@ def _imported_roots(path):
                 yield alias.name.split(".")[0], node.lineno
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module.split(".")[0], node.lineno
+
+
+def test_every_port_example_is_scanned():
+    names = {os.path.basename(p) for p in _scanned_files()}
+    assert {f"{e}_torch.py" for e in (
+        "quickstart", "tiered_serving", "train_lm_hfl",
+        "continual_hfl_traffic", "orchestrate_dynamic",
+        "reactive_orchestration", "scenario_suite",
+        "trace_reactive_run")} <= names
 
 
 @pytest.mark.parametrize("path", _scanned_files(),
