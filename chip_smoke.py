@@ -82,6 +82,14 @@ through the entry points a user calls:
   ``compressed_global_sync_manual`` on the same inputs; round-1 losses
   against the single-process run, replicas bit-identical across ranks
   after each sync, exact launches and the bytes each collective carried.
+- the dry-run launch layer (dryrun): ``launch/dryrun.py``'s
+  ``run_combo`` at full width on the host, over a fake world:
+  gemma3-1b's train_4k on the 256-rank mesh and decode_32k on the
+  512-rank one (one subprocess each, a record a line); meanwhile, in a
+  one-rank NCCL process, gemma3-1b's loss at train_slice's shape as
+  DTensors under the production rules (``flash_attention`` reached
+  through ``local_map``), against the unsharded loss, beside the
+  analytic roofline of train_slice's step on one rank.
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -276,6 +284,15 @@ TRAIN_MOE_K = 2
 DIST_RANKS = TRAIN_CLUSTERS
 DIST_BACKEND = "gloo"
 DIST_TIMEOUT = 420
+#: the dry-run phase: full-width combos traced on a fake world of 256 /
+#: 512 ranks on the host (each mesh size in a process of its own), and
+#: sharded_step: train_slice's gemma3-1b loss through the production
+#: rules on a one-rank CUDA mesh (nccl: one rank on its card)
+DRYRUN_COMBOS = (("single", GEMMA_ARCH, "train_4k"),
+                 ("multi", GEMMA_ARCH, "decode_32k"))
+DRYRUN_TIMEOUT = 240
+#: sharded_step's loss against the unsharded port's, the same card
+DRYRUN_LOSS_TOL = 1e-3
 #: served trees at full width: leaf -> shape
 FULL_WIDTH = {
     LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
@@ -3237,7 +3254,7 @@ def phase_train(torch):
     if not all(checks.values()):
         raise AssertionError(f"train_slice checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
-    return launches, fed_rows, flash_rows[0], losses
+    return launches, fed_rows, flash_rows[0], losses, step_profile
 
 
 def update_tol(lr, dw) -> float:
@@ -3694,6 +3711,152 @@ def phase_dist(torch, train_losses):
     return {k: sum(r["launches"][k] for r in ranks) for k in want}
 
 
+def dryrun_rank(rank, results):
+    """sharded_step in a process of its own (a default group of one rank,
+    module level: the spawned rank imports it): gemma3-1b drawn on the
+    card from the seed, its parameters DTensors laid out by their logical
+    axes under the production rules on a (data 1, model 1) CUDA mesh,
+    train_slice's first batch of cluster 0; the loss through that
+    layout (launches counted from 0 over it) and the unsharded port's
+    loss on the same tensors, each timed with CUDA events."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.common import logical_sharding
+    from repro_torch.params import flatten_with_path
+
+    prebuilt = (build.BUILD_ROOT / build.source_hash() / build.LIB_NAME
+                ).exists()
+    cfg = get_config(TRAIN_ARCH)
+    m = cfg.model
+    api = make_model(cfg)
+    params, axes = api.init_params(
+        torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+        with_axes=True)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=m.vocab_size, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH),
+        shard=0)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in stream.next_batch().items()}
+    mesh = make_test_mesh(DEVICE, (1, 1), ("data", "model"))
+    rules = sh.rules_for(cfg, mesh)
+    dparams = sh.distribute_tree(
+        params, mesh, sh.params_shardings(axes, params, mesh, rules))
+    dbatch = sh.distribute_tree(batch, mesh,
+                                sh.batch_shardings(batch, mesh, rules))
+
+    def sharded():
+        with logical_sharding(mesh, rules), implicit_replication():
+            return api.loss(dparams, dbatch)
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    with torch.no_grad():
+        ops.reset_launches()
+        loss, sharded_ms = timed(sharded)
+        launches = ops.launch_counts()
+        plain, plain_ms = timed(lambda: api.loss(params, batch))
+        _, sharded_again_ms = timed(sharded)
+    leaves = [x for _, x in flatten_with_path(dparams)]
+    return {"loss": float(loss.full_tensor()), "plain_loss": float(plain),
+            "is_dtensor": isinstance(loss, DTensor)
+            and all(isinstance(x, DTensor) for x in leaves),
+            "launches": launches, "prebuilt": prebuilt,
+            "sharded_ms": [sharded_ms, sharded_again_ms],
+            "plain_ms": plain_ms, "leaves": len(leaves),
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+
+
+def phase_dryrun(torch, step_profile):
+    """The dry-run launch layer: ``run_combo`` of gemma3-1b at full width
+    (train_4k on the 256-rank mesh, decode_32k on the 512-rank one)
+    traced on the host over a fake world, each mesh size in a
+    subprocess, the two at once; meanwhile sharded_step
+    (``dryrun_rank``) on the card: its loss against the unsharded one,
+    ``flash_attention`` launched through ``local_map`` on each rank's
+    (here: the one rank's) local tensors, and the analytic roofline of
+    train_slice's step on one rank beside train_slice's measured device
+    time for one cluster step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytic import analytic_roofline
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    with ThreadPoolExecutor(len(DRYRUN_COMBOS)) as pool:
+        futures = [pool.submit(dryrun.run_in_subprocess, mesh,
+                               [(arch, shape)], DRYRUN_TIMEOUT)
+                   for mesh, arch, shape in DRYRUN_COMBOS]
+        t_step = time.perf_counter()
+        step = run_ranks(dryrun_rank, 1, backend="nccl",
+                         device=f"{DEVICE}:0", timeout=DRYRUN_TIMEOUT)[0]
+        step_s = time.perf_counter() - t_step
+        records = [r for f in futures for r in f.result()]
+    for rec in records:
+        emit({"phase": "dryrun_record", **rec})
+    cfg = get_config(TRAIN_ARCH)
+    shape = InputShape("train_slice", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ana = analytic_roofline(cfg, shape, {"data": 1, "model": 1})
+    measured = step_profile.get("device_ms")
+    bound_s = max(ana.compute_s, ana.memory_s)
+    checks = {
+        "records_ok": len(records) == len(DRYRUN_COMBOS)
+        and all(r.get("ok") for r in records),
+        "records_traced": all(
+            r.get("roofline", {}).get("flops_per_device", 0) > 0
+            and sum(r.get("roofline", {}).get("collective_counts",
+                                              {}).values()) > 0
+            for r in records),
+        "sharded_on_dtensors": step["is_dtensor"],
+        "sharded_loss_equals_unsharded": bool(np.isfinite(step["loss"]))
+        and abs(step["loss"] - step["plain_loss"]) <= DRYRUN_LOSS_TOL,
+        "flash_attention_launched": step["launches"].get(
+            "flash_attention", 0) > 0,
+        "kernels_loaded_not_rebuilt": step["prebuilt"],
+    }
+    emit({"phase": "dryrun", "seconds": time.perf_counter() - t_phase,
+          "combos": [list(c) for c in DRYRUN_COMBOS],
+          "trace_s": {f"{r['arch']}__{r['shape']}__{r['mesh']}":
+                      r.get("trace_s") for r in records},
+          "sharded_step": {**step, "seconds": step_s,
+                           "loss_gap": abs(step["loss"] - step["plain_loss"]),
+                           "tol": DRYRUN_LOSS_TOL,
+                           "batch": [TRAIN_BATCH, TRAIN_SEQ]},
+          # the reference's math on one rank at train_slice's shape; its
+          # FSDP bytes on one rank are the reference's quirk (nothing
+          # moves), so the bound is the larger of compute and memory
+          "analytic_one_rank": ana.as_dict(),
+          "analytic_bound_ms": bound_s * 1e3,
+          "train_slice_device_ms_per_cluster_step": (
+              measured / TRAIN_CLUSTERS if measured else None),
+          "measured_over_bound": (measured / TRAIN_CLUSTERS / (bound_s * 1e3)
+                                  if measured else None),
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dryrun checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return step["launches"]
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3836,12 +3999,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = at("train_slice")
         (train_launches, train_fed_rows, train_flash_row,
-         train_losses) = phase_train(torch)
+         train_losses, train_profile) = phase_train(torch)
         torch.cuda.empty_cache()
         phase = at("train_parity")
         phase_train_parity(torch)
         phase = at("dist_slice")
         dist_launches = phase_dist(torch, train_losses)
+        phase = at("dryrun")
+        dryrun_launches = phase_dryrun(torch, train_profile)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
@@ -3855,7 +4020,9 @@ def main() -> int:
              "gemma_scheduler": sched_launches,
              "xlstm_slice": xlstm_launches,
              "whisper_slice": whisper_launches, "vlm_slice": vlm_launches,
-             "train_slice": train_launches, "dist_slice": dist_launches}
+             "train_slice": train_launches, "dist_slice": dist_launches,
+             "dryrun_sharded_step": {k: dryrun_launches.get(k, 0)
+                                     for k in launches}}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     csrc = "src/repro_torch/kernels/csrc"
     attn = (("flash_attention", 70), ("decode_attention", 57),

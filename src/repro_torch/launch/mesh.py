@@ -11,8 +11,13 @@ The backend is the caller's choice and is never switched behind its
 back: ``nccl`` where each rank has a card of its own, ``gloo`` where
 ranks share one card or run on the CPU.  A failed ``init`` raises.
 
-The reference's TPU constants and ``make_production_mesh`` (256 and 512
-chips) belong to the dry-run layer, which is not ported yet."""
+The dry-run layer's part (the reference's TPU constants and
+``make_production_mesh``) is here for the H100: the constants of one
+NVIDIA H100 80GB HBM3 (SXM) and production meshes of the reference's
+256 and 512 ranks laid out for nodes of 8 GPUs, tensor parallelism
+inside a node's NVLink and FSDP across nodes.  No TPU figure is carried
+over.  :func:`init_fake_world` gives a process a fake world of that
+many ranks, so those meshes are built on one host without a card."""
 from __future__ import annotations
 
 import os
@@ -27,7 +32,35 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from repro_torch.models.common import mesh_shape
+
 BACKENDS = ("gloo", "nccl")
+
+# ---------------------------------------------------------------------------
+# H100 constants (per GPU): the roofline's denominators
+# ---------------------------------------------------------------------------
+
+#: the card the constants describe, and its power limit (nvidia-smi on
+#: the card the measured ones were read from)
+CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+#: dense bf16 tensor-core peak, FLOP/s (NVIDIA H100 SXM datasheet)
+PEAK_FLOPS_BF16 = 989e12
+#: fp32 CUDA-core peak, FLOP/s (NVIDIA H100 SXM datasheet)
+PEAK_FLOPS_FP32 = 67e12
+#: HBM3 bandwidth, bytes/s (NVIDIA H100 SXM datasheet)
+HBM_BW = 3.35e12
+#: ``torch.cuda.get_device_properties(0).total_memory`` read on the card
+HBM_BYTES = 85_017_493_504
+#: NVLink 4 per GPU and direction, bytes/s (900 GB/s bidirectional;
+#: NVIDIA H100 SXM datasheet)
+NVLINK_BW = 450e9
+#: InfiniBand per GPU, bytes/s: one ConnectX-7 NDR 400 Gb/s port
+#: (NVIDIA ConnectX-7 datasheet)
+IB_BW = 50e9
+#: GPUs that share one NVLink domain (an HGX H100 node)
+GPUS_PER_NODE = 8
+#: ranks of one pod in the production meshes
+POD_RANKS = 256
 
 
 def make_hfl_mesh(device_type: str, *, n_clusters: Optional[int] = None
@@ -43,6 +76,60 @@ def make_hfl_mesh(device_type: str, *, n_clusters: Optional[int] = None
                             mesh_dim_names=("cluster", "data"))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cpu") -> DeviceMesh:
+    """The reference's 256 ranks as (data 32, model 8), or 512 as (pod 2,
+    data 32, model 8).  The reference's (16, 16) puts a 16-wide
+    tensor-parallel axis across two nodes, onto InfiniBand; here the
+    ``model`` axis is one node's 8 GPUs, inside NVLink.  Needs a world of
+    that many ranks (:func:`init_fake_world` for the dry run)."""
+    shape = (2, 32, GPUS_PER_NODE) if multi_pod else (32, GPUS_PER_NODE)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def production_hfl_shape(*, n_clusters: int = 4, multi_pod: bool = False
+                         ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """Shape and axis names of the production HFL mesh: (cluster,
+    32 // n_clusters, 8) on one pod, (cluster 2, data 32, model 8) with
+    one cluster a pod."""
+    axes = ("cluster", "data", "model")
+    if multi_pod:
+        return (2, 32, GPUS_PER_NODE), axes
+    if n_clusters < 1 or 32 % n_clusters:
+        raise ValueError("n_clusters must divide 32")
+    return (n_clusters, 32 // n_clusters, GPUS_PER_NODE), axes
+
+
+def make_production_hfl_mesh(*, n_clusters: int = 4, multi_pod: bool = False,
+                             device_type: str = "cpu") -> DeviceMesh:
+    """The reference's ``make_hfl_mesh`` at production size, laid out for
+    nodes of 8 GPUs (:func:`production_hfl_shape`)."""
+    shape, axes = production_hfl_shape(n_clusters=n_clusters,
+                                       multi_pod=multi_pod)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def init_fake_world(world: int, rank: int = 0) -> None:
+    """Make this process rank ``rank`` of a fake world of ``world`` ranks:
+    PyTorch's ``"fake"`` backend, whose collectives return at once and
+    move nothing, so DTensor programs over production meshes run (on
+    fake tensors) in one process.  It is private API
+    (``torch.testing._internal.distributed.fake_pg``) and may change
+    between releases.  A process has one default group: a world of
+    another size needs another process."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_world_size() != world or dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a world of {dist.get_world_size()} ranks "
+                f"({dist.get_backend()}) is already up; a fake world of "
+                f"{world} needs a process of its own")
+        return
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+
+
 def make_test_mesh(device_type: str, shape: Sequence[int] = (2, 2, 2),
                    axes: Sequence[str] = ("pod", "data", "model")
                    ) -> DeviceMesh:
@@ -51,9 +138,8 @@ def make_test_mesh(device_type: str, shape: Sequence[int] = (2, 2, 2),
                             mesh_dim_names=tuple(axes))
 
 
-def mesh_sizes(mesh: DeviceMesh) -> Dict[str, int]:
-    """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+#: axis name -> size, as ``jax.sharding.Mesh.shape``
+mesh_sizes = mesh_shape
 
 
 _GROUPS: Dict[Tuple[Any, ...], Any] = {}

@@ -40,6 +40,12 @@ over a key length of its own (the F encoder frames), and the decode step
 runs ``ops.decode_attention`` with every one of the F rows valid.  MLA's
 query compression (``q_lora_rank > 0``) is not ported yet (ROADMAP.md)
 and raises.
+
+On DTensors (the launch layer's shardings) the projections, rope and
+norms are DTensor ops under ``shard`` constraints, and the attention
+itself, dense decode and the ring writes run on each rank's local
+shards through ``models/sharded.py``; a decode cache split along its
+slots is merged from each rank's partial softmax (:func:`_decode_partial`).
 """
 from __future__ import annotations
 
@@ -50,7 +56,8 @@ import torch
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamInit
+from repro_torch.models import sharded
+from repro_torch.models.common import ParamInit, shard
 from repro_torch.models.rope import apply_rope
 
 _NEG_INF = -2.0e38  # fp32-safe mask value, as in the JAX module
@@ -67,25 +74,44 @@ def init_gqa(pi: ParamInit, path: str, d_model: int, a: AttentionConfig,
              stack: int = 0) -> None:
     check_supported(a)
     hd = a.head_dim
-    pi.param(f"{path}/wq", (d_model, a.num_heads, hd), stack=stack)
-    pi.param(f"{path}/wk", (d_model, a.num_kv_heads, hd), stack=stack)
-    pi.param(f"{path}/wv", (d_model, a.num_kv_heads, hd), stack=stack)
-    pi.param(f"{path}/wo", (a.num_heads, hd, d_model), stack=stack)
+    pi.param(f"{path}/wq", (d_model, a.num_heads, hd),
+             ("embed", "heads", "head_dim"), stack=stack)
+    pi.param(f"{path}/wk", (d_model, a.num_kv_heads, hd),
+             ("embed", "kv_heads", "head_dim"), stack=stack)
+    pi.param(f"{path}/wv", (d_model, a.num_kv_heads, hd),
+             ("embed", "kv_heads", "head_dim"), stack=stack)
+    pi.param(f"{path}/wo", (a.num_heads, hd, d_model),
+             ("heads", "head_dim", "embed"), stack=stack)
     if a.qk_norm:
-        pi.param(f"{path}/q_norm", (hd,), init="ones", stack=stack)
-        pi.param(f"{path}/k_norm", (hd,), init="ones", stack=stack)
+        pi.param(f"{path}/q_norm", (hd,), ("head_dim",), init="ones",
+                 stack=stack)
+        pi.param(f"{path}/k_norm", (hd,), ("head_dim",), init="ones",
+                 stack=stack)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, h, k = w.shape
-    return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+    y = torch.matmul(x, w.reshape(d, h * k))
+    if sharded.is_dtensor(y):
+        # rows whole on their ranks and whole heads split (no sequence
+        # split, which the product's backward cannot take, and no split
+        # of h * k that h does not divide, which the weight gradient's
+        # reshape cannot take)
+        y = sharded.whole_rows_of(shard(y, "batch", "seq", "heads_act",
+                                        sizes=tuple(y.shape[:-1]) + (h,)),
+                                  h)
+    return y.unflatten(-1, (h, k))
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd")."""
+    """einsum("bshk,hkd->bsd"), constrained like the residual stream (a
+    constraint the reference leaves to XLA's propagation: DTensor would
+    carry its product's layout, a split sequence among them, into the
+    next layer)."""
     h, k, d = wo.shape
-    return torch.matmul(o.flatten(-2), wo.reshape(h * k, d))
+    return shard(torch.matmul(o.flatten(-2), wo.reshape(h * k, d)),
+                 "batch", "seq", "embed_act")
 
 
 def _qkv(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
@@ -156,10 +182,23 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _attention(q, k, v, q_pos, k_pos, causal, window):
     """Full-sequence attention, queries at ``q_pos`` = 0..S-1 over keys at
     ``k_pos`` = 0..Sk-1: the flash kernel on the card, :func:`_sdpa` on
-    the CPU."""
+    the CPU; on DTensors, either on each rank's batch rows and heads
+    (``models/sharded.py``)."""
+    if sharded.is_dtensor(q):
+        q_pos, k_pos = sharded.plain(q_pos), sharded.plain(k_pos)
+        return sharded.attention(
+            lambda ql, kl, vl: _attention(ql, kl, vl, q_pos, k_pos, causal,
+                                          window), q, k, v)
     if q.is_cuda:
         return _flash(q, k, v, causal, window)
     return _sdpa(q, k, v, q_pos, k_pos, causal, window, 0.0)
+
+
+def _shard_qkv(q, k, v):
+    """The reference's activation constraints before attention."""
+    return (shard(q, "batch", "seq", "heads_act", None),
+            shard(k, "batch", "seq", "kv_heads_act", None),
+            shard(v, "batch", "seq", "kv_heads_act", None))
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +257,7 @@ def gqa_forward(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
             k = _rms_head_norm(k, p["k_norm"])
         causal = False
         k_pos = torch.arange(kv_source.shape[1], device=x.device)
+    q, k, v = _shard_qkv(q, k, v)
     out = _attention(q, k, v, positions, k_pos, causal, window)
     return _out_proj(out, p["wo"])
 
@@ -251,7 +291,7 @@ def gqa_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     positions ``[0, length)``.  ``x`` may be right-padded beyond
     ``length``; causality keeps pad keys out of every valid query."""
     check_supported(a)
-    q, k, v = _qkv(p, a, x, positions, inv_freq)
+    q, k, v = _shard_qkv(*_qkv(p, a, x, positions, inv_freq))
     out = _attention(q, k, v, positions, positions, True, window)
     slots = prefill_slots(cache.capacity, positions, length)
     _ring_write(cache.k, k, slots)
@@ -278,24 +318,69 @@ def gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     B = x.shape[0]
     pos = pos.long().expand(B) if pos.dim() == 0 else pos.long()
     q, k, v = _qkv(p, a, x, pos[:, None], inv_freq)
-    rows = torch.arange(B, device=x.device)
-    slot = cache.index.long() % cache.capacity
-    cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
-    cache.pos[rows, slot] = pos.to(cache.pos.dtype)
+    _write_slot(cache, (k[:, 0], v[:, 0], pos), cache.index.long()
+                % cache.capacity)
     cache.index.add_(1)
     valid = cache.pos >= 0
     if window is not None:
-        valid &= (pos[:, None] - cache.pos) < window
+        valid = valid & ((pos[:, None] - cache.pos) < window)
     # the cache may be stored in another dtype: upcast for the dot
     kc, vc = cache.k.to(q.dtype), cache.v.to(q.dtype)
-    if q.is_cuda:
-        out = ops.decode_attention(q[:, 0].contiguous(), kc, vc, valid,
-                                   soft_cap=a.logit_soft_cap)[:, None]
-    else:
-        out = _sdpa(q, kc, vc, pos[:1], torch.zeros_like(cache.pos[0]),
-                    False, None, a.logit_soft_cap, k_valid=valid)
+    out = _decode(q, kc, vc, valid, a.logit_soft_cap)
     return _out_proj(out, p["wo"]), cache
+
+
+def _write_slot(cache, rows, slot) -> None:
+    """Row b of each of ``rows`` (its new K/V or latents, and its
+    position) into the first fields of ``cache`` at ring slot
+    ``slot[b]``, in place."""
+    for buf, new in zip(cache, rows):
+        if sharded.is_dtensor(buf):
+            sharded.write_rows(buf, new, slot)
+        else:
+            buf[torch.arange(buf.shape[0], device=buf.device), slot] = \
+                new.to(buf.dtype)
+
+
+def _decode_plain(q, kc, vc, valid, soft_cap: float) -> torch.Tensor:
+    C = kc.shape[1]
+    zeros = torch.zeros((C,), dtype=torch.long, device=q.device)
+    return _sdpa(q, kc, vc, zeros[:1], zeros, False, None, soft_cap,
+                 k_valid=valid)
+
+
+def _decode_partial(q, kc, vc, valid, soft_cap: float):
+    """:func:`_decode_plain` over a share of the slots, unnormalised:
+    (sum of exp(score - max) . v (B,1,H,Dv) fp32, the max (B,1,H), the
+    sum of exp(score - max) (B,1,H))."""
+    B, _, Hq, D = q.shape
+    Hkv = kc.shape[2]
+    qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc).float() \
+        * (1.0 / math.sqrt(D))
+    if soft_cap:
+        scores = torch.tanh(scores / soft_cap) * soft_cap
+    scores = torch.where(valid[:, None, None, None, :], scores, _NEG_INF)
+    m = scores.amax(-1)
+    e = torch.exp(scores - m[..., None])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", e.to(vc.dtype), vc).float()
+    return (o.reshape(B, 1, Hq, vc.shape[-1]),
+            m.permute(0, 3, 1, 2).reshape(B, 1, Hq),
+            e.sum(-1).permute(0, 3, 1, 2).reshape(B, 1, Hq))
+
+
+def _decode(q, kc, vc, valid, soft_cap: float = 0.0) -> torch.Tensor:
+    """One query a row (B,1,H,D) over the cache rows kc/vc (B,C,Hkv,D)
+    where ``valid`` (B,C): ``ops.decode_attention`` on the card, the plain
+    version on the CPU; on DTensors through ``models/sharded.py``."""
+    if sharded.is_dtensor(kc):
+        return sharded.decode_attention(
+            lambda *t: _decode(*t, soft_cap),
+            lambda *t: _decode_partial(*t, soft_cap), q, kc, vc, valid)
+    if q.is_cuda:
+        return ops.decode_attention(q[:, 0].contiguous(), kc, vc, valid,
+                                    soft_cap=soft_cap)[:, None]
+    return _decode_plain(q, kc, vc, valid, soft_cap)
 
 
 def _cross_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
@@ -306,14 +391,8 @@ def _cross_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     q = _cross_q(p, a, x)
     kc, vc = ck.to(q.dtype), cv.to(q.dtype)
     B, F = kc.shape[:2]
-    if q.is_cuda:
-        valid = torch.ones((B, F), dtype=torch.bool, device=x.device)
-        out = ops.decode_attention(q[:, 0].contiguous(), kc, vc,
-                                   valid)[:, None]
-    else:
-        k_pos = torch.arange(F, device=x.device)
-        out = _sdpa(q, kc, vc, k_pos[:1], k_pos, False, None, 0.0)
-    return _out_proj(out, p["wo"])
+    valid = torch.ones((B, F), dtype=torch.bool, device=x.device)
+    return _out_proj(_decode(q, kc, vc, valid), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +430,9 @@ def _page_write(pages: torch.Tensor, new: torch.Tensor,
     """Write ``new`` (B, S, ...) into ``pages`` at (page_ids, slot_ids)
     (both (B, S)), in place; ids past the last page (padding) are
     dropped."""
+    if sharded.is_dtensor(pages):
+        sharded.write_pages(_page_write, pages, new, page_ids, slot_ids)
+        return pages
     keep = page_ids < pages.shape[0]
     pages[page_ids[keep].long(), slot_ids[keep].long()] = \
         new[keep].to(pages.dtype)
@@ -401,7 +483,6 @@ def paged_gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     of row b counts iff t <= pos[b] (and pos[b] - t < window): the math
     of :func:`gqa_decode`, so greedy tokens match the dense engine."""
     check_supported(a)
-    B = x.shape[0]
     pos = pos.long()
     q, k, v = _qkv(p, a, x, pos[:, None], inv_freq)
     ps = cache.page_size
@@ -411,23 +492,36 @@ def paged_gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     _page_write(cache.k_pages, k, pidx, slot)
     _page_write(cache.v_pages, v, pidx, slot)
     kp, vp = cache.k_pages.to(q.dtype), cache.v_pages.to(q.dtype)
-    if q.is_cuda:
-        out = ops.paged_decode_attention(
-            q[:, 0].contiguous(), kp, vp, block_tables.int().contiguous(),
-            (pos + 1).int(), soft_cap=a.logit_soft_cap,
-            window=window)[:, None]
-    else:
-        C = bt.shape[1] * ps
-        kg = kp[bt].reshape(B, C, *kp.shape[2:])
-        vg = vp[bt].reshape(B, C, *vp.shape[2:])
-        tok = torch.arange(C, device=x.device)[None, :]
-        valid = tok <= pos[:, None]
-        if window is not None:
-            valid &= (pos[:, None] - tok) < window
-        zeros = torch.zeros((C,), dtype=torch.long, device=x.device)
-        out = _sdpa(q, kg, vg, zeros[:1], zeros, False, None,
-                    a.logit_soft_cap, k_valid=valid)
+    out = _paged_decode(q, kp, vp, block_tables, pos, a.logit_soft_cap,
+                        window)
     return _out_proj(out, p["wo"]), cache
+
+
+def _paged_decode(q, kp, vp, block_tables, pos, soft_cap: float, window):
+    """One query a row (B,1,H,D) over the rows' pages: the paged kernel on
+    the card, a gather then :func:`_sdpa` on the CPU; on DTensors on each
+    rank's rows and heads (``models/sharded.py``)."""
+    if sharded.is_dtensor(q):
+        return sharded.paged(
+            lambda ql, kl, vl, bl, pl: _paged_decode(ql, kl, vl, bl, pl,
+                                                     soft_cap, window),
+            (q,), (kp, vp), block_tables, pos, head_pages=True)
+    if q.is_cuda:
+        return ops.paged_decode_attention(
+            q[:, 0].contiguous(), kp, vp, block_tables.int().contiguous(),
+            (pos + 1).int(), soft_cap=soft_cap, window=window)[:, None]
+    B, ps = q.shape[0], kp.shape[1]
+    bt = block_tables.long()
+    C = bt.shape[1] * ps
+    kg = kp[bt].reshape(B, C, *kp.shape[2:])
+    vg = vp[bt].reshape(B, C, *vp.shape[2:])
+    tok = torch.arange(C, device=q.device)[None, :]
+    valid = tok <= pos[:, None]
+    if window is not None:
+        valid &= (pos[:, None] - tok) < window
+    zeros = torch.zeros((C,), dtype=torch.long, device=q.device)
+    return _sdpa(q, kg, vg, zeros[:1], zeros, False, None, soft_cap,
+                 k_valid=valid)
 
 
 # ---------------------------------------------------------------------------
@@ -440,14 +534,20 @@ def init_mla(pi: ParamInit, path: str, d_model: int, a: AttentionConfig,
     m = a.mla
     H = a.num_heads
     pi.param(f"{path}/wq", (d_model, H, m.qk_nope_head_dim
-                            + m.qk_rope_head_dim), stack=stack)
-    pi.param(f"{path}/w_dkv", (d_model, m.kv_lora_rank), stack=stack)
-    pi.param(f"{path}/w_krope", (d_model, m.qk_rope_head_dim), stack=stack)
-    pi.param(f"{path}/kv_norm", (m.kv_lora_rank,), init="ones", stack=stack)
+                            + m.qk_rope_head_dim),
+             ("embed", "heads", "head_dim"), stack=stack)
+    pi.param(f"{path}/w_dkv", (d_model, m.kv_lora_rank),
+             ("embed", "kv_lora"), stack=stack)
+    pi.param(f"{path}/w_krope", (d_model, m.qk_rope_head_dim),
+             ("embed", "head_dim"), stack=stack)
+    pi.param(f"{path}/kv_norm", (m.kv_lora_rank,), ("kv_lora",),
+             init="ones", stack=stack)
     pi.param(f"{path}/w_uk", (m.kv_lora_rank, H, m.qk_nope_head_dim),
-             stack=stack)
-    pi.param(f"{path}/w_uv", (m.kv_lora_rank, H, m.v_head_dim), stack=stack)
-    pi.param(f"{path}/wo", (H, m.v_head_dim, d_model), stack=stack)
+             ("kv_lora", "heads", "head_dim"), stack=stack)
+    pi.param(f"{path}/w_uv", (m.kv_lora_rank, H, m.v_head_dim),
+             ("kv_lora", "heads", "head_dim"), stack=stack)
+    pi.param(f"{path}/wo", (H, m.v_head_dim, d_model),
+             ("heads", "head_dim", "embed"), stack=stack)
 
 
 def _rms_head_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -461,8 +561,12 @@ def _mla_latents(p, a: AttentionConfig, x: torch.Tensor,
                  positions: torch.Tensor, inv_freq: Optional[torch.Tensor]):
     """The compressed KV of ``x``: ``c_kv`` (B,S,R) after the ``kv_norm``
     RMS norm, and the roped ``k_rope`` (B,S,Dr) shared by all heads."""
-    c_kv = _rms_head_norm(torch.matmul(x, p["w_dkv"]), p["kv_norm"])
-    k_rope = torch.matmul(x, p["w_krope"])
+    # the latents whole on every rank of their rows (DTensor would split
+    # their rows over "model" as well, a split its backward cannot
+    # propagate)
+    c_kv = _rms_head_norm(shard(torch.matmul(x, p["w_dkv"]), "batch", "seq",
+                                None), p["kv_norm"])
+    k_rope = shard(torch.matmul(x, p["w_krope"]), "batch", "seq", None)
     if inv_freq is not None:
         k_rope = apply_rope(k_rope[:, :, None, :], positions,
                             inv_freq)[:, :, 0, :]
@@ -495,6 +599,7 @@ def _mla_attend(p, a: AttentionConfig, x: torch.Tensor,
                                             k_rope.shape[-1])
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+    q_full, k_full, v = _shard_qkv(q_full, k_full, v)
     out = _attention(q_full, k_full, v, positions, positions, True, None)
     return _out_proj(out, p["wo"]), c_kv, k_rope
 
@@ -508,13 +613,19 @@ def _absorbed(p, a: AttentionConfig, q_c, q_rope, c_kv, k_rope, valid):
     step: q_c (B,1,H,R), q_rope (B,1,H,Dr), c_kv (B,C,R), k_rope (B,C,Dr)
     in the activations' dtype, valid (B,C) -> per-head values
     (B,1,H,v)."""
+    return torch.einsum("bshr,rhk->bshk",
+                        _absorbed_ctx(a, q_c, q_rope, c_kv, k_rope, valid),
+                        p["w_uv"])
+
+
+def _absorbed_ctx(a: AttentionConfig, q_c, q_rope, c_kv, k_rope, valid):
+    """:func:`_absorbed`'s latent context (B,1,H,R), before ``w_uv``."""
     s_nope = torch.einsum("bshr,bcr->bhsc", q_c, c_kv)
     s_rope = torch.einsum("bshr,bcr->bhsc", q_rope, k_rope)
     scores = (s_nope + s_rope).float() * _mla_scale(a)
     scores = torch.where(valid[:, None, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
-    ctx = torch.einsum("bhsc,bcr->bshr", probs, c_kv)
-    return torch.einsum("bshr,rhk->bshk", ctx, p["w_uv"])
+    return torch.einsum("bhsc,bcr->bshr", probs, c_kv)
 
 
 def mla_forward(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
@@ -585,11 +696,8 @@ def mla_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     pos = pos.long().expand(B) if pos.dim() == 0 else pos.long()
     q_nope, q_rope = _mla_query(p, a, x, pos[:, None], inv_freq)
     c_new, kr_new = _mla_latents(p, a, x, pos[:, None], inv_freq)
-    rows = torch.arange(B, device=x.device)
-    slot = cache.index.long() % cache.capacity
-    cache.c_kv[rows, slot] = c_new[:, 0].to(cache.c_kv.dtype)
-    cache.k_rope[rows, slot] = kr_new[:, 0].to(cache.k_rope.dtype)
-    cache.pos[rows, slot] = pos.to(cache.pos.dtype)
+    _write_slot(cache, (c_new[:, 0], kr_new[:, 0], pos),
+                cache.index.long() % cache.capacity)
     cache.index.add_(1)
     q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
     out = _absorbed(p, a, q_c, q_rope, cache.c_kv.to(x.dtype),
@@ -649,7 +757,6 @@ def paged_mla_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     context are ``ops.paged_mla_decode_attention`` with ``lengths = pos +
     1``; ``w_uv`` and ``wo`` follow."""
     check_supported(a)
-    B = x.shape[0]
     pos = pos.long()
     q_nope, q_rope = _mla_query(p, a, x, pos[:, None], inv_freq)
     c_new, kr_new = _mla_latents(p, a, x, pos[:, None], inv_freq)
@@ -661,15 +768,30 @@ def paged_mla_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     _page_write(cache.krope_pages, kr_new, pidx, slot)
     q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
     ckv, kr = cache.ckv_pages.to(x.dtype), cache.krope_pages.to(x.dtype)
-    if x.is_cuda:
-        ctx = ops.paged_mla_decode_attention(
+    ctx = _paged_mla_ctx(a, q_c, q_rope, ckv, kr, block_tables, pos)
+    out = torch.einsum("bshr,rhk->bshk", ctx, p["w_uv"])
+    return _out_proj(out, p["wo"]), cache
+
+
+def _paged_mla_ctx(a: AttentionConfig, q_c, q_rope, ckv, kr, block_tables,
+                   pos):
+    """The latent context (B,1,H,R) of one absorbed query a row over the
+    rows' latent pages: the paged MLA kernel on the card, a gather then
+    :func:`_absorbed_ctx` on the CPU; on DTensors on each rank's rows and
+    heads (the latents serve every head)."""
+    if sharded.is_dtensor(q_c):
+        return sharded.paged(
+            lambda qc, qr, cl, kl, bl, pl: _paged_mla_ctx(a, qc, qr, cl, kl,
+                                                          bl, pl),
+            (q_c, q_rope), (ckv, kr), block_tables, pos, head_pages=False)
+    if q_c.is_cuda:
+        return ops.paged_mla_decode_attention(
             q_c[:, 0].contiguous(), q_rope[:, 0].contiguous(), ckv, kr,
             block_tables.int().contiguous(), (pos + 1).int(),
             scale=_mla_scale(a))[:, None]
-        out = torch.einsum("bshr,rhk->bshk", ctx, p["w_uv"])
-    else:
-        C = bt.shape[1] * ps
-        valid = torch.arange(C, device=x.device)[None, :] <= pos[:, None]
-        out = _absorbed(p, a, q_c, q_rope, ckv[bt].reshape(B, C, -1),
-                        kr[bt].reshape(B, C, -1), valid)
-    return _out_proj(out, p["wo"]), cache
+    B, ps = q_c.shape[0], ckv.shape[1]
+    bt = block_tables.long()
+    C = bt.shape[1] * ps
+    valid = torch.arange(C, device=q_c.device)[None, :] <= pos[:, None]
+    return _absorbed_ctx(a, q_c, q_rope, ckv[bt].reshape(B, C, -1),
+                         kr[bt].reshape(B, C, -1), valid)

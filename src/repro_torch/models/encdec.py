@@ -41,7 +41,8 @@ Params = Dict[str, Any]
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None,
+                with_axes: bool = False) -> Params:
     """Fresh parameters in ``cfg.param_dtype``, each leaf drawn where
     ``generator`` lives and moved to ``device`` before the next."""
     pi = ParamInit(generator, to_dtype(cfg.param_dtype),
@@ -61,7 +62,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     init_mlp(pi, "decoder/mlp", d, cfg.d_ff, cfg.act, stack=Ld)
     init_norm(pi, "enc_norm", d, cfg.norm)
     init_norm(pi, "final_norm", d, cfg.norm)
-    return pi.params
+    return pi.build() if with_axes else pi.params
 
 
 def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:

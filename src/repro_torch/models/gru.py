@@ -32,11 +32,20 @@ def _fan_in_normal(shape, generator: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator) * std
 
 
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of every leaf, as ``repro/models/gru.py`` gives
+    them to its ``ParamBuilder``."""
+    gru = {str(i): {"w_x": (None, "mlp"), "w_h": (None, "mlp"),
+                    "b": ("mlp",)} for i in range(cfg.rnn_layers)}
+    return {"gru": gru, "head": {"w": ("mlp", None), "b": (None,)}}
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, with_axes: bool = False) -> Params:
     """Fresh float32 parameters; ``generator`` is a CPU generator.  The
     draws differ from ``repro``'s for the same seed: parity goes through
-    weights carried over with :func:`repro_torch.params.from_numpy_tree`."""
+    weights carried over with :func:`repro_torch.params.from_numpy_tree`.
+    ``with_axes`` returns (params, :func:`param_axes`)."""
     dev = resolve_device(device)
     h = cfg.rnn_hidden
     gru = {}
@@ -48,7 +57,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                        "b": torch.zeros(3 * h)}
     params = {"gru": gru, "head": {"w": _fan_in_normal((h, 1), generator),
                                    "b": torch.zeros(1)}}
-    return tree_map(lambda t: t.to(dev), params)
+    params = tree_map(lambda t: t.to(dev), params)
+    return (params, param_axes(cfg)) if with_axes else params
 
 
 def _gru_layer(p: Params, x: torch.Tensor) -> torch.Tensor:

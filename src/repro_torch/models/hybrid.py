@@ -59,7 +59,8 @@ def _window(cfg: ModelConfig):
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None,
+                with_axes: bool = False) -> Params:
     """Fresh parameters in ``cfg.param_dtype`` (``A_log``, ``D`` and
     ``dt_bias`` in fp32), each leaf drawn where ``generator`` lives and
     moved to ``device`` before the next (``models/common.py``)."""
@@ -75,7 +76,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     init_norm(pi, "shared/ln2", d, cfg.norm)
     init_mlp(pi, "shared/mlp", d, cfg.d_ff, cfg.act)
     init_norm(pi, "final_norm", d, cfg.norm)
-    return pi.params
+    return pi.build() if with_axes else pi.params
 
 
 def _mamba_layer(cfg: ModelConfig, p: Params, x: torch.Tensor

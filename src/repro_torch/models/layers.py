@@ -12,14 +12,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamInit
+from repro_torch.models import sharded
+from repro_torch.models.common import ParamInit, shard
 
 
 def init_norm(pi: ParamInit, path: str, dim: int, kind: str,
               stack: int = 0) -> None:
-    pi.param(f"{path}/scale", (dim,), init="ones", stack=stack)
+    pi.param(f"{path}/scale", (dim,), ("embed",), init="ones", stack=stack)
     if kind == "layernorm":
-        pi.param(f"{path}/bias", (dim,), init="zeros", stack=stack)
+        pi.param(f"{path}/bias", (dim,), ("embed",), init="zeros",
+                 stack=stack)
 
 
 def apply_norm(p: Dict[str, Any], x: torch.Tensor, kind: str,
@@ -40,44 +42,53 @@ def apply_norm(p: Dict[str, Any], x: torch.Tensor, kind: str,
 def init_mlp(pi: ParamInit, path: str, d_model: int, d_ff: int, act: str,
              stack: int = 0) -> None:
     if act == "silu":
-        pi.param(f"{path}/wi_gate", (d_model, d_ff), stack=stack)
-        pi.param(f"{path}/wi_up", (d_model, d_ff), stack=stack)
+        pi.param(f"{path}/wi_gate", (d_model, d_ff), ("embed", "mlp"),
+                 stack=stack)
+        pi.param(f"{path}/wi_up", (d_model, d_ff), ("embed", "mlp"),
+                 stack=stack)
     else:
-        pi.param(f"{path}/wi", (d_model, d_ff), stack=stack)
-    pi.param(f"{path}/wo", (d_ff, d_model), stack=stack)
+        pi.param(f"{path}/wi", (d_model, d_ff), ("embed", "mlp"),
+                 stack=stack)
+    pi.param(f"{path}/wo", (d_ff, d_model), ("mlp", "embed"), stack=stack)
 
 
 def apply_mlp(p: Dict[str, Any], x: torch.Tensor, act: str) -> torch.Tensor:
     """SwiGLU for ``act="silu"``, a plain 2-matrix MLP for ``"gelu"``."""
     if act == "silu":
-        g = torch.matmul(x, p["wi_gate"])
-        u = torch.matmul(x, p["wi_up"])
+        g = shard(torch.matmul(x, p["wi_gate"]), "batch", "seq", "mlp_act")
+        u = shard(torch.matmul(x, p["wi_up"]), "batch", "seq", "mlp_act")
         h = F.silu(g.float()).to(x.dtype) * u
     else:
-        h = torch.matmul(x, p["wi"])
+        h = shard(torch.matmul(x, p["wi"]), "batch", "seq", "mlp_act")
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return torch.matmul(h, p["wo"])
+    h = shard(h, "batch", "seq", "mlp_act")
+    # the output constrained like the residual stream: DTensor would
+    # otherwise scatter its partial sums along the sequence
+    return shard(torch.matmul(h, p["wo"]), "batch", "seq", "embed_act")
 
 
 def init_embedding(pi: ParamInit, cfg: ModelConfig) -> None:
     v = cfg.padded_vocab
-    pi.param("embed/table", (v, cfg.d_model), init="normal", scale=0.02)
+    pi.param("embed/table", (v, cfg.d_model), ("vocab", "embed"),
+             init="normal", scale=0.02)
     if not cfg.tie_embeddings:
-        pi.param("lm_head/w", (cfg.d_model, v))
+        pi.param("lm_head/w", (cfg.d_model, v), ("embed", "vocab"))
 
 
 def embed_tokens(params: Dict[str, Any], cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["table"][tokens.long()]
+    table = params["embed"]["table"]
+    x = (sharded.embedding(table, tokens) if sharded.is_dtensor(table)
+         else table[tokens.long()])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=torch.float32
                              ).to(x.dtype)
-    return x
+    return shard(x, "batch", "seq", "embed_act")
 
 
 def logits_from_hidden(params: Dict[str, Any], cfg: ModelConfig,
                        x: torch.Tensor) -> torch.Tensor:
     w = (params["embed"]["table"].T if cfg.tie_embeddings
          else params["lm_head"]["w"])
-    return torch.matmul(x, w)
+    return shard(torch.matmul(x, w), "batch", "seq", "vocab_act")

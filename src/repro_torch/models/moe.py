@@ -23,6 +23,10 @@ separate calls would: the dense engine's decode step passes one group
 per row, because the JAX engine vmaps its decode over slots and every
 slot's layer sees one token.  Routing is still one kernel launch over
 all the tokens.
+
+On DTensors the routed experts run on each rank's tokens through
+``models/sharded.py`` (capacity and aux loss then per rank's tokens);
+the shared experts are DTensor ops.
 """
 from __future__ import annotations
 
@@ -34,21 +38,26 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamInit
+from repro_torch.models import sharded
+from repro_torch.models.common import ParamInit, shard
 from repro_torch.models.layers import apply_mlp, init_mlp
 
 
 def init_moe(pi: ParamInit, path: str, d_model: int, moe: MoEConfig,
              act: str, stack: int = 0) -> None:
     E = moe.num_experts
-    pi.param(f"{path}/router", (d_model, E), dtype=torch.float32,
-             stack=stack)
+    pi.param(f"{path}/router", (d_model, E), ("embed", None),
+             dtype=torch.float32, stack=stack)
     if act == "silu":
-        pi.param(f"{path}/wi_gate", (E, d_model, moe.d_expert), stack=stack)
-        pi.param(f"{path}/wi_up", (E, d_model, moe.d_expert), stack=stack)
+        pi.param(f"{path}/wi_gate", (E, d_model, moe.d_expert),
+                 ("expert", "embed", "mlp"), stack=stack)
+        pi.param(f"{path}/wi_up", (E, d_model, moe.d_expert),
+                 ("expert", "embed", "mlp"), stack=stack)
     else:
-        pi.param(f"{path}/wi", (E, d_model, moe.d_expert), stack=stack)
-    pi.param(f"{path}/wo", (E, moe.d_expert, d_model), stack=stack)
+        pi.param(f"{path}/wi", (E, d_model, moe.d_expert),
+                 ("expert", "embed", "mlp"), stack=stack)
+    pi.param(f"{path}/wo", (E, moe.d_expert, d_model),
+             ("expert", "mlp", "embed"), stack=stack)
     shared = moe.d_shared if moe.d_shared else moe.num_shared * moe.d_expert
     if shared:
         init_mlp(pi, f"{path}/shared", d_model, shared, act, stack=stack)
@@ -117,6 +126,22 @@ def apply_moe(p: Dict[str, Any], moe: MoEConfig, x: torch.Tensor, act: str,
     each get their own capacity.  The aux loss needs the full softmax,
     which the router kernel does not return: it is computed only with
     ``with_aux`` (training's forward), else it is 0."""
+    if sharded.is_dtensor(x):
+        out, aux = sharded.moe(
+            lambda xl, ps: _routed(ps, moe, xl, act, groups, with_aux),
+            x, {k: v for k, v in p.items() if k != "shared"})
+    else:
+        out, aux = _routed(p, moe, x, act, groups, with_aux)
+    out = shard(out, "batch", "seq", "embed_act")
+    if "shared" in p:
+        out = out + apply_mlp(p["shared"], x, act)
+    return out, aux
+
+
+def _routed(p: Dict[str, Any], moe: MoEConfig, x: torch.Tensor, act: str,
+            groups: int, with_aux: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts of :func:`apply_moe`: x (B,S,d) -> (out
+    (B,S,d), aux)."""
     B, S, d = x.shape
     t = B * S
     E, K = moe.num_experts, moe.top_k
@@ -144,7 +169,4 @@ def apply_moe(p: Dict[str, Any], moe: MoEConfig, x: torch.Tensor, act: str,
     y = _experts(p, xs, act).reshape(n_slots, d)
     y = torch.cat([y, y.new_zeros((1, d))])[slot]             # (t*K, d)
     y = y * topw.reshape(t * K, 1).to(x.dtype)
-    out = y.reshape(t, K, d).sum(dim=1).reshape(B, S, d)
-    if "shared" in p:
-        out = out + apply_mlp(p["shared"], x, act)
-    return out, aux
+    return y.reshape(t, K, d).sum(dim=1).reshape(B, S, d), aux

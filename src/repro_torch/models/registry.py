@@ -22,14 +22,16 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import encdec, gru, hybrid, transformer, xlstm
+from repro_torch.models import (encdec, gru, hybrid, sharded,
+                                transformer, xlstm)
 from repro_torch.models.common import to_dtype
 
 
 class ModelApi(NamedTuple):
     cfg: ArchConfig
-    #: (generator, device=None) -> params; no logical-axis tree yet, as
-    #: the port does not shard
+    #: (generator, device=None, with_axes=False) -> params, or (params,
+    #: logical-axes tree) with ``with_axes``: the tree the launch layer
+    #: maps to DTensor placements (``launch/shardings.py``)
     init_params: Callable[..., Any]
     forward: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
     loss: Callable[[Any, Dict[str, torch.Tensor]], torch.Tensor]
@@ -52,8 +54,14 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     valid = (labels >= 0) & (labels < vocab_size)
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    nll = (torch.logsumexp(logits, -1)
-           - torch.gather(logits, -1, safe[..., None])[..., 0]) * valid
+    if sharded.is_dtensor(logits):
+        # the label's logit as a masked sum over the (maybe split) vocab:
+        # a gather along a split dim is what DTensor cannot reduce
+        ids = torch.arange(logits.shape[-1], device=labels.device)
+        picked = torch.where(ids == safe[..., None], logits, 0.0).sum(-1)
+    else:
+        picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (torch.logsumexp(logits, -1) - picked) * valid
     return nll.sum() / valid.sum().clamp(min=1)
 
 
@@ -69,8 +77,8 @@ def _rnn_api(cfg: ArchConfig) -> ModelApi:
 
     return ModelApi(
         cfg=cfg,
-        init_params=lambda generator, device=None:
-            gru.init_params(generator, m, device),
+        init_params=lambda generator, device=None, with_axes=False:
+            gru.init_params(generator, m, device, with_axes),
         forward=fwd,
         loss=loss,
         init_cache=lambda b, n, device=None: None,
@@ -122,8 +130,8 @@ def _transformer_api(cfg: ArchConfig) -> ModelApi:
 
     return ModelApi(
         cfg=cfg,
-        init_params=lambda generator, device=None:
-            transformer.init_params(generator, m, device),
+        init_params=lambda generator, device=None, with_axes=False:
+            transformer.init_params(generator, m, device, with_axes),
         forward=fwd,
         loss=loss,
         init_cache=lambda b, n, device=None: transformer.init_cache(
@@ -155,8 +163,8 @@ def _recurrent_api(cfg: ArchConfig, mod) -> ModelApi:
 
     return ModelApi(
         cfg=cfg,
-        init_params=lambda generator, device=None:
-            mod.init_params(generator, m, device),
+        init_params=lambda generator, device=None, with_axes=False:
+            mod.init_params(generator, m, device, with_axes),
         forward=fwd,
         loss=loss,
         init_cache=lambda b, n, device=None: mod.init_cache(

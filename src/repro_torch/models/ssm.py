@@ -28,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamInit
+from repro_torch.models import sharded
+from repro_torch.models.common import ParamInit, shard
 
 
 class SSMState(NamedTuple):
@@ -53,21 +54,28 @@ def init_mamba2(pi: ParamInit, path: str, d_model: int, s: SSMConfig,
     f32 = torch.float32
     # fused input projection: [z, x, B, C, dt]
     pi.param(f"{path}/in_proj", (d_model, 2 * d_in + 2 * G * N + H),
+             ("embed", "mlp"), stack=stack)
+    pi.param(f"{path}/conv_w", (s.conv_width, conv_ch), (None, "mlp"),
              stack=stack)
-    pi.param(f"{path}/conv_w", (s.conv_width, conv_ch), stack=stack)
-    pi.param(f"{path}/conv_b", (conv_ch,), init="zeros", stack=stack)
-    pi.param(f"{path}/A_log", (H,), init="zeros", dtype=f32, stack=stack)
-    pi.param(f"{path}/D", (H,), init="ones", dtype=f32, stack=stack)
-    pi.param(f"{path}/dt_bias", (H,), init="zeros", dtype=f32, stack=stack)
-    pi.param(f"{path}/norm_scale", (d_in,), init="ones", stack=stack)
-    pi.param(f"{path}/out_proj", (d_in, d_model), stack=stack)
+    pi.param(f"{path}/conv_b", (conv_ch,), ("mlp",), init="zeros",
+             stack=stack)
+    pi.param(f"{path}/A_log", (H,), ("heads",), init="zeros", dtype=f32,
+             stack=stack)
+    pi.param(f"{path}/D", (H,), ("heads",), init="ones", dtype=f32,
+             stack=stack)
+    pi.param(f"{path}/dt_bias", (H,), ("heads",), init="zeros", dtype=f32,
+             stack=stack)
+    pi.param(f"{path}/norm_scale", (d_in,), ("mlp",), init="ones",
+             stack=stack)
+    pi.param(f"{path}/out_proj", (d_in, d_model), ("mlp", "embed"),
+             stack=stack)
 
 
 def _split_proj(p: Dict[str, Any], x: torch.Tensor, d_model: int,
                 s: SSMConfig):
     dd = mamba_dims(d_model, s)
     d_in, GN = dd["d_in"], dd["G"] * dd["N"]
-    zxbcdt = torch.matmul(x, p["in_proj"])
+    zxbcdt = shard(torch.matmul(x, p["in_proj"]), "batch", "seq", "mlp_act")
     z = zxbcdt[..., :d_in]
     xin = zxbcdt[..., d_in:2 * d_in]
     Bm = zxbcdt[..., 2 * d_in:2 * d_in + GN]
@@ -81,6 +89,8 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv: xbc (B,L,ch), w (W,ch).  The W taps are
     summed in xbc's dtype, in JAX's order (``F.conv1d`` would accumulate
     otherwise), then ``silu`` in fp32."""
+    if sharded.is_dtensor(xbc):
+        return sharded.depthwise(_causal_conv, xbc, w, b)
     W, L = w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, W - 1, 0))
     out = torch.zeros_like(xbc)
@@ -173,6 +183,8 @@ def _scan(xin: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
           Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> torch.Tensor:
     """The SSD scan of :func:`mamba2_forward`: the kernel on the card
     (ngroups 1), :func:`ssd_chunked` on the CPU."""
+    if sharded.is_dtensor(xin):
+        return sharded.scan(lambda *t: _scan(*t, chunk), xin, dt, A, Bm, Cm)
     if not xin.is_cuda:
         return ssd_chunked(xin, dt, A, Bm, Cm, chunk)[0]
     if Bm.shape[2] != 1:
@@ -206,7 +218,11 @@ def mamba2_forward(p: Dict[str, Any], d_model: int, s: SSMConfig,
     y = y + xin * p["D"][:, None].to(y.dtype)
     y = y.reshape(B, L, dd["d_in"])
     y = _gated_norm(y, z, p["norm_scale"])
-    return torch.matmul(y, p["out_proj"])
+    y = shard(y, "batch", "seq", "mlp_act")
+    # the output constrained like the residual stream (DTensor could
+    # otherwise split the sequence over an idle mesh axis)
+    return shard(torch.matmul(y, p["out_proj"]), "batch", "seq",
+                 "embed_act")
 
 
 def init_ssm_state(batch: int, d_model: int, s: SSMConfig,
@@ -255,4 +271,5 @@ def mamba2_decode(p: Dict[str, Any], d_model: int, s: SSMConfig,
     y = y + xin.float() * p["D"][:, None]
     y = y.reshape(B, 1, dd["d_in"]).to(x.dtype)
     y = _gated_norm(y, z, p["norm_scale"])
-    return torch.matmul(y, p["out_proj"]), state
+    return shard(torch.matmul(y, p["out_proj"]), "batch", "seq",
+                 "embed_act"), state

@@ -205,7 +205,8 @@ def _init_layer(pi: ParamInit, cfg: ModelConfig, path: str, moe_layer: bool,
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None,
+                with_axes: bool = False) -> Params:
     """Fresh parameters in ``cfg.param_dtype`` (MoE routers in fp32).
     Each leaf is drawn where ``generator`` lives (a CPU generator draws
     on the host, a CUDA one on the card) and moved to ``device`` before
@@ -221,7 +222,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     _init_layer(pi, cfg, "layers", cfg.moe is not None, cfg.d_ff,
                 stack=cfg.num_layers - n_lead)
     init_norm(pi, "final_norm", cfg.d_model, cfg.norm)
-    return pi.params
+    return pi.build() if with_axes else pi.params
 
 
 def _head(params, cfg, x):

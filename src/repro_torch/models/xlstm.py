@@ -19,20 +19,27 @@ with the batch on axis 0: fp32 states whose stabiliser ``m`` starts at
 ``cfg.dtype``.  The decode step writes it in place.
 
 The JAX package has no Pallas kernel for xLSTM, so neither has the port:
-it runs PyTorch ops on the card as on the CPU.
+it runs PyTorch ops on the card as on the CPU.  On DTensors the mLSTM's
+parallel form, the sLSTM's loop and the convolutions run on each rank's
+batch rows and heads (``models/sharded.py``); the dry run traces the
+sLSTM's loop for a bounded number of steps (:func:`bounded_recurrence`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import sharded
 from repro_torch.models.attention import _project
-from repro_torch.models.common import ParamInit, to_dtype
+from repro_torch.models.common import ParamInit, shard, to_dtype
 from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        init_embedding, init_norm,
                                        logits_from_hidden)
@@ -45,6 +52,8 @@ def _conv_silu(xc: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv over time (front-padded, shifted copies
     summed in xc's dtype), then SiLU in fp32."""
+    if isinstance(xc, DTensor):
+        return sharded.depthwise(_conv_silu, xc, w, b)
     W, T = w.shape[0], xc.shape[1]
     pad = F.pad(xc, (0, 0, W - 1, 0))
     out = torch.zeros_like(xc)
@@ -68,7 +77,9 @@ def _head_groupnorm(h: torch.Tensor, scale: torch.Tensor,
     mu = h32.mean(-1, keepdim=True)
     var = h32.var(-1, keepdim=True, unbiased=False)
     y = (h32 - mu) * torch.rsqrt(var + eps)
-    return y.flatten(-2) * scale.float()
+    # the heads whole on every rank in the gradient too: its unflatten
+    # back to (H, hd) cannot take a split H does not divide
+    return shard(y.flatten(-2), "batch", "seq", None) * scale.float()
 
 
 # ---------------------------------------------------------------------------
@@ -94,17 +105,17 @@ def init_mlstm(pi: ParamInit, path: str, cfg: ModelConfig) -> None:
     dc, H, hd = _mlstm_dims(cfg)
     f32 = torch.float32
     init_norm(pi, f"{path}/norm", d, cfg.norm)
-    pi.param(f"{path}/w_up", (d, 2 * dc))
-    pi.param(f"{path}/conv_w", (x.conv_width, dc))
-    pi.param(f"{path}/conv_b", (dc,), init="zeros")
+    pi.param(f"{path}/w_up", (d, 2 * dc), ("embed", "mlp"))
+    pi.param(f"{path}/conv_w", (x.conv_width, dc), (None, "mlp"))
+    pi.param(f"{path}/conv_b", (dc,), ("mlp",), init="zeros")
     for nm in ("wq", "wk", "wv"):
-        pi.param(f"{path}/{nm}", (dc, H, hd))
-    pi.param(f"{path}/w_i", (dc, H), dtype=f32)
-    pi.param(f"{path}/w_f", (dc, H), dtype=f32)
-    pi.param(f"{path}/b_i", (H,), init="zeros", dtype=f32)
-    pi.param(f"{path}/b_f", (H,), init="ones", dtype=f32)
-    pi.param(f"{path}/out_norm", (dc,), init="ones")
-    pi.param(f"{path}/w_down", (dc, d))
+        pi.param(f"{path}/{nm}", (dc, H, hd), ("mlp", "heads", "head_dim"))
+    pi.param(f"{path}/w_i", (dc, H), ("mlp", "heads"), dtype=f32)
+    pi.param(f"{path}/w_f", (dc, H), ("mlp", "heads"), dtype=f32)
+    pi.param(f"{path}/b_i", (H,), ("heads",), init="zeros", dtype=f32)
+    pi.param(f"{path}/b_f", (H,), ("heads",), init="ones", dtype=f32)
+    pi.param(f"{path}/out_norm", (dc,), ("mlp",), init="ones")
+    pi.param(f"{path}/w_down", (dc, d), ("mlp", "embed"))
 
 
 def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -113,7 +124,12 @@ def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Stabilised parallel mLSTM.  q, k, v (B,T,H,hd); logf, logi (B,T,H)
     fp32.  Returns h (B,T,H,hd) in q's dtype.  When T is a multiple of
     ``q_chunk`` above it, the queries go in chunks of ``q_chunk`` (peak
-    memory O(q_chunk * T)), as in JAX."""
+    memory O(q_chunk * T)), as in JAX.  On DTensors it runs on each
+    rank's batch rows and heads (``models/sharded.py``)."""
+    if isinstance(q, DTensor):
+        return sharded.batch_heads(
+            lambda *t: mlstm_parallel(*t, q_chunk=q_chunk),
+            q, k, v, logf, logi)
     B, T, H, hd = q.shape
     cumf = torch.cumsum(logf, dim=1)                          # (B,T,H)
     scale = 1.0 / math.sqrt(hd)
@@ -145,23 +161,31 @@ def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _mlstm_gates(p: Params, xc: torch.Tensor):
     """(logi, logf) of conv output ``xc`` (..., dc), in fp32."""
     x32 = xc.float()
-    logi = torch.matmul(x32, p["w_i"]) + p["b_i"]
-    logf = F.logsigmoid(torch.matmul(x32, p["w_f"]) + p["b_f"])
+    # (B,T,H) gates constrained like the heads: DTensor would otherwise
+    # split a few heads' gates along the sequence
+    axes = ("batch", "seq", "heads_act")[-x32.ndim:]
+    logi = shard(torch.matmul(x32, p["w_i"]) + p["b_i"], *axes)
+    zf = shard(torch.matmul(x32, p["w_f"]) + p["b_f"], *axes)
+    # DTensor has no rule for log_sigmoid; -softplus(-z) is the same
+    # function
+    logf = -F.softplus(-zf) if isinstance(zf, DTensor) else F.logsigmoid(zf)
     return logi, logf
 
 
 def _mlstm_out(p: Params, x: torch.Tensor, h: torch.Tensor,
                z: torch.Tensor) -> torch.Tensor:
     hn = _head_groupnorm(h, p["out_norm"])
-    y = (hn * F.silu(z.float())).to(x.dtype)
-    return x + torch.matmul(y, p["w_down"])
+    y = shard((hn * F.silu(z.float())).to(x.dtype), "batch", "seq",
+              "mlp_act")
+    return x + shard(torch.matmul(y, p["w_down"]), "batch", "seq",
+                     "embed_act")
 
 
 def apply_mlstm(p: Params, cfg: ModelConfig, x: torch.Tensor
                 ) -> torch.Tensor:
     dc, _, _ = _mlstm_dims(cfg)
     r = apply_norm(p["norm"], x, cfg.norm, cfg.norm_eps)
-    up = torch.matmul(r, p["w_up"])
+    up = shard(torch.matmul(r, p["w_up"]), "batch", "seq", "mlp_act")
     xi, z = up[..., :dc], up[..., dc:]
     xc = _conv_silu(xi, p["conv_w"], p["conv_b"])
     q, k = _project(xc, p["wq"]), _project(xc, p["wk"])
@@ -240,18 +264,19 @@ def init_slstm(pi: ParamInit, path: str, cfg: ModelConfig) -> None:
     H, hd = _slstm_dims(cfg)
     dff = int(d * x.proj_factor_slstm)
     init_norm(pi, f"{path}/norm", d, cfg.norm)
-    pi.param(f"{path}/conv_w", (x.conv_width, d))
-    pi.param(f"{path}/conv_b", (d,), init="zeros")
+    pi.param(f"{path}/conv_w", (x.conv_width, d), (None, "embed"))
+    pi.param(f"{path}/conv_b", (d,), ("embed",), init="zeros")
     for g in ("i", "f", "z", "o"):
-        pi.param(f"{path}/w_{g}", (d, H, hd))
-        pi.param(f"{path}/r_{g}", (H, hd, hd))
-        pi.param(f"{path}/b_{g}", (H, hd), dtype=torch.float32,
+        pi.param(f"{path}/w_{g}", (d, H, hd), ("embed", "heads", "head_dim"))
+        pi.param(f"{path}/r_{g}", (H, hd, hd), ("heads", "head_dim", None))
+        pi.param(f"{path}/b_{g}", (H, hd), ("heads", "head_dim"),
+                 dtype=torch.float32,
                  init="ones" if g == "f" else "zeros")
-    pi.param(f"{path}/out_norm", (d,), init="ones")
+    pi.param(f"{path}/out_norm", (d,), ("embed",), init="ones")
     # post-block gated FFN (proj factor 4/3)
-    pi.param(f"{path}/ffn_norm", (d,), init="ones")
-    pi.param(f"{path}/w_up", (d, 2 * dff))
-    pi.param(f"{path}/w_down", (dff, d))
+    pi.param(f"{path}/ffn_norm", (d,), ("embed",), init="ones")
+    pi.param(f"{path}/w_up", (d, 2 * dff), ("embed", "mlp"))
+    pi.param(f"{path}/w_down", (dff, d), ("mlp", "embed"))
 
 
 def _slstm_gate_inputs(p: Params, xc: torch.Tensor, r: torch.Tensor):
@@ -281,12 +306,14 @@ def _slstm_out(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """The block after the cell: head norm, residual and the gated FFN
     (GELU, tanh form as ``jax.nn.gelu``'s default)."""
     hn = _head_groupnorm(h.to(x.dtype), p["out_norm"]).to(x.dtype)
-    y = x + hn
+    y = x + shard(hn, "batch", "seq", "embed_act")
     rn = apply_norm({"scale": p["ffn_norm"]}, y, "rmsnorm", cfg.norm_eps)
-    up = torch.matmul(rn, p["w_up"])
+    up = shard(torch.matmul(rn, p["w_up"]), "batch", "seq", "mlp_act")
     dff = up.shape[-1] // 2
     gelu = F.gelu(up[..., :dff].float(), approximate="tanh").to(x.dtype)
-    return y + torch.matmul(gelu * up[..., dff:], p["w_down"])
+    h = shard(gelu * up[..., dff:], "batch", "seq", "mlp_act")
+    return y + shard(torch.matmul(h, p["w_down"]), "batch", "seq",
+                     "embed_act")
 
 
 def apply_slstm(p: Params, cfg: ModelConfig, x: torch.Tensor
@@ -296,15 +323,89 @@ def apply_slstm(p: Params, cfg: ModelConfig, x: torch.Tensor
     r = apply_norm(p["norm"], x, cfg.norm, cfg.norm_eps)
     xc = _conv_silu(r, p["conv_w"], p["conv_b"])
     gates = _slstm_gate_inputs(p, xc, r)
-    c, n, h = (x.new_zeros((B, H, hd), dtype=torch.float32)
-               for _ in range(3))
-    m = torch.full((B, H, hd), -1e30, dtype=torch.float32, device=x.device)
+    cell = {f"{w}_{g}": p[f"{w}_{g}"] for w in "rb" for g in "ifzo"}
+    args = [gates[g] for g in "ifzo"] + [cell[k] for k in sorted(cell)]
+    if isinstance(x, DTensor):
+        hs = sharded.heads_scan(
+            lambda *t: _slstm_scan(*t, keys=sorted(cell)), *args)
+    else:
+        hs = _slstm_scan(*args, keys=sorted(cell))
+    return _slstm_out(p, cfg, x, hs)
+
+
+def _slstm_scan(gi, gf, gz, go, *weights, keys) -> torch.Tensor:
+    """The sLSTM's loop over time from zero states: gates (B,T,H,hd) fp32
+    and the cell's ``r_*`` (H,hd,hd) and ``b_*`` (H,hd) weights (named
+    by ``keys``) -> h at every step (B,T,H,hd)."""
+    p = dict(zip(keys, weights))
+    gates = {"i": gi, "f": gf, "z": gz, "o": go}
+    B, T, H, hd = gi.shape
+    c, n, h = (gi.new_zeros((B, H, hd)) for _ in range(3))
+    m = torch.full((B, H, hd), -1e30, dtype=torch.float32, device=gi.device)
+    bound = getattr(_BOUND, "state", None)
+    steps = T if bound is None else min(T, bound[0])
+    if steps < T:
+        _count_as(bound, steps, T, gates)
     hs = []
-    for t in range(T):
+    for t in range(steps):
         c, n, h, m = _slstm_cell(p, {g: v[:, t] for g, v in gates.items()},
                                  c, n, h, m)
         hs.append(h)
-    return _slstm_out(p, cfg, x, torch.stack(hs, dim=1))
+    hs = torch.stack(hs, dim=1)
+    if steps < T:
+        hs = _count_as(bound, steps, T, hs, end=True)
+        hs = torch.cat([hs, h[:, None].expand(B, T - steps, H, hd)], dim=1)
+    return hs
+
+
+# ---------------------------------------------------------------------------
+# bounded recurrence, for the dry run
+# ---------------------------------------------------------------------------
+
+_BOUND = threading.local()
+
+
+@contextlib.contextmanager
+def bounded_recurrence(steps: int, counter):
+    """Within this context :func:`apply_slstm` runs at most ``steps``
+    steps of its loop over time and has ``counter`` (the dry run's
+    ``TraceCounter``, which counts under its ``scale``) count them as
+    the whole sequence's, T / steps each; the steps after them repeat
+    the last output.  Only the dry run enters it: its trace of 4,096 or
+    32,768 steps would take hours and its numbers are not used.  The
+    yielded dict gets the steps traced and the steps they stand for."""
+    prev = getattr(_BOUND, "state", None)
+    info = {"traced": 0, "total": 0}
+    _BOUND.state = (steps, counter, info)
+    try:
+        yield info
+    finally:
+        _BOUND.state = prev
+
+
+def _count_as(bound, steps: int, T: int, x, end: bool = False):
+    """Scale ``counter`` by T / steps from the loop's start to its end,
+    in the forward and (through hooks on the loop's inputs and output)
+    in the backward, which runs the loop's steps in reverse."""
+    _, counter, info = bound
+    f = T / steps
+
+    def scale(on: bool):
+        counter.scale = counter.scale * f if on else counter.scale / f
+
+    if not end:
+        info["traced"] += steps
+        info["total"] += T
+        scale(True)
+        for g in x.values():
+            if g.requires_grad:
+                g.register_hook(lambda grad: (scale(False), grad)[1])
+                break
+        return x
+    scale(False)
+    if x.requires_grad:
+        x.register_hook(lambda grad: (scale(True), grad)[1])
+    return x
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int,
@@ -347,7 +448,8 @@ def _is_slstm(cfg: ModelConfig, i: int) -> bool:
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None,
+                with_axes: bool = False) -> Params:
     """Fresh parameters in ``cfg.param_dtype`` (the gates' weights and
     biases named above in fp32), each leaf drawn where ``generator``
     lives and moved to ``device`` before the next."""
@@ -358,7 +460,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         (init_slstm if _is_slstm(cfg, i) else init_mlstm)(
             pi, f"blocks/{i}", cfg)
     init_norm(pi, "final_norm", cfg.d_model, cfg.norm)
-    return pi.params
+    return pi.build() if with_axes else pi.params
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor

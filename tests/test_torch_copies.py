@@ -128,6 +128,18 @@ def test_module_is_a_copy_of_the_jax_packages(rel):
     assert ast.dump(got) == want
 
 
+def test_sharding_rules_equal_the_references():
+    """``launch/shardings.py``'s rule tables, and ``rules_for`` with and
+    without overrides, are the reference's by value."""
+    from repro.launch import shardings as ref
+    from repro_torch.launch import shardings as port
+    assert port.DEFAULT_RULES == ref.DEFAULT_RULES
+    assert port.EXPERT_PARALLEL_RULES == ref.EXPERT_PARALLEL_RULES
+    for overrides in ((), (("expert", ("model",)), ("mlp", ()))):
+        assert port.rules_for(None, None, overrides) == ref.rules_for(
+            None, None, overrides)
+
+
 # ---------------------------------------------------------------------------
 # the quickstart's inputs through both packages
 # ---------------------------------------------------------------------------

@@ -1,0 +1,131 @@
+"""The port's dry run (``repro_torch.launch.dryrun``), the counterpart of
+``tests/test_dryrun_lowering.py``: programs traced over a fake process
+group on fake CPU tensors, each in a subprocess (a process has one
+default group).
+
+- xlstm-125m at full width, train, on a fake (pod 2, data 2, model 2)
+  mesh at batch 8 and sequence 16, cut to its first 4 layers (three
+  mLSTM blocks and the sLSTM block at layer 3) for the time budget (the
+  12 layers take about a minute here); the sLSTM loop traced for 8 of
+  its 16 steps and counted as 16; a reduced
+  stablelm-1.6b prefill and decode and a reduced qwen2-moe decode on the
+  same mesh;
+- one combo through the tool's own path (``run_in_subprocess``, the
+  production mesh of 256 ranks): gemma3-1b long_500k.
+
+Each record has flops and collectives, a dominant term, and the
+reference's record keys (less ``lower_s`` / ``compile_s``, with
+``trace_s``)."""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.launch import dryrun  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DOMINANT = {"compute", "memory", "collective"}
+#: the reference's record (repro/launch/dryrun.py), less lower_s and
+#: compile_s, plus trace_s and what was traced
+KEYS = {"arch", "shape", "mesh", "n_chips", "trace_s", "traced", "memory",
+        "roofline", "analytic", "ok"}
+MEMORY = {"argument_bytes", "activation_peak_bytes_analytic", "fits_hbm",
+          "hbm_fraction"}
+ROOFLINE = {"flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "collective_bytes_by_kind",
+            "collective_counts", "cross_pod_bytes", "compute_s", "memory_s",
+            "collective_s", "dominant", "model_flops", "useful_flops_ratio"}
+ANALYTIC = {"flops", "hbm_bytes", "ici_bytes", "dci_bytes", "compute_s",
+            "memory_s", "collective_s", "dominant", "mfu_upper_bound"}
+
+SMALL = textwrap.dedent("""
+    import dataclasses
+    import json
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, shardings as sh
+    from repro_torch.launch.mesh import init_fake_world, make_test_mesh
+    init_fake_world(8)
+    mesh = make_test_mesh("cpu", (2, 2, 2), ("pod", "data", "model"))
+    cases = [("xlstm-125m", False, InputShape("train", 16, 8, "train")),
+             ("stablelm-1.6b", True, InputShape("prefill", 32, 8, "prefill")),
+             ("stablelm-1.6b", True, InputShape("decode", 32, 8, "decode")),
+             ("qwen2-moe-a2.7b", True, InputShape("decode", 32, 8, "decode"))]
+    for arch, reduced, shape in cases:
+        cfg = get_config(arch)
+        cfg = cfg.reduced() if reduced else dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, num_layers=4))
+        rec = {"arch": arch, "shape": shape.name}
+        rec.update(dryrun.trace_combo(cfg, shape, mesh,
+                                      sh.rules_for(cfg, mesh),
+                                      recurrent_steps=8))
+        print(json.dumps(rec), flush=True)
+""")
+
+
+@pytest.fixture(scope="module")
+def small():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", SMALL], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    recs = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    assert len(recs) == 4
+    return recs
+
+
+def _check(rec):
+    roof = rec["roofline"]
+    assert roof["flops_per_device"] > 0
+    assert roof["bytes_per_device"] > 0
+    assert sum(roof["collective_counts"].values()) > 0
+    assert roof["collective_bytes_per_device"] > 0
+    assert roof["dominant"] in DOMINANT
+    assert rec["analytic"]["dominant"] in DOMINANT
+    assert MEMORY <= set(rec["memory"])
+    assert ROOFLINE <= set(roof)
+    assert ANALYTIC <= set(rec["analytic"])
+    assert roof["nvlink_bytes"] + roof["ib_bytes"] \
+        + roof["cross_pod_bytes"] == pytest.approx(
+            roof["collective_bytes_per_device"])
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_small_mesh_programs_trace(small, case):
+    rec = small[case]
+    _check(rec)
+    assert rec["trace_s"] > 0
+
+
+def test_train_traces_a_bounded_recurrence_and_scales_it(small):
+    rec = small[0]
+    assert rec["traced"]["mode"] == "train"
+    # the cut's one sLSTM layer: 8 of 16 steps
+    assert rec["traced"]["recurrent_steps_traced"] == 8
+    assert rec["traced"]["recurrent_steps"] == 16
+    assert rec["roofline"]["collective_counts"].get("reduce-scatter", 0) > 0
+
+
+def test_decode_splits_the_cache_and_merges_the_softmax(small):
+    """stablelm's decode cache is split along its slots over model (the
+    reference's kv_seq rule): the partial softmaxes are merged."""
+    rec = small[2]
+    assert rec["traced"]["mode"] == "decode"
+    assert rec["roofline"]["collective_counts"].get("all-reduce", 0) > 0
+
+
+def test_the_tool_runs_a_production_combo_in_a_subprocess():
+    recs = dryrun.run_in_subprocess("single", [("gemma3-1b", "long_500k")],
+                                    timeout=300)
+    assert len(recs) == 1
+    rec = recs[0]
+    assert rec["ok"], rec.get("traceback")
+    assert set(rec) == KEYS
+    assert rec["mesh"] == "32x8" and rec["n_chips"] == 256
+    _check(rec)

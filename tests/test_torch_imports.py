@@ -63,6 +63,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.kernels.gru_cell" in modules
     for m in ("training.optimizer", "training.train_step", "fl.collectives",
               "fl.compression", "data.tokens", "launch.train", "launch.mesh",
+              "launch.shardings", "launch.specs", "launch.analytic",
+              "launch.roofline", "launch.dryrun", "models.sharded",
               "sim.budget", "sim.faults", "sim.interference", "sim.cosim",
               "sim.reactive", "sim.scenarios"):
         assert "repro_torch." + m in modules
