@@ -71,9 +71,13 @@ through the entry points a user calls:
   plain and one int8 with error feedback), every forward's attention in
   ``flash_attention`` and both syncs' means in ``fedavg_reduce``, with
   exact launch counts, bit-identical replicas after each sync, peak
-  memory and a profiled local round; then a 2-layer fp32 cut trained
-  and synced on the card and on the CPU, and the reduced
-  deepseek-v2-lite at two microbatches (``topk_router``);
+  memory and a profiled local round, each layer checkpointed (the
+  config's ``remat="layer"``: the backward launches its flash again);
+  then the same model's gradients on one (1, 4096) sequence without and
+  with the checkpoints (remat: losses and gradients equal, activation
+  memory, device time, 26 against 52 flash launches); then a 2-layer
+  fp32 cut trained and synced on the card and on the CPU, and the
+  reduced deepseek-v2-lite at two microbatches (``topk_router``);
 - the distributed HFL layer: the same gemma3-1b run with one FL cluster
   a process, 2 ranks on the one card over gloo (``run_ranks``, a
   (cluster 2, data 1) ``DeviceMesh``): each rank's local rounds through
@@ -89,7 +93,9 @@ through the entry points a user calls:
   one-rank NCCL process, gemma3-1b's loss at train_slice's shape as
   DTensors under the production rules (``flash_attention`` reached
   through ``local_map``), against the unsharded loss, beside the
-  analytic roofline of train_slice's step on one rank.
+  analytic roofline of train_slice's step on one rank, and its
+  gradients through the DTensors and a checkpoint a layer against the
+  unsharded port's.
 
 Each phase prints one JSON line.  The line before the last lists every
 kernel with its launches on the main path, its error against its plain
@@ -277,6 +283,10 @@ TRAIN_PARITY_BATCH = 2
 TRAIN_PARITY_STEPS = 2
 TRAIN_PARITY_LR = 1e-3
 TRAIN_MOE_K = 2
+#: the remat phase: gemma3-1b at full width, bf16, one cluster, one
+#: sequence of the dry run's train_4k length, differentiated without and
+#: with per-layer activation checkpointing
+REMAT_BATCH = (1, 4096)
 #: the distributed slice: train_slice's configuration, schedule and seed
 #: with one FL cluster a process: 2 ranks sharing the one card over gloo
 #: (NCCL refuses two ranks on one device), a (cluster 2, data 1) mesh.
@@ -2292,10 +2302,53 @@ def check_mamba_scan(torch, rng, B, L, H, P, N, Q, dtype_name):
     return row
 
 
+def check_mamba_scan_groups(torch, rng, B, L, H, P, N, Q, G, dtype_name):
+    """The scan of G groups on the card: ``models/ssm.py``'s
+    ``scan_per_group``, one ``mamba_chunk_scan`` a group on its H/G
+    heads, against the plain scan with the group axis (``ssd_chunked``,
+    the reference's head-to-group mapping), at one shape."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models import ssm
+    dtype = getattr(torch, dtype_name)
+    x = _randn(torch, rng, (B, L, H, P), dtype)
+    dt = torch.as_tensor(rng.uniform(0.01, 0.2, (B, L, H)),
+                         dtype=torch.float32, device=DEVICE)
+    A = torch.as_tensor(-rng.uniform(0.5, 2.0, H), dtype=torch.float32,
+                        device=DEVICE)
+    Bm, Cm = (_randn(torch, rng, (B, L, G, N), dtype) for _ in range(2))
+
+    def kernel(*t):
+        return ms.mamba_chunk_scan(*(a.contiguous() for a in t),
+                                   chunk=Q)[0]
+
+    def grouped():
+        return ssm.scan_per_group(kernel, x, dt, A, Bm, Cm)
+
+    def plain():
+        return ssm.ssd_chunked(x, dt, A, Bm, Cm, Q)[0]
+
+    before = ms.mamba_chunk_scan.launches
+    y = grouped()
+    launches = ms.mamba_chunk_scan.launches - before
+    yr = plain()
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[dtype_name]
+    err = (y.float() - yr.float()).abs().max().item()
+    ok = bool(y.dtype == dtype and launches == G
+              and torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol))
+    row = {"kernel": "mamba_chunk_scan", "shape": [B, L, H, P, N, Q],
+           "groups": G, "dtype": dtype_name, "launches_a_call": launches,
+           "max_abs_err": err, "tol": tol, "ok": ok,
+           **timings(torch, grouped, plain, None, 50, 10)}
+    emit({"phase": "kernel_check", **row})
+    return row
+
+
 def phase_ssm_kernels(torch):
     """mamba_chunk_scan at the zamba2-1.2b forward's shape in bf16 (B 2,
     L 1024, 64 heads of P 64, N 64, chunk 128), then the sweep shapes
-    of tests/test_kernels.py in fp32 and a few edge shapes; then
+    of tests/test_kernels.py in fp32 and a few edge shapes, and the same
+    forward's shape at ngroups 2 (two launches of 32 heads); then
     flash_attention at the forward's shape (BH 64, T 1024, D 64,
     bf16)."""
     rng = np.random.default_rng(SEED + 9)
@@ -2313,10 +2366,13 @@ def phase_ssm_kernels(torch):
                                ((2, 256, 3, 40, 32, 128), "bfloat16"),
                                ((2, 128, 4, 16, 8, 32), "bfloat16"),
                                ((2, 256, 64, 64, 64, 128), "float32"))]
+    # ngroups 2 at the forward's shape: 2 x 32 heads, a launch a group
+    groups = check_mamba_scan_groups(torch, rng, B, L, 64, 64, 64, 128, 2,
+                                     "bfloat16")
     # the forward's shared attention: 2 x 32 heads of 64 over 1024 tokens
     # (window 4096 > T, so none)
     flash = check_flash(torch, rng, B * 32, B * 32, L, 64, 0, "bfloat16")
-    bad = [r for r in rows + [flash] if not r["ok"]]
+    bad = [r for r in rows + [groups, flash] if not r["ok"]]
     if bad:
         raise AssertionError(f"hybrid forward kernels disagree with their "
                              f"plain versions: {bad}")
@@ -3095,19 +3151,25 @@ def replicas_identical(torch, stacked) -> bool:
                for c in range(1, x.shape[0]))
 
 
-def expected_train_launches(m, steps, microbatches, sync_groups):
+def expected_train_launches(m, steps, microbatches, sync_groups, remat):
     """Kernel launches of ``steps`` cluster steps (each a forward at
     ``microbatches`` slices: one flash a layer, one router a MoE layer;
     the backward is the plain versions') and of the syncs: one
-    ``fedavg_reduce`` a dtype group of a plain sync, one an int8 sync."""
+    ``fedavg_reduce`` a dtype group of a plain sync, one an int8 sync.
+    With ``remat`` other than "none" every layer of the stack (all but
+    the ``lead`` dense layers) is checkpointed, and the backward runs its
+    forward again: its flash and its router launch twice."""
     forwards = steps * microbatches
-    moe_layers = m.num_layers - m.moe.first_dense_layers if m.moe else 0
+    lead = m.moe.first_dense_layers if m.moe else 0
+    moe_layers = m.num_layers - lead if m.moe else 0
+    again = 0 if remat == "none" else 1
     want = {k: 0 for k in ("gru_seq", "fedavg_reduce", "flash_attention",
                            "decode_attention", "paged_decode_attention",
                            "paged_mla_decode_attention", "topk_router",
                            "mamba_chunk_scan")}
-    want["flash_attention"] = m.num_layers * forwards
-    want["topk_router"] = moe_layers * forwards
+    want["flash_attention"] = (m.num_layers
+                               + again * (m.num_layers - lead)) * forwards
+    want["topk_router"] = (1 + again) * moe_layers * forwards
     want["fedavg_reduce"] = sync_groups
     return want
 
@@ -3122,7 +3184,9 @@ def phase_train(torch):
     ``fedavg_reduce``), then ``compressed_global_sync`` (int8 deltas
     with error feedback since the first sync; their fp32 mean through
     ``fedavg_reduce``).  Every forward's attention is ``flash_attention``
-    (D 256), its backward the plain version's.  Then one profiled local
+    (D 256), its backward the plain version's; the config's
+    ``remat="layer"`` checkpoints each layer, so the backward launches
+    each layer's flash again.  Then one profiled local
     round, and ``fedavg_reduce`` and ``flash_attention`` held against
     their plain versions at the path's shapes."""
     from repro_torch.configs import get_config
@@ -3196,7 +3260,8 @@ def phase_train(torch):
     launches = ops.launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     want = expected_train_launches(m, C * TRAIN_ROUNDS,
-                                   cfg.run.microbatches, groups + 1)
+                                   cfg.run.microbatches, groups + 1,
+                                   cfg.run.remat)
 
     # more syncs of each kind and one more local round (their launches
     # are not the path's): the kernel's device time inside the real syncs,
@@ -3255,6 +3320,110 @@ def phase_train(torch):
         raise AssertionError(f"train_slice checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return launches, fed_rows, flash_rows[0], losses, step_profile
+
+
+def phase_remat(torch, smi):
+    """``RunConfig.remat`` on the card: ``value_and_grad(api.loss)`` of
+    gemma3-1b at full width (bf16, random weights drawn on the card from
+    the seed) on one (1, 4096) token batch, once with ``remat="none"``
+    and once with the config's ``"layer"``, twice each in turns.  The
+    losses and every gradient must be equal (bit for bit: every kernel
+    and GEMM is deterministic at fixed shapes; a leaf that is not is
+    held to train_parity's update rule at lr 1), the checkpointed run's
+    activation memory (the peak allocated during the pass less what was
+    allocated before it) must be below the other's, and ``flash_attention``
+    must launch once a layer without a checkpoint and twice with one
+    (the backward runs each layer's forward again)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_model
+    from repro_torch.params import flatten_with_path
+    from repro_torch.training.train_step import value_and_grad
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    m = cfg.model
+    params = make_model(cfg).init_params(
+        torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    rng = np.random.default_rng(SEED + 30)
+    B, T = REMAT_BATCH
+    batch = {k: torch.as_tensor(rng.integers(0, m.vocab_size, (B, T)),
+                                device=DEVICE) for k in ("tokens", "labels")}
+    apis = {r: make_model(dataclasses.replace(
+        cfg, run=dataclasses.replace(cfg.run, remat=r)))
+        for r in ("none", "layer")}
+    runs = {r: {"ms": [], "wall_ms": [], "activation_bytes": []}
+            for r in apis}
+    grads = {}
+    for remat in ("none", "layer", "none", "layer"):
+        grads.pop(remat, None)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        start.record()
+        loss, g = value_and_grad(apis[remat].loss, params, batch)
+        end.record()
+        torch.cuda.synchronize()
+        run = runs[remat]
+        run["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        run["ms"].append(start.elapsed_time(end))
+        run["activation_bytes"].append(
+            torch.cuda.max_memory_allocated() - before)
+        run["launches"] = ops.launch_counts()
+        run["loss"] = float(loss)
+        run["loss_bits"] = loss
+        grads[remat] = dict(flatten_with_path(g))
+        del g
+    gaps, equal, within = {}, True, True
+    for path, a in grads["none"].items():
+        b = grads["layer"][path]
+        same = torch.equal(a, b)
+        gap = 0.0 if same else float((a.float() - b.float()).abs().max())
+        gaps["/".join(path)] = gap
+        equal &= same
+        within &= same or gap <= update_tol(1.0, a.float())
+    flash = {r: runs[r]["launches"]["flash_attention"] for r in runs}
+    act = {r: max(runs[r]["activation_bytes"]) for r in runs}
+    others = {r: {k: v for k, v in runs[r]["launches"].items()
+                  if k != "flash_attention" and v} for r in runs}
+    checks = {
+        "losses_equal": torch.equal(runs["none"]["loss_bits"],
+                                    runs["layer"]["loss_bits"])
+        and bool(np.isfinite(runs["none"]["loss"])),
+        "gradients_agree": within,
+        "activation_memory_lower_with_remat": act["layer"] < act["none"],
+        "flash_launches": flash == {"none": m.num_layers,
+                                    "layer": 2 * m.num_layers},
+        "no_other_kernel": others == {"none": {}, "layer": {}},
+    }
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    launches = {k: runs["none"]["launches"][k] + runs["layer"]["launches"][k]
+                for k in runs["none"]["launches"]}
+    emit({"phase": "remat", "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi, "arch": TRAIN_ARCH, "layers": m.num_layers,
+          "dtype": m.param_dtype, "batch": [B, T],
+          "loss": {r: runs[r]["loss"] for r in runs},
+          "gradients_bit_equal": equal,
+          "max_grad_gap": worst[1], "max_grad_gap_leaf": worst[0],
+          "activation_bytes": {r: runs[r]["activation_bytes"]
+                               for r in runs},
+          "device_ms": {r: runs[r]["ms"] for r in runs},
+          "wall_ms": {r: runs[r]["wall_ms"] for r in runs},
+          "flash_attention_launches": flash,
+          "layer_over_none_ms": (min(runs["layer"]["ms"])
+                                 / min(runs["none"]["ms"])),
+          "checks": checks})
+    del grads, params
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"remat checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches
 
 
 def update_tol(lr, dw) -> float:
@@ -3352,7 +3521,8 @@ def phase_train_parity(torch):
     div_err = abs(card["divergence"] - cpu["divergence"]) / (
         TRAIN_UPDATE_TOL * max(lr, largest_update))
     launches = card["launches"]
-    want = expected_train_launches(m, C * TRAIN_PARITY_STEPS, 1, 2)
+    want = expected_train_launches(m, C * TRAIN_PARITY_STEPS, 1, 2,
+                                   pcfg.run.remat)
     result = {"losses": {"card": card["losses"].tolist(),
                          "cpu": cpu["losses"].tolist()},
               "divergence": {"card": card["divergence"],
@@ -3386,7 +3556,8 @@ def phase_train_parity(torch):
         for p, x in flatten_with_path(mtree))
     moe_loss_err = abs(moe[DEVICE]["loss"] - moe["cpu"]["loss"]) / abs(
         moe["cpu"]["loss"])
-    moe_want = expected_train_launches(mcfg.model, 1, TRAIN_MOE_K, 0)
+    moe_want = expected_train_launches(mcfg.model, 1, TRAIN_MOE_K, 0,
+                                       mcfg.run.remat)
 
     checks = {
         "losses_match_cpu": loss_err <= TRAIN_LOSS_RTOL,
@@ -3653,7 +3824,7 @@ def phase_dist(torch, train_losses):
     # a plain sync's launches a dtype group, one an int8 sync, one manual
     want = expected_train_launches(cfg.model, TRAIN_ROUNDS,
                                    cfg.run.microbatches,
-                                   ranks[0]["groups"] + 2)
+                                   ranks[0]["groups"] + 2, cfg.run.remat)
     gaps = [[abs(r["losses"][t] - train_losses[t][c]) / abs(
         train_losses[t][c]) for t in range(TRAIN_ROUNDS)]
         for c, r in enumerate(ranks)]
@@ -3732,6 +3903,7 @@ def dryrun_rank(rank, results):
     from repro_torch.models import make_model
     from repro_torch.models.common import logical_sharding
     from repro_torch.params import flatten_with_path
+    from repro_torch.training.train_step import value_and_grad
 
     prebuilt = (build.BUILD_ROOT / build.source_hash() / build.LIB_NAME
                 ).exists()
@@ -3773,6 +3945,30 @@ def dryrun_rank(rank, results):
         launches = ops.launch_counts()
         plain, plain_ms = timed(lambda: api.loss(params, batch))
         _, sharded_again_ms = timed(sharded)
+
+    # the same loss differentiated through the DTensors, each layer under
+    # the config's checkpoint (remat="layer"), against the unsharded
+    # port's gradients on the same tensors
+    def sharded_grad():
+        with logical_sharding(mesh, rules), implicit_replication():
+            return value_and_grad(api.loss, dparams, dbatch)
+
+    ops.reset_launches()
+    (gloss, dgrads), grad_ms = timed(sharded_grad)
+    grad_launches = ops.launch_counts()
+    (ploss, pgrads), plain_grad_ms = timed(
+        lambda: value_and_grad(api.loss, params, batch))
+    pgrads = dict(flatten_with_path(pgrads))
+    grad_gap, grads_equal, grads_dtensor = 0.0, True, True
+    for path, g in flatten_with_path(dgrads):
+        grads_dtensor &= isinstance(g, DTensor)
+        g = g.full_tensor() if isinstance(g, DTensor) else g
+        same = torch.equal(g, pgrads[path])
+        grads_equal &= same
+        if not same:
+            grad_gap = max(grad_gap, float(
+                (g.float() - pgrads[path].float()).abs().max()))
+    gloss = gloss.full_tensor() if isinstance(gloss, DTensor) else gloss
     leaves = [x for _, x in flatten_with_path(dparams)]
     return {"loss": float(loss.full_tensor()), "plain_loss": float(plain),
             "is_dtensor": isinstance(loss, DTensor)
@@ -3780,7 +3976,15 @@ def dryrun_rank(rank, results):
             "launches": launches, "prebuilt": prebuilt,
             "sharded_ms": [sharded_ms, sharded_again_ms],
             "plain_ms": plain_ms, "leaves": len(leaves),
-            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "grad": {"remat": cfg.run.remat, "loss": float(gloss),
+                     "loss_equals_no_grad": bool(torch.equal(
+                         gloss, loss.full_tensor())),
+                     "plain_loss": float(ploss),
+                     "grads_on_dtensors": grads_dtensor,
+                     "grads_equal_unsharded": grads_equal,
+                     "max_grad_gap": grad_gap, "launches": grad_launches,
+                     "sharded_ms": grad_ms, "plain_ms": plain_grad_ms}}
 
 
 def phase_dryrun(torch, step_profile):
@@ -3792,7 +3996,10 @@ def phase_dryrun(torch, step_profile):
     ``flash_attention`` launched through ``local_map`` on each rank's
     (here: the one rank's) local tensors, and the analytic roofline of
     train_slice's step on one rank beside train_slice's measured device
-    time for one cluster step."""
+    time for one cluster step; then the same loss differentiated through
+    the DTensors with each layer checkpointed (the config's
+    ``remat="layer"``): 52 ``flash_attention`` launches, its loss equal
+    to the no-grad one and its gradients to the unsharded port's."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import get_config
@@ -3832,6 +4039,16 @@ def phase_dryrun(torch, step_profile):
         "flash_attention_launched": step["launches"].get(
             "flash_attention", 0) > 0,
         "kernels_loaded_not_rebuilt": step["prebuilt"],
+        # the gradient pass: one flash a layer and one more a recomputed
+        # layer, the loss equal to the no-grad one, the gradients the
+        # unsharded port's (bit for bit on one rank)
+        "grad_remat_layer": step["grad"]["remat"] == "layer",
+        "grad_flash_launches": step["grad"]["launches"].get(
+            "flash_attention") == 2 * step["launches"].get(
+                "flash_attention", 0) == 2 * cfg.model.num_layers,
+        "grad_loss_equals_no_grad": step["grad"]["loss_equals_no_grad"],
+        "grads_on_dtensors": step["grad"]["grads_on_dtensors"],
+        "grads_equal_unsharded": step["grad"]["grads_equal_unsharded"],
     }
     emit({"phase": "dryrun", "seconds": time.perf_counter() - t_phase,
           "combos": [list(c) for c in DRYRUN_COMBOS],
@@ -3854,7 +4071,7 @@ def phase_dryrun(torch, step_profile):
     if not all(checks.values()):
         raise AssertionError(f"dryrun checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
-    return step["launches"]
+    return step["launches"], step["grad"]["launches"]
 
 
 def kernel_entry(name, source, replaces, launches, row):
@@ -4001,12 +4218,15 @@ def main() -> int:
         (train_launches, train_fed_rows, train_flash_row,
          train_losses, train_profile) = phase_train(torch)
         torch.cuda.empty_cache()
+        phase = at("remat")
+        remat_launches = phase_remat(torch, smi)
         phase = at("train_parity")
         phase_train_parity(torch)
         phase = at("dist_slice")
         dist_launches = phase_dist(torch, train_losses)
         phase = at("dryrun")
-        dryrun_launches = phase_dryrun(torch, train_profile)
+        dryrun_launches, dryrun_grad_launches = phase_dryrun(
+            torch, train_profile)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
@@ -4020,8 +4240,11 @@ def main() -> int:
              "gemma_scheduler": sched_launches,
              "xlstm_slice": xlstm_launches,
              "whisper_slice": whisper_launches, "vlm_slice": vlm_launches,
-             "train_slice": train_launches, "dist_slice": dist_launches,
+             "train_slice": train_launches, "remat": remat_launches,
+             "dist_slice": dist_launches,
              "dryrun_sharded_step": {k: dryrun_launches.get(k, 0)
+                                     for k in launches},
+             "dryrun_sharded_grad": {k: dryrun_grad_launches.get(k, 0)
                                      for k in launches}}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     csrc = "src/repro_torch/kernels/csrc"

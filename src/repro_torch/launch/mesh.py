@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from repro_torch.device import resolve_device
 from repro_torch.models.common import mesh_shape
 
 BACKENDS = ("gloo", "nccl")
@@ -212,7 +213,7 @@ def _stop(procs) -> None:
 
 
 def run_ranks(fn: Callable, world: int, *, backend: str,
-              device: Any = "cpu", timeout: float = 120.0,
+              device: Any = None, timeout: float = 120.0,
               args: tuple = ()) -> List[Any]:
     """Run ``fn(rank, results_dir, *args)`` in ``world`` processes on this
     host, each in a process group of ``backend`` over a ``FileStore`` in a
@@ -223,13 +224,20 @@ def run_ranks(fn: Callable, world: int, *, backend: str,
     ``fn`` must be a module-level function: the processes are started
     in *spawn* mode (the caller may hold CUDA), so they import it.
     ``device`` is one device for every rank (``"cuda:0"``: ranks that
-    share a card) or a sequence of one a rank.  If a rank fails or the
-    ranks have not all finished within ``timeout`` seconds, the others
-    are killed and this raises, with the failed rank's traceback."""
+    share a card; ``"cpu"``) or a sequence of one a rank; by default one
+    card a rank, ``cuda:{rank}``, and it raises where CUDA is absent, as
+    every entry point of the port does (``resolve_device``).  If a rank
+    fails or the ranks have not all finished within ``timeout`` seconds,
+    the others are killed and this raises, with the failed rank's
+    traceback."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
-    devices = ([str(device)] * world if isinstance(device, (str,
-               torch.device)) else [str(d) for d in device])
+    if device is None:
+        devices = [str(resolve_device(f"cuda:{r}")) for r in range(world)]
+    elif isinstance(device, (str, torch.device)):
+        devices = [str(device)] * world
+    else:
+        devices = [str(d) for d in device]
     if len(devices) != world:
         raise ValueError(f"{len(devices)} devices for {world} ranks")
     tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")

@@ -37,9 +37,9 @@ Cross attention (whisper's decoder) is :func:`gqa_forward` with
 ``kv_source`` and :func:`gqa_decode` with ``cross_kv``, as in JAX: on the
 card the forward runs ``ops.flash_attention`` without the causal mask
 over a key length of its own (the F encoder frames), and the decode step
-runs ``ops.decode_attention`` with every one of the F rows valid.  MLA's
-query compression (``q_lora_rank > 0``) is not ported yet (ROADMAP.md)
-and raises.
+runs ``ops.decode_attention`` with every one of the F rows valid.  MLA
+with ``q_lora_rank > 0`` projects its queries through the plain ``wq``,
+as the reference does (:func:`init_mla`).
 
 On DTensors (the launch layer's shardings) the projections, rope and
 norms are DTensor ops under ``shard`` constraints, and the attention
@@ -64,15 +64,8 @@ _NEG_INF = -2.0e38  # fp32-safe mask value, as in the JAX module
 NOT_PORTED = "is not ported to PyTorch yet; see ROADMAP.md"
 
 
-def check_supported(a: AttentionConfig) -> None:
-    """Raise for the attention features the port does not have yet."""
-    if a.kind == "mla" and a.mla.q_lora_rank:
-        raise NotImplementedError(f"MLA query compression {NOT_PORTED}")
-
-
 def init_gqa(pi: ParamInit, path: str, d_model: int, a: AttentionConfig,
              stack: int = 0) -> None:
-    check_supported(a)
     hd = a.head_dim
     pi.param(f"{path}/wq", (d_model, a.num_heads, hd),
              ("embed", "heads", "head_dim"), stack=stack)
@@ -246,7 +239,6 @@ def gqa_forward(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     """x (B,S,d), positions 0..S-1 -> (B,S,d).  ``kv_source`` (B,F,d)
     switches to cross attention: keys and values from the encoder output
     at positions 0..F-1, no rope and no causal mask."""
-    check_supported(a)
     if kv_source is None:
         q, k, v = _qkv(p, a, x, positions, inv_freq)
         k_pos = positions
@@ -290,7 +282,6 @@ def gqa_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     """:func:`gqa_forward` plus a one-shot ring write of the roped K/V of
     positions ``[0, length)``.  ``x`` may be right-padded beyond
     ``length``; causality keeps pad keys out of every valid query."""
-    check_supported(a)
     q, k, v = _shard_qkv(*_qkv(p, a, x, positions, inv_freq))
     out = _attention(q, k, v, positions, positions, True, window)
     slots = prefill_slots(cache.capacity, positions, length)
@@ -312,7 +303,6 @@ def gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     ``cross_kv`` = (k, v), each (B,F,Hkv,D), the query attends to every
     one of the F precomputed encoder rows instead (no rope, no mask, no
     soft cap, as in JAX) and the ring is left as it is."""
-    check_supported(a)
     if cross_kv is not None:
         return _cross_decode(p, a, x, *cross_kv), cache
     B = x.shape[0]
@@ -463,7 +453,6 @@ def paged_gqa_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
                       ) -> Tuple[torch.Tensor, PagedKVCache]:
     """The attention of :func:`gqa_prefill`; only the cache write
     differs: K/V scatter through the block table into pages."""
-    check_supported(a)
     q, k, v = _qkv(p, a, x, positions, inv_freq)
     out = _attention(q, k, v, positions, positions, True, window)
     num_pages = cache.k_pages.shape[0] - 1
@@ -482,7 +471,6 @@ def paged_gqa_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     """Batched single-token paged decode; ``pos`` (B,) per row.  Token t
     of row b counts iff t <= pos[b] (and pos[b] - t < window): the math
     of :func:`gqa_decode`, so greedy tokens match the dense engine."""
-    check_supported(a)
     pos = pos.long()
     q, k, v = _qkv(p, a, x, pos[:, None], inv_freq)
     ps = cache.page_size
@@ -530,9 +518,11 @@ def _paged_decode(q, kp, vp, block_tables, pos, soft_cap: float, window):
 
 def init_mla(pi: ParamInit, path: str, d_model: int, a: AttentionConfig,
              stack: int = 0) -> None:
-    check_supported(a)
     m = a.mla
     H = a.num_heads
+    # The reference builds a plain ``wq`` whatever ``q_lora_rank`` is: it
+    # has no query-compression weights (repro/models/attention.py:47-62,
+    # applied at :547), so neither has the port.
     pi.param(f"{path}/wq", (d_model, H, m.qk_nope_head_dim
                             + m.qk_rope_head_dim),
              ("embed", "heads", "head_dim"), stack=stack)
@@ -632,7 +622,6 @@ def mla_forward(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
                 positions: torch.Tensor, inv_freq: Optional[torch.Tensor]
                 ) -> torch.Tensor:
     """x (B,S,d), positions 0..S-1 -> (B,S,d)."""
-    check_supported(a)
     return _mla_attend(p, a, x, positions, inv_freq)[0]
 
 
@@ -670,7 +659,6 @@ def mla_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, MLACache]:
     """:func:`mla_forward` plus a one-shot ring write of the latents of
     positions ``[0, length)``."""
-    check_supported(a)
     out, c_kv, k_rope = _mla_attend(p, a, x, positions, inv_freq)
     slots = prefill_slots(cache.capacity, positions, length)
     _ring_write(cache.c_kv, c_kv, slots)
@@ -691,7 +679,6 @@ def mla_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     row; row b writes ring slot ``index[b] % C``.  There is no TPU kernel
     for this step (the JAX module runs einsums), so it is PyTorch ops on
     every device."""
-    check_supported(a)
     B = x.shape[0]
     pos = pos.long().expand(B) if pos.dim() == 0 else pos.long()
     q_nope, q_rope = _mla_query(p, a, x, pos[:, None], inv_freq)
@@ -736,7 +723,6 @@ def paged_mla_prefill(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
                       inv_freq: Optional[torch.Tensor]
                       ) -> Tuple[torch.Tensor, PagedMLACache]:
     """:func:`mla_prefill` math with the latent write paged."""
-    check_supported(a)
     out, c_kv, k_rope = _mla_attend(p, a, x, positions, inv_freq)
     num_pages = cache.ckv_pages.shape[0] - 1
     pages, slots = prefill_page_ids(block_tables, positions, length,
@@ -756,7 +742,6 @@ def paged_mla_decode(p: Dict[str, Any], a: AttentionConfig, x: torch.Tensor,
     :func:`mla_decode`.  On the card the scores, softmax and latent
     context are ``ops.paged_mla_decode_attention`` with ``lengths = pos +
     1``; ``w_uv`` and ``wo`` follow."""
-    check_supported(a)
     pos = pos.long()
     q_nope, q_rope = _mla_query(p, a, x, pos[:, None], inv_freq)
     c_new, kr_new = _mla_latents(p, a, x, pos[:, None], inv_freq)

@@ -30,11 +30,12 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -245,6 +246,52 @@ def layer_slice(tree: Any, i: int) -> Any:
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def checkpointed(remat: str, fn: Callable, *args):
+    """``fn(*args)``, one layer, under activation checkpointing when
+    ``remat`` is not ``"none"`` (``"layer"`` and ``"dots"`` alike, as in
+    the reference, whose scanned layer bodies are ``jax.checkpoint``-ed
+    whenever ``remat != "none"``) and grad mode is on: the forward keeps
+    only the layer's inputs, and the backward runs the layer again.  So a
+    recomputed layer launches its kernels' forwards a second time (their
+    backward is the plain version's, ``kernels/_grad.py``).  Without grad
+    (serving, scoring) ``fn`` is called directly.  Callers slice a layer
+    of a stacked tree inside ``fn``, so the recomputation re-slices and
+    no view of the stack is held between the passes."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    # The recomputation runs in autograd's thread for the device, which
+    # does not see this thread's sharding context (thread-local) or
+    # DTensor's implicit replication: the layer takes both along.
+    state = getattr(_CTX, "state", None)
+    replicate = DTensor._op_dispatcher._allow_implicit_replication
+
+    def layer(*layer_args):
+        with _forward_context(state, replicate):
+            return fn(*layer_args)
+
+    # No layer draws randomness: the reference's checkpointed bodies
+    # (repro/models/transformer.py:180-187, hybrid.py:88-92,
+    # xlstm.py:346-349, encdec.py:67-76 and :104-107) have no dropout.
+    return checkpoint(layer, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+@contextlib.contextmanager
+def _forward_context(state, replicate: bool):
+    """:func:`logical_sharding`'s state and DTensor's implicit replication
+    as they were when a checkpointed layer first ran; the previous ones
+    after."""
+    dispatcher = DTensor._op_dispatcher
+    prev = (getattr(_CTX, "state", None),
+            dispatcher._allow_implicit_replication)
+    _CTX.state = state
+    dispatcher._allow_implicit_replication = replicate
+    try:
+        yield
+    finally:
+        _CTX.state, dispatcher._allow_implicit_replication = prev
 
 
 def _leaves(tree: Any):

@@ -30,7 +30,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamInit, layer_slice, to_dtype
+from repro_torch.models.common import (ParamInit, checkpointed,
+                                       layer_slice, to_dtype)
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        logits_from_hidden)
@@ -69,25 +70,38 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return apply_norm(p, x, cfg.norm, cfg.norm_eps)
 
 
-def encode(params: Params, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames (B,F,d) from the stub frontend -> encoder output (B,F,d)."""
+def _enc_layer(cfg: ModelConfig, layers: Params, i: int, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Encoder layer ``i`` of the stack, sliced here so that a
+    checkpointed layer re-slices when it is recomputed."""
+    p = layer_slice(layers, i)
+    x = x + attn.gqa_forward(p["attn"], cfg.attention,
+                             _norm(cfg, p["ln1"], x), positions, None,
+                             causal=False)
+    return x + apply_mlp(p["mlp"], _norm(cfg, p["ln2"], x), cfg.act)
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           remat: str = "layer") -> torch.Tensor:
+    """frames (B,F,d) from the stub frontend -> encoder output (B,F,d).
+    Under grad with ``remat != "none"`` each layer is checkpointed, as in
+    the reference (:func:`~repro_torch.models.common.checkpointed`)."""
     F = frames.shape[1]
     x = frames + sinusoidal_positions(F, cfg.d_model,
                                       device=frames.device).to(frames.dtype)
     positions = torch.arange(F, device=frames.device)
     for i in range(cfg.encoder_layers):
-        p = layer_slice(params["encoder"], i)
-        x = x + attn.gqa_forward(p["attn"], cfg.attention,
-                                 _norm(cfg, p["ln1"], x), positions, None,
-                                 causal=False)
-        x = x + apply_mlp(p["mlp"], _norm(cfg, p["ln2"], x), cfg.act)
+        x = checkpointed(remat, _enc_layer, cfg, params["encoder"], i, x,
+                         positions)
     return _norm(cfg, params["enc_norm"], x)
 
 
-def _dec_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
+def _dec_layer(cfg: ModelConfig, layers: Params, i: int, x: torch.Tensor,
                positions: torch.Tensor, enc_out: torch.Tensor
                ) -> torch.Tensor:
+    """Decoder layer ``i`` of the stack, sliced here (as
+    :func:`_enc_layer`)."""
+    p = layer_slice(layers, i)
     a = cfg.attention
     x = x + attn.gqa_forward(p["self_attn"], a, _norm(cfg, p["ln1"], x),
                              positions, None, causal=True)
@@ -97,21 +111,23 @@ def _dec_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            extra_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            extra_embeds: Optional[torch.Tensor] = None,
+            remat: str = "layer") -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) and the stub's frame embeddings ``extra_embeds``
-    (B,F,d) -> (logits over the decoder positions (B,S,V), aux loss 0)."""
+    (B,F,d) -> (logits over the decoder positions (B,S,V), aux loss 0).
+    Under grad with ``remat != "none"`` each encoder and each decoder
+    layer is checkpointed, as in the reference."""
     if extra_embeds is None:
         raise ValueError("whisper needs frame embeddings (extra_embeds)")
-    enc_out = encode(params, cfg, extra_embeds)
+    enc_out = encode(params, cfg, extra_embeds, remat)
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     x = x + sinusoidal_positions(S, cfg.d_model,
                                  device=x.device).to(x.dtype)
     positions = torch.arange(S, device=x.device)
     for i in range(cfg.num_layers):
-        x = _dec_layer(cfg, layer_slice(params["decoder"], i), x, positions,
-                       enc_out)
+        x = checkpointed(remat, _dec_layer, cfg, params["decoder"], i, x,
+                         positions, enc_out)
     x = _norm(cfg, params["final_norm"], x)
     return (logits_from_hidden(params, cfg, x),
             x.new_zeros((), dtype=torch.float32))

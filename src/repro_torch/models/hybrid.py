@@ -24,7 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamInit, layer_slice, to_dtype
+from repro_torch.models.common import (ParamInit, checkpointed,
+                                       layer_slice, to_dtype)
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        logits_from_hidden)
@@ -64,7 +65,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     """Fresh parameters in ``cfg.param_dtype`` (``A_log``, ``D`` and
     ``dt_bias`` in fp32), each leaf drawn where ``generator`` lives and
     moved to ``device`` before the next (``models/common.py``)."""
-    attn.check_supported(cfg.attention)
     pi = ParamInit(generator, to_dtype(cfg.param_dtype),
                    resolve_device(device))
     d, L = cfg.d_model, cfg.num_layers
@@ -91,17 +91,27 @@ def _shared_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor
     return x + apply_mlp(p["mlp"], h, cfg.act)
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (logits (B,S,V), aux loss 0)."""
-    attn.check_supported(cfg.attention)
+def _stacked_mamba_layer(cfg: ModelConfig, layers: Params, i: int,
+                         x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mamba_layer` of layer ``i`` of the stack, sliced here so
+    that a checkpointed layer re-slices when it is recomputed."""
+    return _mamba_layer(cfg, layer_slice(layers, i), x)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            remat: str = "layer") -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S) -> (logits (B,S,V), aux loss 0).  Under grad with
+    ``remat != "none"`` each Mamba2 layer is checkpointed; the shared
+    attention block is not, as in the reference
+    (:func:`~repro_torch.models.common.checkpointed`)."""
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     inv_freq, window = _inv_freq(cfg, x.device), _window(cfg)
     sp = params["shared"]
     for s, e, complete in _segments(cfg):
         for i in range(s, e):
-            x = _mamba_layer(cfg, layer_slice(params["mamba_layers"], i), x)
+            x = checkpointed(remat, _stacked_mamba_layer, cfg,
+                             params["mamba_layers"], i, x)
         if complete:
             h = apply_norm(sp["ln1"], x, cfg.norm, cfg.norm_eps)
             x = x + attn.gqa_forward(sp["attn"], cfg.attention, h, positions,
@@ -118,7 +128,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     Mamba2 layer, stacked along a leading layer axis, and a ring
     :class:`~attention.KVCache` of capacity ``min(max_len, window)`` in
     ``dtype`` (default the model's) per complete segment."""
-    attn.check_supported(cfg.attention)
     dtype = dtype or to_dtype(cfg.dtype)
     a, dev = cfg.attention, resolve_device(device)
     cap = min(max_len, a.window) if a.window else max_len
@@ -138,7 +147,6 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B,1); pos () or (B,) absolute position of each row (the
     shared block's rope and window; the Mamba2 recurrence has none).
     Returns (logits (B,1,V), cache), the cache written in place."""
-    attn.check_supported(cfg.attention)
     x = embed_tokens(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     inv_freq, window = _inv_freq(cfg, x.device), _window(cfg)

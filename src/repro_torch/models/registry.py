@@ -102,13 +102,17 @@ def _extra(batch: Dict[str, torch.Tensor], m) -> Optional[torch.Tensor]:
 
 def _lm_forward_and_loss(cfg: ArchConfig, mod):
     """The LM families' forward and loss (CE plus the MoE aux loss), the
-    prefix of the vlm and audio families taken from the batch."""
+    prefix of the vlm and audio families taken from the batch.  The run's
+    ``remat`` reaches every family's forward (the four the reference
+    checkpoints: transformer, hybrid, xlstm, encdec), as at
+    ``repro/models/registry.py:83``."""
     m = cfg.model
+    remat = cfg.run.remat
 
     def fwd(params, batch):
         extra = _extra(batch, m)
         kw = {} if extra is None else {"extra_embeds": extra}
-        return mod.forward(params, m, batch["tokens"], **kw)
+        return mod.forward(params, m, batch["tokens"], remat=remat, **kw)
 
     def loss(params, batch):
         logits, aux = fwd(params, batch)

@@ -21,7 +21,7 @@ gated norm are fp32.  The decode state (conv ring and SSD state) is fp32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -179,22 +179,38 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(xh.dtype), s
 
 
+def scan_per_group(scan: Callable, xin: torch.Tensor, dt: torch.Tensor,
+                   A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
+                   ) -> torch.Tensor:
+    """The SSD scan of G groups as G scans of one group each: ``scan``
+    (x, dt, A, B, C with B / C (B,L,N)) -> y runs on heads
+    ``g*H/G : (g+1)*H/G`` with ``Bm[:, :, g]`` and ``Cm[:, :, g]``, and
+    the outputs are concatenated along heads.  That is the reference's
+    mapping, head h on group ``h // (H/G)`` (``jnp.repeat(..., rep)``,
+    ``repro/models/ssm.py:94-106``)."""
+    G, rep = Bm.shape[2], xin.shape[2] // Bm.shape[2]
+    if G == 1:
+        return scan(xin, dt, A, Bm[:, :, 0], Cm[:, :, 0])
+    heads = [slice(g * rep, (g + 1) * rep) for g in range(G)]
+    return torch.cat([scan(xin[:, :, h], dt[:, :, h], A[h], Bm[:, :, g],
+                           Cm[:, :, g]) for g, h in enumerate(heads)], dim=2)
+
+
 def _scan(xin: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
           Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> torch.Tensor:
-    """The SSD scan of :func:`mamba2_forward`: the kernel on the card
-    (ngroups 1), :func:`ssd_chunked` on the CPU."""
+    """The SSD scan of :func:`mamba2_forward`: on the card one
+    ``mamba_chunk_scan`` a group (:func:`scan_per_group`),
+    :func:`ssd_chunked` on the CPU."""
     if sharded.is_dtensor(xin):
         return sharded.scan(lambda *t: _scan(*t, chunk), xin, dt, A, Bm, Cm)
     if not xin.is_cuda:
         return ssd_chunked(xin, dt, A, Bm, Cm, chunk)[0]
-    if Bm.shape[2] != 1:
-        raise NotImplementedError(
-            f"mamba_chunk_scan takes ngroups 1, got {Bm.shape[2]}; ngroups "
-            "> 1 is not ported to the card (no config of the repo has it)")
-    y, _ = ops.mamba_chunk_scan(
-        xin.contiguous(), dt.contiguous(), A.contiguous(),
-        Bm[:, :, 0].contiguous(), Cm[:, :, 0].contiguous(), chunk=chunk)
-    return y
+
+    def kernel(x, d, a, b, c):
+        return ops.mamba_chunk_scan(x.contiguous(), d.contiguous(),
+                                    a.contiguous(), b.contiguous(),
+                                    c.contiguous(), chunk=chunk)[0]
+    return scan_per_group(kernel, xin, dt, A, Bm, Cm)
 
 
 def mamba2_forward(p: Dict[str, Any], d_model: int, s: SSMConfig,

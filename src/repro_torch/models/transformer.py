@@ -33,7 +33,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamInit, layer_slice, to_dtype
+from repro_torch.models.common import (ParamInit, checkpointed,
+                                       layer_slice, to_dtype)
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        logits_from_hidden)
@@ -48,7 +49,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attention.kind not in ("full", "swa", "local_global", "mla"):
         raise NotImplementedError(
             f"attention kind {cfg.attention.kind!r} {attn.NOT_PORTED}")
-    attn.check_supported(cfg.attention)
 
 
 # ---------------------------------------------------------------------------
@@ -140,27 +140,35 @@ def _at(cache, i: int):
 def _layers(params: Params, cfg: ModelConfig, device, cache=None):
     """Every layer in order, the ``lead/{i}`` dense layers first: (its
     params, whether it is an MoE layer, its cache or None, its window,
-    its rope frequencies).  Each distinct rope base is moved to
-    ``device`` once a call."""
+    its rope frequencies; :func:`_layer_meta`)."""
     n_lead = _n_lead(cfg)
-    freqs: Dict[float, torch.Tensor] = {}
-    for i in range(cfg.num_layers):
-        theta = layer_theta(cfg, i)
-        if theta not in freqs:
-            freqs[theta] = _inv_freq(cfg, device, i)
+    for i, moe_layer, window, inv_freq in _layer_meta(cfg, device):
         if i < n_lead:
-            p, moe_layer = params["lead"][str(i)], False
+            p = params["lead"][str(i)]
             c = None if cache is None else cache["lead"][str(i)]
         else:
             p = layer_slice(params["layers"], i - n_lead)
-            moe_layer = cfg.moe is not None
             if cache is None:
                 c = None
             elif isinstance(cache["layers"], dict):
                 c = cache["layers"][str(i)]
             else:
                 c = _at(cache["layers"], i - n_lead)
-        yield p, moe_layer, c, layer_window(cfg, i), freqs[theta]
+        yield p, moe_layer, c, window, inv_freq
+
+
+def _layer_meta(cfg: ModelConfig, device):
+    """Every layer's (index, whether it is an MoE layer, window, rope
+    frequencies), the ``lead/{i}`` dense layers first.  Each distinct
+    rope base is moved to ``device`` once a call."""
+    n_lead = _n_lead(cfg)
+    freqs: Dict[float, torch.Tensor] = {}
+    for i in range(cfg.num_layers):
+        theta = layer_theta(cfg, i)
+        if theta not in freqs:
+            freqs[theta] = _inv_freq(cfg, device, i)
+        moe_layer = i >= n_lead and cfg.moe is not None
+        yield i, moe_layer, layer_window(cfg, i), freqs[theta]
 
 
 def _block(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
@@ -244,26 +252,50 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _with_positions(cfg, x)
 
 
+def _layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   positions: torch.Tensor, inv_freq: torch.Tensor, window,
+                   moe_layer: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of :func:`forward`: (its output, its MoE aux loss)."""
+    a = cfg.attention
+    h = _ln1(cfg, p, x)
+    if _is_mla(cfg):
+        y = attn.mla_forward(p["attn"], a, h, positions, inv_freq)
+    else:
+        y = attn.gqa_forward(p["attn"], a, h, positions, inv_freq,
+                             window=window)
+    return _block(cfg, p, x, y, moe_layer, with_aux=True)
+
+
+def _stacked_layer_forward(cfg: ModelConfig, layers: Params, k: int,
+                           *args) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_layer_forward` of layer ``k`` of the stack, sliced here so
+    that a checkpointed layer re-slices when it is recomputed."""
+    return _layer_forward(cfg, layer_slice(layers, k), *args)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            extra_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            extra_embeds: Optional[torch.Tensor] = None,
+            remat: str = "layer") -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S), after the prefix ``extra_embeds`` (B,P,d) if given
     -> (logits (B,P+S,V), aux loss summed over the MoE layers; 0 without
-    MoE)."""
+    MoE).  Under grad with ``remat != "none"`` each layer of the stack
+    ``params["layers"]`` is checkpointed, its aux loss returned from
+    inside; the ``lead/{i}`` dense layers are not, as in the reference
+    (:func:`~repro_torch.models.common.checkpointed`)."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens, extra_embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    a = cfg.attention
+    n_lead = _n_lead(cfg)
     aux_total = x.new_zeros((), dtype=torch.float32)
-    for p, moe_layer, _, window, inv_freq in _layers(params, cfg, x.device):
-        h = _ln1(cfg, p, x)
-        if _is_mla(cfg):
-            y = attn.mla_forward(p["attn"], a, h, positions, inv_freq)
+    for i, moe_layer, window, inv_freq in _layer_meta(cfg, x.device):
+        if i < n_lead:
+            x, aux = _layer_forward(cfg, params["lead"][str(i)], x,
+                                    positions, inv_freq, window, moe_layer)
         else:
-            y = attn.gqa_forward(p["attn"], a, h, positions, inv_freq,
-                                 window=window)
-        x, aux = _block(cfg, p, x, y, moe_layer, with_aux=True)
+            x, aux = checkpointed(remat, _stacked_layer_forward, cfg,
+                                  params["layers"], i - n_lead, x,
+                                  positions, inv_freq, window, moe_layer)
         aux_total = aux_total + aux
     return _head(params, cfg, x), aux_total
 

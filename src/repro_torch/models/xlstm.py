@@ -39,7 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import sharded
 from repro_torch.models.attention import _project
-from repro_torch.models.common import ParamInit, shard, to_dtype
+from repro_torch.models.common import (ParamInit, checkpointed, shard,
+                                       to_dtype)
 from repro_torch.models.layers import (apply_norm, embed_tokens,
                                        init_embedding, init_norm,
                                        logits_from_hidden)
@@ -463,13 +464,15 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return pi.build() if with_axes else pi.params
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (logits (B,S,V), aux loss 0)."""
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            remat: str = "layer") -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S) -> (logits (B,S,V), aux loss 0).  Under grad with
+    ``remat != "none"`` each mLSTM and sLSTM block is checkpointed, as in
+    the reference (:func:`~repro_torch.models.common.checkpointed`)."""
     x = embed_tokens(params, cfg, tokens)
     for i in range(cfg.num_layers):
         block = apply_slstm if _is_slstm(cfg, i) else apply_mlstm
-        x = block(params["blocks"][str(i)], cfg, x)
+        x = checkpointed(remat, block, params["blocks"][str(i)], cfg, x)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return (logits_from_hidden(params, cfg, x),
             x.new_zeros((), dtype=torch.float32))

@@ -123,10 +123,8 @@ class _EngineBase:
     """Slot bookkeeping and the calibration sweep the engines share."""
 
     def _setup(self, cfg: ArchConfig, params: Any, rows: int,
-               max_len: Optional[int], device: DeviceLike,
-               telemetry: Optional[Telemetry]) -> None:
+               max_len: Optional[int], device: DeviceLike) -> None:
         self.cfg = cfg
-        self._tel = _maybe_tel(telemetry)
         self.device = resolve_device(device)
         self.api = make_model(cfg)
         self.params = from_numpy_tree(params, self.device)
@@ -277,7 +275,8 @@ class ServeEngine(_EngineBase):
     def __init__(self, cfg: ArchConfig, params: Any, batch_size: int,
                  max_len: Optional[int] = None, device: DeviceLike = None,
                  telemetry: Optional[Telemetry] = None):
-        self._setup(cfg, params, batch_size, max_len, device, telemetry)
+        self._tel = _maybe_tel(telemetry)
+        self._setup(cfg, params, batch_size, max_len, device)
         self.cache = self.api.init_cache(batch_size, self.max_len,
                                          device=self.device)
         if self.cache is None:
@@ -443,7 +442,8 @@ class PagedServeEngine(_EngineBase):
                  max_len: Optional[int] = None, reserve_tokens: int = 16,
                  device: DeviceLike = None,
                  telemetry: Optional[Telemetry] = None):
-        self._setup(cfg, params, max_seqs, max_len, device, telemetry)
+        self._tel = _maybe_tel(telemetry)
+        self._setup(cfg, params, max_seqs, max_len, device)
         if self.api.paged_prefill is None:
             raise ValueError(
                 f"{cfg.name}: family {cfg.model.family!r} has no paged "

@@ -10,10 +10,7 @@ its own step, with no cross-cluster reduction; ``hfl_global_round``
 every ``l`` rounds.  Where the reference vmaps the step over clusters,
 the port loops over them (its kernels are ctypes launches behind
 ``autograd.Function``) and writes each cluster's result back into the
-stacked tensors in place, so the stack is never built twice.
-
-The JAX model wraps each layer in ``jax.checkpoint``; the port keeps the
-activations instead (remat changes memory, not numbers)."""
+stacked tensors in place, so the stack is never built twice."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple

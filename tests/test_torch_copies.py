@@ -32,7 +32,10 @@ COPIES = [
     "configs/llama3_405b.py", "configs/__init__.py", "data/tokens.py",
     "data/__init__.py", "sim/budget.py", "sim/faults.py",
     "sim/interference.py", "sim/cosim.py", "sim/reactive.py",
-    "sim/scenarios.py", "sim/__init__.py",
+    "sim/scenarios.py", "sim/__init__.py", "analysis/__init__.py",
+    "analysis/__main__.py", "analysis/core.py", "analysis/determinism.py",
+    "analysis/events_rules.py", "analysis/imports.py",
+    "analysis/telemetry_rules.py",
 ]
 #: copies with a documented difference: the names it adds
 DIFFERENCES = {"orchestration/controller.py": "device"}
@@ -45,9 +48,10 @@ def _rename(module):
 
 
 class _Normalise(ast.NodeTransformer):
-    """Drops docstrings and maps ``repro.`` imports, and strings that are
-    a dotted path of one (``sim/__init__.py``'s lazy map), to
-    ``repro_torch.``."""
+    """Drops docstrings and maps ``repro.`` imports to ``repro_torch.``,
+    and the package's name as a word in any string (a dotted path in
+    ``sim/__init__.py``'s lazy map, the bare ``"repro"`` and
+    ``"src/repro"`` the contract checker scans) to ``repro_torch``."""
 
     def _drop_docstring(self, node):
         self.generic_visit(node)
@@ -72,9 +76,8 @@ class _Normalise(ast.NodeTransformer):
         return node
 
     def visit_Constant(self, node):
-        if isinstance(node.value, str) and re.fullmatch(r"repro(\.\w+)+",
-                                                        node.value):
-            node.value = _rename(node.value)
+        if isinstance(node.value, str):
+            node.value = re.sub(r"\brepro\b", "repro_torch", node.value)
         return node
 
 

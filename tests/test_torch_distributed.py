@@ -530,3 +530,13 @@ def test_run_ranks_raises_within_its_timeout(body, error, timeout):
 def test_run_ranks_refuses_an_unknown_backend():
     with pytest.raises(ValueError):
         run_ranks(failing_rank, 2, backend="mpi")
+
+
+def test_run_ranks_without_a_device_asks_for_the_card():
+    """No ``device`` means one card a rank, as every entry point of the
+    port: where CUDA is absent it raises ``resolve_device``'s error
+    before any rank starts, rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is here: the default would run on it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_ranks(failing_rank, 2, backend="gloo")

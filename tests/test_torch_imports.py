@@ -110,3 +110,75 @@ def test_no_jax_or_repro_import(path):
     bad = [(root, line) for root, line in _imported_roots(path)
            if root in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+# ---------------------------------------------------------------------------
+# contract LAYER001 / LAYER002 on the port: the numpy-only layers and the
+# lazy facades import without torch, as the reference's import without jax
+# (tests/test_import_contracts.py)
+# ---------------------------------------------------------------------------
+
+PROTECTED = ["repro_torch.routing", "repro_torch.sim", "repro_torch.core",
+             "repro_torch.telemetry", "repro_torch.configs",
+             "repro_torch.fl.schedule"]
+FACADES = ["repro_torch.serving", "repro_torch.fl"]
+TORCH_BLOCKER = BLOCKER.replace(repr(FORBIDDEN),
+                                repr(FORBIDDEN + ("torch",)))
+
+
+@pytest.mark.parametrize("module", PROTECTED + FACADES)
+def test_protected_namespace_imports_with_torch_blocked(module):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         TORCH_BLOCKER + f"import {module}\nprint('imported-ok')\n"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported-ok" in proc.stdout
+
+
+def test_torch_blocker_blocks_torch():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", TORCH_BLOCKER
+                           + "import repro_torch.serving.engine\n"],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode != 0 and "torch imported while blocked" \
+        in proc.stderr
+
+
+def test_normal_import_keeps_torch_out_until_a_lazy_name_is_read():
+    body = "".join(f"import {m}\n" for m in PROTECTED + FACADES)
+    body += textwrap.dedent("""
+        import sys
+        import repro_torch
+        assert "torch" not in sys.modules, "torch leaked in"
+        from repro_torch.serving import poisson_requests
+        from repro_torch.fl import round_schedule
+        assert "torch" not in sys.modules, "torch leaked in"
+        pool = repro_torch.serving.ReplicaPool
+        assert "torch" in sys.modules
+        assert pool.__module__ == "repro_torch.serving.replica"
+        from repro_torch import resolve_device
+        assert str(resolve_device("cpu")) == "cpu"
+        assert repro_torch.fl.fedavg.__module__ == "repro_torch.fl.aggregation"
+        print("lazy-ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", body], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "lazy-ok" in proc.stdout
+
+
+@pytest.mark.parametrize("facade", ["repro_torch", "repro_torch.serving",
+                                    "repro_torch.fl"])
+def test_facade_names_resolve(facade):
+    """Every name a facade exports resolves, and an unknown one raises
+    AttributeError."""
+    import importlib
+    mod = importlib.import_module(facade)
+    for name in mod.__all__:
+        assert getattr(mod, name) is not None, name
+    with pytest.raises(AttributeError):
+        getattr(mod, "no_such_name")

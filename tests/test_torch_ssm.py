@@ -295,6 +295,24 @@ def test_ssd_chunked_matches_jax(G, with_init):
     assert_allclose(s.numpy(), np.asarray(sj), **TOL)
 
 
+@pytest.mark.parametrize("G", [2, 4])
+def test_scan_per_group_on_the_plain_version_equals_ssd_chunked(G):
+    """The card's split of G groups into G one-group scans (heads
+    ``g*H/G : (g+1)*H/G`` on ``B[:, :, g]``, ``C[:, :, g]``), each run
+    on ``mamba_chunk_scan``'s plain version, equals the scan with the
+    group axis, JAX's ``repeat(rep)`` mapping."""
+    x, dt, A, Bm, Cm = _t(*scan_inputs(2, 64, 8, 8, 16, G=G, seed=G))
+    got = ssm.scan_per_group(
+        lambda *t: ref.mamba_chunk_scan_ref(*t, 32)[0], x, dt, A, Bm, Cm)
+    want, _ = ssm.ssd_chunked(x, dt, A, Bm, Cm, 32)
+    assert got.shape == want.shape == x.shape
+    assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+    # a wrong mapping (head h on group h % G) is told apart
+    wrong = ssm.ssd_chunked(x, dt, A, Bm[:, :, torch.arange(8) % G],
+                            Cm[:, :, torch.arange(8) % G], 32)[0]
+    assert not np.allclose(wrong.numpy(), want.numpy(), atol=1e-3)
+
+
 def test_ssd_chunked_s_init_continues_a_split_sequence():
     """Scanning the second half from the first half's final state gives
     the whole sequence's second half and final state."""
@@ -539,12 +557,21 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
 
 
 @pytest.mark.cuda
-def test_mamba2_forward_on_the_card_raises_for_groups(cuda_device):
+def test_mamba2_forward_on_the_card_takes_groups(cuda_device):
+    """ngroups 2: one ``mamba_chunk_scan`` a group on its half of the
+    heads, against ``ssd_chunked`` with the group axis on the CPU."""
     s = dataclasses.replace(SSM, ngroups=2)
-    tree = from_numpy_tree(mamba_params(D_MODEL, s), cuda_device)
-    with pytest.raises(NotImplementedError, match="ngroups"):
-        ssm.mamba2_forward(tree, D_MODEL, s,
-                           torch.zeros((1, 32, D_MODEL), device=cuda_device))
+    tree = mamba_params(D_MODEL, s, seed=13)
+    x = np.random.default_rng(14).normal(size=(2, 64, D_MODEL)).astype(
+        np.float32)
+    before = mamba_chunk_scan.launches
+    out = ssm.mamba2_forward(from_numpy_tree(tree, cuda_device), D_MODEL, s,
+                             torch.as_tensor(x, device=cuda_device))
+    torch.cuda.synchronize()
+    assert mamba_chunk_scan.launches == before + 2
+    want = ssm.mamba2_forward(from_numpy_tree(tree, "cpu"), D_MODEL, s,
+                              torch.as_tensor(x))
+    assert_allclose(_np(out), want.numpy(), **TOL)
 
 
 @pytest.mark.cuda

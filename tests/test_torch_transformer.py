@@ -239,17 +239,33 @@ def test_rope_rotates_half_split_pairs():
                                          ("mla_q_lora_rank", 64)])
 def test_unported_attention_features_raise(field, value):
     """What the port's transformer refuses: attention kind "none" (the
-    xLSTM family's, which has its own model), MLA query compression.
-    (gemma3's ``qk_norm``, ``logit_soft_cap`` and ``local_global`` are
-    ported: tests/test_torch_gemma3.py; sinusoidal positions:
-    tests/test_torch_encdec.py and the case below.)"""
-    _, tcfg, _, _ = jax_setup()
+    xLSTM family's, which has its own model).  MLA with query compression
+    is no refusal: the reference builds a plain ``wq`` whatever
+    ``q_lora_rank`` is (``repro/models/attention.py:47-62``), and so does
+    the port, so the reduced deepseek at ``q_lora_rank = 64`` gives JAX's
+    logits.  (gemma3's ``qk_norm``, ``logit_soft_cap`` and
+    ``local_global`` are ported: tests/test_torch_gemma3.py; sinusoidal
+    positions: tests/test_torch_encdec.py and the case below.)"""
     if field == "mla_q_lora_rank":
-        tcfg = get_config("deepseek-v2-lite-16b").reduced()
-        a = dataclasses.replace(tcfg.model.attention, mla=dataclasses.replace(
-            tcfg.model.attention.mla, q_lora_rank=value))
-    else:
-        a = dataclasses.replace(tcfg.model.attention, **{field: value})
+        def with_q_lora(cfg):
+            a = cfg.model.attention
+            return fp32(dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, attention=dataclasses.replace(
+                    a, mla=dataclasses.replace(a.mla, q_lora_rank=value)))))
+
+        jcfg = with_q_lora(jax_get_config("deepseek-v2-lite-16b").reduced())
+        tcfg = with_q_lora(get_config("deepseek-v2-lite-16b").reduced())
+        params, _ = jax_make_model(jcfg).init_params(jax.random.key(0))
+        tok = tokens(2, 13, tcfg.model.vocab_size)
+        want, jaux = jtf.forward(params, jcfg.model, jnp.asarray(tok))
+        got, aux = make_model(tcfg).forward(
+            from_numpy_tree(jax.tree.map(np.asarray, params), "cpu"),
+            {"tokens": torch.as_tensor(tok)})
+        assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert_allclose(aux.item(), float(jaux), **TOL)
+        return
+    _, tcfg, _, _ = jax_setup()
+    a = dataclasses.replace(tcfg.model.attention, **{field: value})
     bad = dataclasses.replace(tcfg, model=dataclasses.replace(
         tcfg.model, attention=a))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
