@@ -86,6 +86,16 @@ through the entry points a user calls:
   ``compressed_global_sync_manual`` on the same inputs; round-1 losses
   against the single-process run, replicas bit-identical across ranks
   after each sync, exact launches and the bytes each collective carried.
+- the reference's production decode layout (split_decode): stablelm-1.6b
+  and gemma3-1b at full width in bf16, and fp32 cuts of each, decoding
+  4 steps from 32,768-slot caches drawn from the seed whose slots are
+  split over 2 ranks on the one card (gloo; ``kv_seq`` over ``model``
+  under DEFAULT_RULES), each rank's share through
+  ``decode_attention_partial`` and the shares merged across the ranks,
+  held against the unsharded ``decode_step`` on the same weights and
+  cache (every layer's attention on the same inputs, the fp32 cuts'
+  logits); the partial instance beside its plain version at a rank's
+  share of 16,384 slots.
 - the dry-run launch layer (dryrun): ``launch/dryrun.py``'s
   ``run_combo`` at full width on the host, over a fake world:
   gemma3-1b's train_4k on the 256-rank mesh and decode_32k on the
@@ -109,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -147,11 +158,13 @@ BATCHES_PER_TIER = 3
 #: the HFL slice: the paper's Fig. 6 setup (20 clients, 5 a geographic
 #: cluster, 5 local epochs, batch 16, lr 1e-4, l = 2) for one local and
 #: one global round of hierarchical FedAvg; each epoch cut to 4
-#: minibatches, the validation week to 128 windows a client.  Card
-#: against CPU: val MSE within 1e-4 relative, parameters within 1e-4
-#: absolute
+#: minibatches, the epochs to 2 (a depth cut to keep the whole run in
+#: its time limit: hfl_slice took 70.0 s at 5 on an H100 80GB HBM3 at
+#: 700 W, the CPU's run most of it), the validation week to 128 windows
+#: a client.  Card against CPU: val MSE within 1e-4 relative,
+#: parameters within 1e-4 absolute
 HFL_PER_CLUSTER = 5
-HFL_RUN = dict(rounds=2, local_epochs=5, batch_size=16, lr=1e-4,
+HFL_RUN = dict(rounds=2, local_epochs=2, batch_size=16, lr=1e-4,
                max_batches=4, max_val_windows=128)
 HFL_TOL = 1e-4
 HFL_SIM_S = 60
@@ -163,12 +176,14 @@ ATTN_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 #: (prefill bucket 64): a paged tier's page budget is what its dense
 #: counterpart reserves, 64 tokens a row at its full row count, so a
 #: 64-token prompt plus 8 decoded tokens (5 pages) would not fit 32 rows
-#: in the cloud's 128 pages.
+#: in the cloud's 128 pages.  ``measure()`` times 8 decode steps a
+#: level (a depth cut from 16: three quarters of the slices' decode
+#: steps were its, and deepseek's are host-bound at ~0.17 s each)
 LM_ARCH = "stablelm-1.6b"
 LM_PROMPT = 56
 LM_STEPS = 8
 LM_BATCHES_PER_TIER = 2
-LM_MEASURE = dict(prompt_len=64, decode_steps=16, occupancy_levels=(1, 4, 8))
+LM_MEASURE = dict(prompt_len=64, decode_steps=8, occupancy_levels=(1, 4, 8))
 #: the CPU-parity run: full width, 2 layers (a depth cut only), fp32;
 #: prefill logits on the card against the CPU (fp32 sums in other
 #: orders through 2 layers and a 2048-wide head)
@@ -207,16 +222,17 @@ HYBRID_PARITY_SEQ = 256
 HYBRID_PARITY_LOGIT_TOL = 2e-3
 DECODE_TOL = 2e-3
 #: the hybrid admits a prompt token by token, one ~40-layer decode step
-#: each, so its measure() probes with 16-token prompts and its profile
+#: each, so its measure() probes with 8-token prompts and its profile
 #: admits 8-token prompts (a step's cost does not depend on the prompt)
-HYBRID_MEASURE = dict(prompt_len=16, decode_steps=8,
+HYBRID_MEASURE = dict(prompt_len=8, decode_steps=8,
                       occupancy_levels=(1, 4, 8))
 HYBRID_PROFILE_PROMPT = 8
-#: the hybrid's served request batches: prompts of 16 tokens, as its
+#: the hybrid's served request batches: prompts of 8 tokens, as its
 #: measure() probes with (a depth cut: it admits a prompt with a decode
 #: step a token, and hybrid_slice's serving_seconds were 120.0 at 56
-#: tokens, 36.7-57.4 at 16, on an H100 80GB HBM3 at 700 W)
-HYBRID_PROMPT = 16
+#: tokens, 36.7-77.8 at 16, on an H100 80GB HBM3 at 700 W); xlstm's and
+#: whisper's served prompts and recurrent parity cuts take the same
+HYBRID_PROMPT = 8
 #: the gemma3 slice: gemma3-1b at full width, with the LM slice's tiers,
 #: requests and measurement
 GEMMA_ARCH = "gemma3-1b"
@@ -303,6 +319,39 @@ DRYRUN_COMBOS = (("single", GEMMA_ARCH, "train_4k"),
 DRYRUN_TIMEOUT = 240
 #: sharded_step's loss against the unsharded port's, the same card
 DRYRUN_LOSS_TOL = 1e-3
+#: the split decode: decode_32k's 32,768-slot cache (the reference's
+#: production decode layout) laid out by ``cache_shardings`` under
+#: DEFAULT_RULES on a (data 1, model 2) mesh of 2 ranks on the one card
+#: over gloo, so ``kv_seq`` takes ``model`` and each rank holds half the
+#: slots; drawn from the seed, not prefilled.  Tokens cached a row before
+#: the first step: all in rank 0's half, both halves, a wrapped ring.
+#: The cases: (arch, dtype, layers or None for the published depth);
+#: gemma3's fp32 cut keeps 6 layers, the first with a global layer (a
+#: 2-layer cut would hold only its 512-slot local rings)
+SPLIT_SLOTS = 32_768
+SPLIT_TOKENS = (3_000, 20_000, 40_000)
+SPLIT_STEPS = 4
+SPLIT_CASES = ((LM_ARCH, "bfloat16", None), (LM_ARCH, "float32", 2),
+               (GEMMA_ARCH, "bfloat16", None), (GEMMA_ARCH, "float32", 6))
+SPLIT_TOL = ATTN_TOL
+#: the partial instance's (o / l, m, l) against its plain version's,
+#: whatever q's dtype: both compute in fp32 from the same inputs and
+#: return fp32, so bf16's 3e-2 would pass an o of zeros (o / l is a mean
+#: of V, ~0.01 at 16,384 slots)
+PARTIAL_TOL = ATTN_TOL["float32"]
+#: each layer's bf16 attention output on the ranks against the unsharded
+#: kernel's and the plain version's on the same inputs: both sides
+#: accumulate in fp32 and round once, so at most one bf16 ulp apart
+SPLIT_ATTN_ULPS = 1.0
+#: the bf16 models' logits gap to the unsharded run, at most this many
+#: times the control's, the unsharded run with the plain decode against
+#: the kernel: with random weights either gap grows through the layers
+#: to the logits' scale (on an H100 the ratios were 1.37 for
+#: stablelm-1.6b and 1.43 for gemma3-1b; PERF.md)
+SPLIT_CONTROL_FACTOR = 2.0
+SPLIT_TIMEOUT = 400
+#: a rank's share of gemma3-1b's 512-slot local rings (its window)
+LOCAL_SHARE = 256
 #: served trees at full width: leaf -> shape
 FULL_WIDTH = {
     LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
@@ -539,8 +588,11 @@ def phase_sass():
     mla = [r for fn, r in rows.items()
            if is_kernel(fn, "paged_mla_decode_mma_kernel")]
     # template <typename T, bool kVec, ...>: the vector instances are Lb1E
+    # right after the type (the dense kernel's last flag, kPartial, is one
+    # more Lb0E / Lb1E)
     vec = {name: [r for fn, r in rows.items()
-                  if is_kernel(fn, name) and "Lb1E" in fn]
+                  if is_kernel(fn, name)
+                  and re.search(r"I(?:f|13__nv_bfloat16)Lb1E", fn)]
            for name in ("decode_attention_kernel",
                         "paged_decode_attention_kernel")}
     # template <typename T, bool kTC, int NTP>: bf16 tensor-core instances
@@ -560,8 +612,9 @@ def phase_sass():
                            ("bfloat16", "I13__nv_bfloat16Li"))}
     # the instances gemma3's head dim 256 takes: both decode kernels' rows
     # over 16 lanes, one query head a block (template <T, kVec, kLanes,
-    # kDims, kGB>), flash's bf16 Dv-256 instances (template <kNo, kVec>)
-    # and fp32 8-chunk instance (template <T, kChunks>)
+    # kDims, kGB>, the dense kernel's full and partial instances), flash's
+    # bf16 Dv-256 instances (template <kNo, kVec>) and fp32 8-chunk
+    # instance (template <T, kChunks>)
     wide = {fn: r for fn, r in rows.items()
             if ((is_kernel(fn, "decode_attention_kernel")
                  or is_kernel(fn, "paged_decode_attention_kernel"))
@@ -597,9 +650,10 @@ def phase_sass():
                       and r.get("spill_stores") == 0
                       and r.get("spill_loads") == 0 for r in v)
                   for v in fed.values()),
-              # 2 kernels x 2 dtypes x 2 load widths, flash's two bf16
-              # instances and its fp32 one
-              "head_dim_256_no_spills": len(wide) == 11 and all(
+              # 3 decode instances (dense full and partial, paged) x 2
+              # dtypes x 2 load widths, flash's two bf16 instances and its
+              # fp32 one
+              "head_dim_256_no_spills": len(wide) == 15 and all(
                   r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                   for r in wide.values())}
     emit({"phase": "sass", "functions": rows,
@@ -852,16 +906,23 @@ def phase_autograd(torch):
 
 
 def check_attention(torch, kernel, shape, dtype_name, call, plain,
-                    library, nbytes, flops):
+                    library, nbytes, flops, compared=None, tol=None):
     """One attention kernel at one shape: error against its plain
-    version, times, and the bound of the work its inputs need."""
-    out = call()
-    want = plain()
+    version (over every output, where it returns several, each as
+    ``compared`` maps the outputs) within ``tol`` (default the dtype's
+    ATTN_TOL), times, and the bound of the work its inputs need."""
+    outs, wants = call(), plain()
     torch.cuda.synchronize()
-    tol = ATTN_TOL[dtype_name]
-    err = (out.float() - want.float()).abs().max().item()
-    ok = bool(out.dtype == want.dtype and torch.allclose(
-        out.float(), want.float(), atol=tol, rtol=tol))
+    if not isinstance(outs, tuple):
+        outs, wants = (outs,), (wants,)
+    if compared:
+        outs, wants = compared(*outs), compared(*wants)
+    tol = ATTN_TOL[dtype_name] if tol is None else tol
+    err = max((o.float() - w.float()).abs().max().item()
+              for o, w in zip(outs, wants))
+    ok = all(o.dtype == w.dtype and torch.allclose(
+        o.float(), w.float(), atol=tol, rtol=tol)
+        for o, w in zip(outs, wants))
     rate = BF16_FLOP_PER_S if dtype_name == "bfloat16" else FP32_FLOP_PER_S
     bound_ms, bound_by = bound(nbytes, flops, rate)
     row = {"kernel": kernel, "shape": list(shape), "dtype": dtype_name,
@@ -969,6 +1030,83 @@ def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name,
         None if soft_cap else library,
         it * (2 * B * H * D + (2 * keys + mean_rows * C) * Hkv * D) + B * C,
         (keys * 4 + mean_rows * C * 2) * H * D)
+
+
+def check_decode_partial(torch, rng, B, H, Hkv, C, D, valid, dtype_name):
+    """The partial instance over one rank's share of C slots, ``valid``
+    (B, C) as it is: its (o, m, l) against the plain version's within
+    PARTIAL_TOL whatever the dtype, o as o / l: o is a sum over the
+    share's slots whose elements cancel, so its error scales with l, not
+    with o (an element near 0 carries the rounding of 16,384 terms), and
+    o / l is what the merge uses.  Where a row has no valid slot, a
+    planted fault, the kernel's o zeroed on those rows, is compared the
+    same way at PARTIAL_TOL and at the dtype's ATTN_TOL
+    (``planted_fault_passes``: the check must reject it).  The
+    bound counts what :func:`check_decode` counts, the fp32 outputs
+    written; the yardstick is the one PyTorch call that returns a
+    decode's softmax statistics, the memory-efficient attention with
+    ``compute_log_sumexp`` (its output normalised, with the log of the
+    sum), over the kv heads repeated per query head (outside its timing)
+    with an additive mask; None with the reason where it refuses."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    dtype = getattr(torch, dtype_name)
+    q = _randn(torch, rng, (B, H, D), dtype)
+    k, v = (_randn(torch, rng, (B, C, Hkv, D), dtype) for _ in range(2))
+    valid = np.asarray(valid, bool)
+    keys = int(valid.sum())
+    mean_rows = int((~valid.any(1)).sum())
+    valid_t = torch.as_tensor(valid, device=DEVICE)
+    it = q.element_size()
+    q4 = q[:, :, None]
+    k4, v4 = (x.transpose(1, 2).repeat_interleave(H // Hkv, 1).contiguous()
+              for x in (k, v))
+    bias = torch.where(valid_t, 0.0, -1e30).to(dtype)[:, None, None, :] \
+        .expand(B, H, 1, C).contiguous()
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q4, k4, v4, bias, True)[:2]
+
+    refused = None
+    try:
+        library()
+        torch.cuda.synchronize()
+    except Exception as exc:  # the yardstick only; the kernel is checked
+        refused = f"{type(exc).__name__}: {exc}"[:300]
+    row = check_attention(
+        torch, "decode_attention_partial", (B, H, Hkv, C, D), dtype_name,
+        lambda: da.decode_attention_partial(q, k, v, valid_t),
+        lambda: ref.decode_attention_partial_ref(q, k, v, valid_t),
+        None if refused else library,
+        it * (B * H * D + (2 * keys + mean_rows * C) * Hkv * D) + B * C
+        + 4 * B * H * (D + 2),
+        (keys * 4 + mean_rows * C * 2) * H * D,
+        compared=normalised, tol=PARTIAL_TOL)
+    if mean_rows:
+        empty = torch.as_tensor(~valid.any(1), device=DEVICE)
+        o, m, l = da.decode_attention_partial(q, k, v, valid_t)
+        got = normalised(torch.where(empty[:, None, None], 0.0, o), m, l)
+        want = normalised(*ref.decode_attention_partial_ref(q, k, v,
+                                                            valid_t))
+        row["planted_fault_passes"] = {
+            str(t): all(torch.allclose(g, w, atol=t, rtol=t)
+                        for g, w in zip(got, want))
+            for t in (PARTIAL_TOL, ATTN_TOL[dtype_name])}
+        emit({"phase": "kernel_check_planted", "kernel": row["kernel"],
+              "shape": row["shape"], "dtype": dtype_name,
+              "fault": "o zeroed on the rows with no valid slot",
+              "passes": row["planted_fault_passes"]})
+    if refused:
+        row["library_refused"] = refused
+        emit({"phase": "kernel_check_library", "kernel": row["kernel"],
+              "shape": row["shape"], "refused": refused})
+    return row
+
+
+def normalised(o, m, l):
+    """The partial statistics as they are compared: (o / l, m, l)."""
+    return o / l[..., None], m, l
 
 
 def paged_tables(rng, lengths, ps, Pseq, num_pages):
@@ -1394,6 +1532,7 @@ def phase_slice(torch):
     want = {"gru_seq": m.rnn_layers * (n_dispatch + 9 * len(TIER_BATCH)),
             "fedavg_reduce": 1 + 2 * len(np.unique(CLUSTER_IDS)) + 1,
             "flash_attention": 0, "decode_attention": 0,
+            "decode_attention_partial": 0,
             "paged_decode_attention": 0, "paged_mla_decode_attention": 0,
             "topk_router": 0, "mamba_chunk_scan": 0}
     checks = {
@@ -1693,6 +1832,7 @@ def expected_lm_launches(m, calls):
     return {"gru_seq": 0, "fedavg_reduce": 0,
             "flash_attention": L * admits,
             "decode_attention": 0 if mla else L * dense,
+            "decode_attention_partial": 0,
             "paged_decode_attention": 0 if mla else L * paged,
             "paged_mla_decode_attention": L * paged if mla else 0,
             "topk_router": moe_layers * (admits + dense + paged),
@@ -3164,7 +3304,8 @@ def expected_train_launches(m, steps, microbatches, sync_groups, remat):
     moe_layers = m.num_layers - lead if m.moe else 0
     again = 0 if remat == "none" else 1
     want = {k: 0 for k in ("gru_seq", "fedavg_reduce", "flash_attention",
-                           "decode_attention", "paged_decode_attention",
+                           "decode_attention", "decode_attention_partial",
+                           "paged_decode_attention",
                            "paged_mla_decode_attention", "topk_router",
                            "mamba_chunk_scan")}
     want["flash_attention"] = (m.num_layers
@@ -3674,8 +3815,9 @@ def dist_rank(rank, results, conf):
                             "all_reduce": {"data": 4 * n_leaves}}
 
     def identical_across_ranks(tree) -> bool:
-        mine = bit_sums(torch, tree)
-        every = torch.empty((world,) + mine.shape, dtype=mine.dtype)
+        mine = bit_sums(torch, tree).to(DEVICE)   # NCCL takes CUDA tensors
+        every = torch.empty((world,) + mine.shape, dtype=mine.dtype,
+                            device=DEVICE)
         dist.all_gather(list(every.unbind(0)), mine, group=group)
         return bool((every == every[0]).all())
 
@@ -3787,10 +3929,12 @@ def dist_rank(rank, results, conf):
             "rank_seconds": time.perf_counter() - t_start}
 
 
-def phase_dist(torch, train_losses):
+def phase_dist(torch, train_losses, backend=DIST_BACKEND,
+               devices=f"{DEVICE}:0", phase="dist_slice"):
     """The distributed HFL layer's main path: train_slice's run with one
     FL cluster a process (``dist_rank``), 2 ranks on the one card over
-    gloo, started by ``run_ranks`` (spawn, a ``FileStore``).  Every
+    gloo (or as ``devices`` and ``backend`` say: None is one card a
+    rank), started by ``run_ranks`` (spawn, a ``FileStore``).  Every
     forward's attention is ``flash_attention`` (D 256) and every sync's
     mean ``fedavg_reduce``.  Holds each rank against train_slice's
     cluster (round-1 losses within 3e-5 relative: same parameters, same
@@ -3817,8 +3961,8 @@ def phase_dist(torch, train_losses):
         if isinstance(obj, torch.Tensor) and obj.is_cuda:
             storage = obj.untyped_storage()
             reachable[storage.data_ptr()] = storage.nbytes()
-    ranks = run_ranks(dist_rank, DIST_RANKS, backend=DIST_BACKEND,
-                      device=f"{DEVICE}:0", timeout=DIST_TIMEOUT,
+    ranks = run_ranks(dist_rank, DIST_RANKS, backend=backend,
+                      device=devices, timeout=DIST_TIMEOUT,
                       args=({"spawned_at": time.time()},))
     cfg = get_config(TRAIN_ARCH)
     # a plain sync's launches a dtype group, one an int8 sync, one manual
@@ -3831,7 +3975,8 @@ def phase_dist(torch, train_losses):
     kinds = ["plain", "int8", "manual"]
     checks = {
         "full_width": all(r["full_width"] for r in ranks),
-        "one_card": all(r["device"] == 0 for r in ranks),
+        "devices": [r["device"] for r in ranks] == (
+            [0] * DIST_RANKS if devices else list(range(DIST_RANKS))),
         "kernels_loaded_not_rebuilt": all(r["prebuilt"] for r in ranks),
         "round1_losses_match_train_slice": all(
             g[0] <= TRAIN_LOSS_RTOL for g in gaps),
@@ -3852,8 +3997,8 @@ def phase_dist(torch, train_losses):
         "sync_bytes": all(s["bytes"] == r["expected_sync_bytes"][s["kind"]]
                           for r in ranks for s in r["syncs"]),
     }
-    emit({"phase": "dist_slice", "seconds": time.perf_counter() - t_phase,
-          "arch": TRAIN_ARCH, "ranks": DIST_RANKS, "backend": DIST_BACKEND,
+    emit({"phase": phase, "seconds": time.perf_counter() - t_phase,
+          "arch": TRAIN_ARCH, "ranks": DIST_RANKS, "backend": backend,
           "mesh": ranks[0]["mesh"],
           "params": ranks[0]["params"], "leaves": ranks[0]["leaves"],
           "batch": [TRAIN_BATCH, TRAIN_SEQ], "rounds": TRAIN_ROUNDS,
@@ -3877,7 +4022,7 @@ def phase_dist(torch, train_losses):
           "expected_launches": want, "library": ranks[0]["library"],
           "checks": checks})
     if not all(checks.values()):
-        raise AssertionError(f"dist_slice checks failed: "
+        raise AssertionError(f"{phase} checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return {k: sum(r["launches"][k] for r in ranks) for k in want}
 
@@ -4074,6 +4219,473 @@ def phase_dryrun(torch, step_profile):
     return step["launches"], step["grad"]["launches"]
 
 
+def split_config(arch, dtype_name, layers):
+    """A SPLIT_CASES config: the published one (bf16), or an fp32 cut of
+    ``layers`` layers at full width."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        if cfg.model.dtype != dtype_name:
+            raise ValueError(f"{arch} is {cfg.model.dtype}, not {dtype_name}")
+        return cfg
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype=dtype_name, param_dtype=dtype_name,
+        num_layers=layers))
+
+
+def rings(cache) -> list:
+    from repro_torch.models.attention import map_kv_caches
+    out = []
+    map_kv_caches(out.append, cache)
+    return out
+
+
+def split_cache(torch, api, mesh=None, rules=None):
+    """The split decode's cache: ``api.init_cache``'s tree at
+    len(SPLIT_TOKENS) rows of SPLIT_SLOTS (gemma3's local rings 512), no
+    prefill: K and V drawn on the card from the seed a layer at a time,
+    each ring's positions those of its row's SPLIT_TOKENS tokens
+    (``ring_positions``) and its index that count.  With ``mesh`` and
+    ``rules`` each leaf is a DTensor laid out by ``cache_shardings``
+    holding this rank's share, and only that share of each layer's draw
+    is kept; the whole cache drawn by one process and the shares drawn by
+    the ranks hold the same values."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.attention import map_kv_caches, ring_positions
+
+    with FakeTensorMode():   # the tree's shapes, nothing allocated
+        shapes = api.init_cache(len(SPLIT_TOKENS), SPLIT_SLOTS, device="cpu")
+
+    def local(x, pl):
+        """This rank's slice of each dim of a tensor shaped as ``x``."""
+        start, size = [0] * x.ndim, list(x.shape)
+        for j, p in enumerate(pl or ()):
+            if p.is_shard():
+                size[p.dim] //= mesh.size(j)
+                start[p.dim] += mesh.get_coordinate()[j] * size[p.dim]
+        return tuple(slice(a, a + n) for a, n in zip(start, size))
+
+    count = itertools.count()
+
+    def one(ring, pl=None):
+        n, lead = next(count), tuple(ring.k.shape[:-4])
+        pl = pl or (None,) * len(ring)
+
+        def drawn(x, p, salt):
+            keep = local(x, p)[len(lead):]
+            slabs = []
+            for j in range(int(np.prod(lead, dtype=np.int64))):
+                g = torch.Generator(device=DEVICE).manual_seed(
+                    SEED + 4096 * n + 2 * j + salt)
+                slabs.append(torch.randn(x.shape[len(lead):], generator=g,
+                                         dtype=x.dtype, device=DEVICE)[keep]
+                             .clone())
+            return torch.stack(slabs) if lead else slabs[0]
+
+        rows = torch.stack([ring_positions(ring.k.shape[-3], t)
+                            for t in SPLIT_TOKENS]).to(DEVICE)
+        pos = rows.expand(lead + rows.shape)
+        index = torch.as_tensor(SPLIT_TOKENS, dtype=ring.index.dtype,
+                                device=DEVICE).expand(lead + rows.shape[:1])
+        leaves = (drawn(ring.k, pl[0], 0), drawn(ring.v, pl[1], 1),
+                  pos[local(ring.pos, pl[2])].contiguous(),
+                  index[local(ring.index, pl[3])].contiguous())
+        if mesh is not None:
+            leaves = [DTensor.from_local(t, mesh, p, run_check=False,
+                                         shape=x.shape, stride=x.stride())
+                      for t, p, x in zip(leaves, pl, ring)]
+        return type(ring)(*leaves)
+
+    if mesh is None:
+        return map_kv_caches(one, shapes)
+    return map_kv_caches(one, shapes, sh.cache_shardings(shapes, mesh, rules))
+
+
+def split_tokens(cfg):
+    """The tokens each row decodes, (rows, SPLIT_STEPS), from the seed."""
+    return np.random.default_rng(SEED + 27).integers(
+        0, cfg.model.vocab_size, (len(SPLIT_TOKENS), SPLIT_STEPS))
+
+
+@contextlib.contextmanager
+def attention_calls(record=None, replay=None):
+    """Every dense-cache layer's ring write and decode attention in
+    ``models/attention.py``, in call order.  With ``record`` (a list),
+    the calls on DTensors append ("write", (k rows, v rows, positions))
+    and ("decode", q, out), whole tensors on the host.  With ``replay``
+    (such a list), the calls take the recorded rows and queries in place
+    of their own and append ("decode", their out, the recorded out, the
+    plain version's out on the same inputs): the same attention inputs,
+    so two runs' decode outputs compare layer by layer although their
+    hidden states part (bf16 rounding compounds through the layers),
+    and the plain version is the third witness."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import sharded
+
+    write, decode = attn._write_slot, attn._decode
+    todo = iter(replay or ())
+    done = []
+
+    def whole(x):
+        return (x.full_tensor() if sharded.is_dtensor(x) else x).cpu()
+
+    def write_slot(cache, rows, slot):
+        if replay is not None:
+            rows = tuple(r.to(cache[0].device) for r in next(todo)[1])
+        elif record is not None and sharded.is_dtensor(cache[0]):
+            record.append(("write", tuple(whole(r) for r in rows)))
+        return write(cache, rows, slot)
+
+    def decode_at(q, kc, vc, valid, soft_cap=0.0):
+        if replay is not None:
+            _, q_r, out_r = next(todo)
+            q_r = q_r.to(q.device)
+            out = decode(q_r, kc, vc, valid, soft_cap)
+            plain = ref.decode_attention_ref(q_r[:, 0], kc, vc, valid,
+                                             soft_cap=soft_cap)
+            done.append(("decode", out.cpu(), out_r, plain[:, None].cpu()))
+            return out
+        out = decode(q, kc, vc, valid, soft_cap)
+        if record is not None and sharded.is_dtensor(q):
+            record.append(("decode", whole(q), whole(out)))
+        return out
+
+    attn._write_slot, attn._decode = write_slot, decode_at
+    try:
+        yield done
+    finally:
+        attn._write_slot, attn._decode = write, decode
+
+
+def split_rank(rank, results, conf):
+    """One rank of split_decode (module level: the spawned ranks import
+    it): each SPLIT_CASES model drawn on the card from the seed, its
+    parameters DTensors laid out by their logical axes and its cache by
+    ``cache_shardings`` under DEFAULT_RULES on a (data 1, model 2) mesh
+    (``kv_seq`` takes ``model``: this rank holds half of every ring's
+    slots), then SPLIT_STEPS ``decode_step`` calls through that layout,
+    launches counted from 0 over them.  Returns each case's logits, each
+    ring's slot positions after the steps (its first layer's), the
+    launches and the steps' wall times."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.common import logical_sharding
+
+    startup_s = time.time() - conf["spawned_at"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prebuilt = (build.BUILD_ROOT / build.source_hash() / build.LIB_NAME
+                ).exists()
+    mesh = make_test_mesh(DEVICE, (1, 2), ("data", "model"))
+    rules = sh.DEFAULT_RULES
+    out = []
+    for arch, dtype_name, layers in SPLIT_CASES:
+        cfg = split_config(arch, dtype_name, layers)
+        api = make_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params, axes = api.init_params(
+            torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+            with_axes=True)
+        dparams = sh.distribute_tree(
+            params, mesh, sh.params_shardings(axes, params, mesh, rules))
+        del params
+        cache = split_cache(torch, api, mesh, rules)
+        slots_split = all(r.k.placements[-1] == Shard(r.k.ndim - 3)
+                          and r.pos.placements[-1] == Shard(r.pos.ndim - 1)
+                          for r in rings(cache))
+        tokens = split_tokens(cfg)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        logits, step_ms, calls = [], [], []
+        for step in range(SPLIT_STEPS):
+            t0 = time.perf_counter()
+            tok = torch.as_tensor(tokens[:, step:step + 1], device=DEVICE)
+            dtok = sh.distribute_tree(tok, mesh, sh.batch_shardings(
+                {"tokens": tok}, mesh, rules)["tokens"])
+            pos = torch.as_tensor(SPLIT_TOKENS, device=DEVICE) + step
+            with torch.no_grad(), logical_sharding(mesh, rules), \
+                    implicit_replication(), attention_calls(record=calls):
+                got, cache = api.decode_step(dparams, dtok, pos, cache)
+                got = got.full_tensor()[:, 0].float()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(got.cpu())
+        launches = ops.launch_counts()
+        ring_pos_after = [(r.pos.to_local()[0] if r.pos.ndim == 3
+                           else r.pos.to_local()).cpu()
+                          for r in rings(cache)]
+        out.append({"arch": arch, "dtype": dtype_name,
+                    "layers": cfg.model.num_layers,
+                    "logits": torch.stack(logits), "launches": launches,
+                    "calls": calls if rank == 0 else None,
+                    "step_ms": step_ms, "slots_split": slots_split,
+                    "ring_pos": ring_pos_after,
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+        del dparams, cache
+        torch.cuda.empty_cache()
+    return {"rank": rank, "device": torch.cuda.current_device(),
+            "mesh": str(mesh), "prebuilt": prebuilt, "startup_s": startup_s,
+            "cases": out}
+
+
+def split_masks(C, window=None):
+    """The valid slots (len(SPLIT_TOKENS), C) of a ring of C slots at the
+    split decode's first step, each row's token written at its position
+    SPLIT_TOKENS[b]: a slot counts if it holds a position, within
+    ``window`` of the row's where there is one."""
+    from repro_torch.models.attention import ring_positions
+    pos = np.stack([ring_positions(C, t + 1).numpy() for t in SPLIT_TOKENS])
+    valid = pos >= 0
+    if window:
+        valid &= np.asarray(SPLIT_TOKENS)[:, None] - pos < window
+    return valid
+
+
+def phase_split_kernels(torch):
+    """The partial instance at split_decode's shapes, as its first step
+    launches it: each rank's share of a 32,768-slot ring at the rows of
+    SPLIT_TOKENS (rank 0: 3,001 of 16,384 valid, then two rows all valid;
+    rank 1: none (V only), 3,617, all) at stablelm's heads (32 heads, 32
+    kv heads, D 64) and gemma3's (4 heads, 1 kv head, D 256), and a share
+    of gemma3's 512-slot local ring (window 512: all valid), bf16 and
+    fp32."""
+    rng = np.random.default_rng(SEED + 9)
+    half = SPLIT_SLOTS // 2
+    glob = split_masks(SPLIT_SLOTS)
+    shares = {f"rank{r}": glob[:, r * half:(r + 1) * half] for r in (0, 1)}
+    local = split_masks(2 * LOCAL_SHARE, window=2 * LOCAL_SHARE)
+    rows = {}
+    for name, H, Hkv, D, masks in (
+            ("stablelm", 32, 32, 64, shares), ("gemma", 4, 1, 256, shares),
+            ("gemma", 4, 1, 256, {"local": local[:, :LOCAL_SHARE]})):
+        for share, valid in masks.items():
+            for dtype_name in ("bfloat16", "float32"):
+                rows[f"{name}_{share}_{dtype_name}"] = check_decode_partial(
+                    torch, rng, len(SPLIT_TOKENS), H, Hkv, valid.shape[1], D,
+                    valid, dtype_name)
+    bad = [r for r in rows.values() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"decode_attention_partial disagrees with its "
+                             f"plain version: {bad}")
+    missed = [r for r in rows.values()
+              if r.get("planted_fault_passes", {}).get(str(PARTIAL_TOL))]
+    if missed or not any("planted_fault_passes" in r for r in rows.values()):
+        raise AssertionError(f"a planted fault passes the check: {missed}")
+    return rows
+
+
+def unsharded_split_run(torch, api, params, tokens, replay=None,
+                        plain=False):
+    """SPLIT_STEPS unsharded ``decode_step`` calls from a fresh
+    :func:`split_cache`: (logits (steps, rows, V) fp32 on the host, each
+    step's wall ms, the launches, each ring's positions after the steps
+    (its first layer's), the replayed decode outputs).  ``replay``: the
+    ranks' recorded attention calls take the place of this run's own
+    (:func:`attention_calls`); ``plain``: the plain version in place of
+    the decode kernel."""
+    from repro_torch.kernels import ops, ref
+
+    cache = split_cache(torch, api)
+    kernel = ops.decode_attention
+    if plain:
+        ops.decode_attention = ref.decode_attention_ref
+    ops.reset_launches()
+    logits, step_ms = [], []
+    try:
+        with attention_calls(replay=replay) as replayed:
+            for step in range(SPLIT_STEPS):
+                t0 = time.perf_counter()
+                tok = torch.as_tensor(tokens[:, step:step + 1],
+                                      device=DEVICE)
+                pos = torch.as_tensor(SPLIT_TOKENS, device=DEVICE) + step
+                with torch.no_grad():
+                    got, cache = api.decode_step(params, tok, pos, cache)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(got[:, 0].float().cpu())
+    finally:
+        ops.decode_attention = kernel
+    pos_after = [(r.pos[0] if r.pos.ndim == 3 else r.pos).cpu()
+                 for r in rings(cache)]
+    return (torch.stack(logits), step_ms, ops.launch_counts(), pos_after,
+            replayed)
+
+
+def ulps(torch, a, b, dtype) -> float:
+    """The largest gap between outputs a and b (..., Dv) in ulps of
+    ``dtype`` at each output vector's largest magnitude: an element near
+    0 of a sum that cancels carries the rounding of its terms, not of
+    its own size."""
+    a, b = a.float(), b.float()
+    fi = torch.finfo(dtype)
+    big = torch.maximum(a.abs(), b.abs()).amax(-1, keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(fi.tiny)))) * fi.eps
+    return float(((a - b).abs() / ulp).max())
+
+
+def phase_split_decode(torch, backend=DIST_BACKEND, devices=f"{DEVICE}:0",
+                       phase="split_decode"):
+    """The reference's production decode layout on the card: run
+    ``split_rank`` on 2 ranks (by default both on the one card over
+    gloo; NCCL refuses two ranks on one card), then, here, the unsharded
+    port's ``decode_step`` on the same weights and cache (the full
+    ``decode_attention`` kernel).  Holds every layer's decode attention
+    on the ranks against the unsharded kernel's and the plain version's
+    on the same inputs (the ranks' queries and written rows replayed into
+    the unsharded run; bf16 3e-2, fp32 3e-5), the fp32 cuts' logits
+    against the unsharded ones (3e-5), the ranks' logits equal to each
+    other and finite, every ring split along its slots, the rings'
+    positions after the steps equal to the unsharded cache's (the writes
+    landed, on both sides of the split), and the launches exact: one
+    ``decode_attention_partial`` a layer, step and rank, nothing else.
+    In bf16 every layer's attention on the ranks is also within
+    SPLIT_ATTN_ULPS ulps of both the unsharded kernel's and the plain
+    version's, and the models' logits gap to the unsharded run within
+    SPLIT_CONTROL_FACTOR times the control's, the gap between the
+    unsharded run with the plain decode and with the kernel: with random
+    weights a bf16 rounding change in any layer's attention grows
+    through the depth to the scale of the logits (stablelm-1.6b's 24
+    layers), in the port's own kernel against its plain version too, so
+    the bf16 logits are not held at 3e-2."""
+    import gc
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import make_model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(split_rank, 2, backend=backend, device=devices,
+                      timeout=SPLIT_TIMEOUT,
+                      args=({"spawned_at": time.time()},))
+    ranks_s = time.perf_counter() - t_phase
+    cases, checks = [], {}
+    total = {k: 0 for k in ops.launch_counts()}
+    for i, (arch, dtype_name, layers) in enumerate(SPLIT_CASES):
+        cfg = split_config(arch, dtype_name, layers)
+        api = make_model(cfg)
+        L = cfg.model.num_layers
+        params, _ = api.init_params(
+            torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE,
+            with_axes=True)
+        tokens = split_tokens(cfg)
+        got = [r["cases"][i] for r in ranks]
+        want, step_ms, unsharded_launches, pos_after, _ = \
+            unsharded_split_run(torch, api, params, tokens)
+        replayed = unsharded_split_run(torch, api, params, tokens,
+                                       replay=got[0]["calls"])[4]
+        control = None
+        if dtype_name == "bfloat16":
+            control = [float(x) for x in (unsharded_split_run(
+                torch, api, params, tokens, plain=True)[0] - want)
+                .abs().amax((1, 2))]
+        del params
+        torch.cuda.empty_cache()
+        tol = SPLIT_TOL[dtype_name]
+        dtype = getattr(torch, dtype_name)
+        # per call: ranks vs kernel, ranks vs plain, kernel vs plain
+        pairs = [((w, o), (w, p), (o, p)) for _, o, w, p in replayed]
+        attn_err = [[float((a.float() - b.float()).abs().max())
+                     for a, b in call] for call in pairs]
+        attn_ulps = [[ulps(torch, a, b, dtype) for a, b in call]
+                     for call in pairs]
+        attn_out = [float(w.float().abs().max()) for _, _, w, _ in replayed]
+        # each rank's slots: its half of every ring; new positions (at or
+        # past the row's cached count) mark the steps' writes
+        written = [[int((p >= torch.as_tensor(SPLIT_TOKENS)[:, None]).sum())
+                    for p in g["ring_pos"]] for g in got]
+        expect = {k: 0 for k in total}
+        expect["decode_attention_partial"] = L * SPLIT_STEPS
+        for k in total:
+            total[k] += sum(g["launches"][k] for g in got)
+        case = {
+            "arch": arch, "dtype": dtype_name, "layers": L,
+            "rows_tokens": list(SPLIT_TOKENS), "slots": SPLIT_SLOTS,
+            "max_abs_err": max(float((g["logits"] - want).abs().max())
+                               for g in got),
+            "max_abs_err_by_step": [float((got[0]["logits"][t] - want[t])
+                                          .abs().max())
+                                    for t in range(SPLIT_STEPS)],
+            "max_abs_logit": float(want.abs().max()), "tol": tol,
+            "plain_vs_kernel_max_abs_err": control and max(control),
+            "plain_vs_kernel_max_abs_err_by_step": control,
+            "attention_calls": len(replayed),
+            # [ranks vs kernel, ranks vs plain, kernel vs plain]
+            "attention_max_abs_err": [max(e[i] for e in attn_err)
+                                      for i in range(3)],
+            "attention_max_ulps": [max(u[i] for u in attn_ulps)
+                                   for i in range(3)],
+            "attention_max_abs_err_by_layer": [
+                max(attn_err[t * L + j][0] for t in range(SPLIT_STEPS))
+                for j in range(L)],
+            "attention_max_ulps_by_layer": [
+                max(attn_ulps[t * L + j][0] for t in range(SPLIT_STEPS))
+                for j in range(L)],
+            "attention_max_abs_out_by_layer": [
+                max(attn_out[t * L + j] for t in range(SPLIT_STEPS))
+                for j in range(L)],
+            "step_ms": [g["step_ms"] for g in got],
+            "unsharded_step_ms": step_ms,
+            "peak_memory_bytes": [g["peak_memory_bytes"] for g in got],
+            "written_slots": written,
+            "launches": [g["launches"] for g in got],
+            "unsharded_launches": unsharded_launches}
+        cases.append(case)
+        key = f"{arch}_{dtype_name}"
+        checks[f"{key}_attention"] = len(replayed) == L * SPLIT_STEPS and all(
+            torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+            for call in pairs for a, b in call[:2])
+        if dtype_name == "float32":
+            checks[f"{key}_logits"] = all(
+                torch.allclose(g["logits"], want, atol=tol, rtol=tol)
+                for g in got)
+        else:
+            checks[f"{key}_attention_ulps"] = all(
+                max(u[:2]) <= SPLIT_ATTN_ULPS for u in attn_ulps)
+            checks[f"{key}_logits_vs_control"] = (
+                case["max_abs_err"] <= SPLIT_CONTROL_FACTOR * max(control))
+        checks[f"{key}_logits_finite"] = all(
+            bool(g["logits"].isfinite().all()) for g in got)
+        checks[f"{key}_ranks_equal"] = torch.equal(got[0]["logits"],
+                                                   got[1]["logits"])
+        checks[f"{key}_slots_split"] = all(g["slots_split"] for g in got)
+        checks[f"{key}_writes"] = all(
+            torch.equal(torch.cat([got[0]["ring_pos"][j],
+                                   got[1]["ring_pos"][j]], -1), p)
+            for j, p in enumerate(pos_after))
+        # in every SPLIT_SLOTS ring both ranks hold some of the writes
+        checks[f"{key}_writes_both_sides"] = all(
+            w0 > 0 and w1 > 0 for w0, w1, p in zip(*written, pos_after)
+            if p.shape[-1] == SPLIT_SLOTS)
+        checks[f"{key}_launches"] = all(g["launches"] == expect for g in got)
+        checks[f"{key}_unsharded_launches"] = (
+            unsharded_launches["decode_attention"] == L * SPLIT_STEPS)
+    checks["kernels_loaded_not_rebuilt"] = all(r["prebuilt"] for r in ranks)
+    emit({"phase": phase, "seconds": time.perf_counter() - t_phase,
+          "ranks_seconds": ranks_s, "backend": backend,
+          "devices": devices, "mesh": ranks[0]["mesh"],
+          "startup_s": [r["startup_s"] for r in ranks],
+          "rank_devices": [r["device"] for r in ranks],
+          "cases": cases, "launches": total, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return total
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4224,6 +4836,10 @@ def main() -> int:
         phase_train_parity(torch)
         phase = at("dist_slice")
         dist_launches = phase_dist(torch, train_losses)
+        phase = at("split_kernels")
+        split_rows = phase_split_kernels(torch)
+        phase = at("split_decode")
+        split_launches = phase_split_decode(torch)
         phase = at("dryrun")
         dryrun_launches, dryrun_grad_launches = phase_dryrun(
             torch, train_profile)
@@ -4241,7 +4857,7 @@ def main() -> int:
              "xlstm_slice": xlstm_launches,
              "whisper_slice": whisper_launches, "vlm_slice": vlm_launches,
              "train_slice": train_launches, "remat": remat_launches,
-             "dist_slice": dist_launches,
+             "dist_slice": dist_launches, "split_decode": split_launches,
              "dryrun_sharded_step": {k: dryrun_launches.get(k, 0)
                                      for k in launches},
              "dryrun_sharded_grad": {k: dryrun_grad_launches.get(k, 0)
@@ -4302,6 +4918,14 @@ def main() -> int:
               "src/repro/kernels/fedavg_reduce.py:26",
               dist_launches["fedavg_reduce"], row)
              for row in train_fed_rows},
+          # the split decode's partial instance at each share (the
+          # kernels line carries stablelm's rank 1 in bf16)
+          **{f"decode_attention_partial_{key}": kernel_entry(
+              "decode_attention_partial", f"{csrc}/decode_attention.cu",
+              "src/repro/kernels/decode_attention.py:57",
+              split_launches["decode_attention_partial"], row)
+             for key, row in split_rows.items()
+             if key != "stablelm_rank1_bfloat16"},
           # the most replicas the wrapper admits (ROADMAP Queue 3)
           **{f"fedavg_reduce_max_replicas_{row['dtype']}": kernel_entry(
               "fedavg_reduce", f"{csrc}/fedavg_reduce.cu",
@@ -4330,6 +4954,11 @@ def main() -> int:
         kernel_entry("mamba_chunk_scan", f"{csrc}/mamba_chunk_scan.cu",
                      "src/repro/kernels/mamba_scan.py:66",
                      total["mamba_chunk_scan"], ssm_row),
+        kernel_entry("decode_attention_partial",
+                     f"{csrc}/decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:57",
+                     total["decode_attention_partial"],
+                     split_rows["stablelm_rank1_bfloat16"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

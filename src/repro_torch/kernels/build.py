@@ -41,6 +41,8 @@ SIGNATURES = {
        for t in ("f32", "bf16")},
     **{f"decode_attention_{t}": (_P,) * 5 + (_I,) * 6 + (_F, _P)
        for t in ("f32", "bf16")},
+    **{f"decode_attention_partial_{t}": (_P,) * 7 + (_I,) * 6 + (_F, _P)
+       for t in ("f32", "bf16")},
     **{f"paged_decode_attention_{t}": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
        for t in ("f32", "bf16")},
     **{f"paged_mla_decode_attention_{t}": (_P,) * 7 + (_I,) * 6 + (_F, _P)

@@ -16,6 +16,16 @@
 // output is the uniform mean of V over the walked slots; the body then
 // reads every walked slot's V and no K, and gives the same.
 //
+// The epilogue is a template flag.  By default a block writes o / l in
+// T.  With kPartial it writes the statistics instead, all fp32, to a
+// `PartialOut`: the unnormalised o = sum exp(s - m) . v, the row max m
+// and the row sum l = sum exp(s - m), so that shares of a row's slots
+// held by different ranks can be merged (models/sharded.py).  A row with
+// no counted slot reports m = kPartialNegInf (-2e38, the plain version's
+// mask), l = the walked slots and o = the sum of their V: a merge then
+// gives it weight 0 beside a share with a counted slot, and the uniform
+// mean of V where no share has one.
+//
 // What bounds it on this card: bytes (each counted K/V row once).  The
 // design is about keeping enough of them in flight:
 // - A key row is spread over a group of 8 lanes, each holding D / 8 of
@@ -89,6 +99,16 @@ struct RowPiece {
   }
 };
 
+// The partial instance's row max for a row with no counted slot: the
+// plain version's mask value (kernels/ref.py PARTIAL_NEG_INF).
+constexpr float kPartialNegInf = -2.0e38f;
+
+// Where the partial instance writes a block's rows: o (ng, Dv), m (ng)
+// and l (ng), each at the block's first query head.
+struct PartialOut {
+  float *o, *m, *l;
+};
+
 // Sum over the `kLanes` consecutive lanes of a lane group (a power of 2).
 template <int kLanes>
 __device__ __forceinline__ float group_sum(float v) {
@@ -118,14 +138,16 @@ __device__ __forceinline__ void load_query(float* qs, const T* q, int n, float s
 // kWarps: the block's warps, fixed at compile time (6-8% faster at the
 // dense kernel's shapes than a count read at run time).
 // `qs` holds the pre-scaled query rows (published by a barrier), `red`
-// the merge area; `out` points at the block's first output row.
+// the merge area; `out` points at the block's first output row, or with
+// kPartial `part` at its first row of statistics (`out` unused).
 template <typename T, bool kVec, int kLanes, int kDims, int kGB, int kWarps,
-          class Rows>
+          bool kPartial = false, class Rows>
 __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
                                             const T* __restrict__ v,
                                             T* __restrict__ out, const float* qs,
                                             float* red, const Rows& rows, bool any,
-                                            int ng, int D, int Dv, float soft_cap) {
+                                            int ng, int D, int Dv, float soft_cap,
+                                            PartialOut part = {}) {
   using P = RowPiece<T, kVec>;
   constexpr int kEpl = P::kEpl;
   constexpr int kPieces = kDims / kEpl;  // loads a lane makes a row
@@ -270,7 +292,15 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
       lsum = fmaf(e0[1], f, lsum);
       o = fmaf(e0[2 + d], f, o);
     }
-    out[static_cast<size_t>(g) * Dv + d] = from_float<T>(o / fmaxf(lsum, 1e-30f));
+    if constexpr (kPartial) {
+      part.o[static_cast<size_t>(g) * Dv + d] = o;
+      if (d == 0) {
+        part.m[g] = any ? mx : kPartialNegInf;
+        part.l[g] = lsum;
+      }
+    } else {
+      out[static_cast<size_t>(g) * Dv + d] = from_float<T>(o / fmaxf(lsum, 1e-30f));
+    }
   }
 }
 

@@ -2,7 +2,11 @@
 ``repro/kernels/ref.py``.
 
 The wrappers in this package run these for tensors on the CPU, and
-``chip_smoke.py`` holds every kernel against them on the card."""
+``chip_smoke.py`` holds every kernel against them on the card.
+:func:`decode_attention_partial_ref` is the plain version of the dense
+decode kernel's partial-statistics instance: a cache split along its
+slots over ranks, merged across them (``models/sharded.py``), is the
+reference's XLA partitioning, not one of its kernels."""
 from __future__ import annotations
 
 import math
@@ -84,6 +88,43 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
     return o.reshape(B, H, v.shape[-1]).to(q.dtype)
+
+
+#: mask value of the partial statistics: the model's fp32-safe mask
+#: (``models/attention.py``), far below the kernels' -1e30, so that a
+#: share of the slots with none valid weighs nothing in a merge with one
+#: that has some
+PARTIAL_NEG_INF = -2.0e38
+
+
+def decode_attention_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, valid: torch.Tensor, *,
+                                 soft_cap: float = 0.0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """:func:`decode_attention_ref` over one share of the slots, left
+    unnormalised: (sum over slots of exp(s - m) . v (B,H,Dv), the row max
+    m (B,H), the row sum of exp(s - m) (B,H)), all fp32.  Invalid slots
+    score :data:`PARTIAL_NEG_INF`, so a row with no valid slot gives m =
+    -2e38, the sum C and the sum of V; with no slot at all, m = -2e38 and
+    zeros.  Shares merge as m* = max m, o = sum o exp(m - m*) / sum l
+    exp(m - m*)."""
+    B, H, D = q.shape
+    C, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if C == 0:
+        return (q.new_zeros((B, H, Dv), dtype=torch.float32),
+                q.new_full((B, H), PARTIAL_NEG_INF, dtype=torch.float32),
+                q.new_zeros((B, H), dtype=torch.float32))
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bchd->bhgc", qg.float(), k.float()) \
+        / math.sqrt(D)
+    if soft_cap:
+        s = torch.tanh(s / soft_cap) * soft_cap
+    s = torch.where(valid[:, None, None, :], s, PARTIAL_NEG_INF)
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgc,bchd->bhgd", e, v.float())
+    return o.reshape(B, H, Dv), m.reshape(B, H), e.sum(-1).reshape(B, H)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -20,6 +20,7 @@ over.  :func:`init_fake_world` gives a process a fake world of that
 many ranks, so those meshes are built on one host without a card."""
 from __future__ import annotations
 
+import faulthandler
 import os
 import shutil
 import tempfile
@@ -173,6 +174,34 @@ def axes_group(mesh: DeviceMesh, axes: Sequence[str]):
 # the launcher
 # ---------------------------------------------------------------------------
 
+def host_staged_all_gather() -> None:
+    """Route the functional all-gather of CUDA tensors through host
+    memory in this process: it takes the tensor to the CPU, gathers there
+    and brings the result back.  For ranks that share one card over gloo
+    (NCCL refuses two ranks on one device): the functional all-gather,
+    which DTensor runs (``Shard._to_replicate_tensor`` calls
+    ``funcol.all_gather_tensor`` in torch 2.11) for every redistribution
+    from a split to a whole tensor, kills the process in ``wait_tensor``
+    (SIGSEGV on an H100), while gloo's other collectives of CUDA tensors
+    work.  Idempotent; CPU tensors pass as before."""
+    import torch.distributed._functional_collectives as funcol
+
+    gather = funcol.all_gather_tensor
+    if getattr(gather, "host_staged", False):
+        return
+
+    def staged(self, *args, **kwargs):
+        if not self.is_cuda:
+            return gather(self, *args, **kwargs)
+        out = gather(self.cpu(), *args, **kwargs)
+        if isinstance(out, funcol.AsyncCollectiveTensor):
+            out = out.wait()
+        return out.to(self.device)
+
+    staged.host_staged = True
+    funcol.all_gather_tensor = staged
+
+
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,
                device: str, store_path: str, results: str,
                timeout: float, args: tuple) -> None:
@@ -181,10 +210,14 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
     ``rank{rank}.err`` and a nonzero exit."""
     # every rank is on this host: gloo talks over the loopback device
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # a rank killed by a signal leaves its Python stack on stderr
+    faulthandler.enable()
     try:
         dev = torch.device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
+            if backend == "gloo":
+                host_staged_all_gather()
         store = dist.FileStore(store_path, world)
         dist.init_process_group(
             backend, store=store, rank=rank, world_size=world,

@@ -225,6 +225,26 @@ def init_kv_cache(batch: int, capacity: int, num_kv_heads: int,
     )
 
 
+def ring_positions(capacity: int, tokens: int) -> torch.Tensor:
+    """A ring's ``pos`` row (int32) after ``tokens`` tokens written one a
+    step from slot 0: slot s holds the last position p < ``tokens`` with
+    p % ``capacity`` == s, or -1."""
+    s = torch.arange(capacity)
+    return torch.where(s < tokens, s + capacity * ((tokens - 1 - s)
+                                                   // capacity),
+                       -1).to(torch.int32)
+
+
+def map_kv_caches(fn, cache, *trees):
+    """``fn(ring, *matching)`` over every :class:`KVCache` of a cache tree
+    (the nested dicts of a model's ``init_cache``) and of the trees
+    shaped like it, the results in a tree of the same shape."""
+    if isinstance(cache, KVCache):
+        return fn(cache, *trees)
+    return {k: map_kv_caches(fn, v, *(t[k] for t in trees))
+            for k, v in cache.items()}
+
+
 def _cross_q(p: Dict[str, Any], a: AttentionConfig,
              x: torch.Tensor) -> torch.Tensor:
     """Cross attention's query: no rope."""
@@ -340,23 +360,13 @@ def _decode_plain(q, kc, vc, valid, soft_cap: float) -> torch.Tensor:
 
 
 def _decode_partial(q, kc, vc, valid, soft_cap: float):
-    """:func:`_decode_plain` over a share of the slots, unnormalised:
-    (sum of exp(score - max) . v (B,1,H,Dv) fp32, the max (B,1,H), the
-    sum of exp(score - max) (B,1,H))."""
-    B, _, Hq, D = q.shape
-    Hkv = kc.shape[2]
-    qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc).float() \
-        * (1.0 / math.sqrt(D))
-    if soft_cap:
-        scores = torch.tanh(scores / soft_cap) * soft_cap
-    scores = torch.where(valid[:, None, None, None, :], scores, _NEG_INF)
-    m = scores.amax(-1)
-    e = torch.exp(scores - m[..., None])
-    o = torch.einsum("bhgqk,bkhd->bqhgd", e.to(vc.dtype), vc).float()
-    return (o.reshape(B, 1, Hq, vc.shape[-1]),
-            m.permute(0, 3, 1, 2).reshape(B, 1, Hq),
-            e.sum(-1).permute(0, 3, 1, 2).reshape(B, 1, Hq))
+    """:func:`_decode` over a share of the slots, unnormalised: (sum of
+    exp(score - max) . v (B,1,H,Dv) fp32, the max (B,1,H), the sum of
+    exp(score - max) (B,1,H)): ``ops.decode_attention_partial``, its
+    kernel on the card, its plain version on the CPU."""
+    o, m, l = ops.decode_attention_partial(q[:, 0].contiguous(), kc, vc,
+                                           valid, soft_cap=soft_cap)
+    return o[:, None], m[:, None], l[:, None]
 
 
 def _decode(q, kc, vc, valid, soft_cap: float = 0.0) -> torch.Tensor:

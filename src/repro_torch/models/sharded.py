@@ -30,11 +30,12 @@ A placement that would split a kernel's reduction axis raises rather
 than gathers: the keys' sequence and head dim of attention, the experts
 of a router row, the time axis of a scan.  The one exception is a
 decode cache split along its slots (the reference's ``kv_seq`` rule):
-:func:`decode_attention` runs each rank's slots on their own and merges
-the partial softmaxes across ranks (a max, then two sums), which is
-what XLA's partitioner does with the reference's sharded cache.  No
-kernel returns those partial statistics, so on the card such a split
-raises.
+:func:`decode_attention` runs each rank's slots on their own, through
+the dense decode kernel's partial instance (``decode_attention_partial``,
+which returns the unnormalised output, the row max and the row sum; its
+plain version on the CPU), and merges the partial softmaxes across ranks
+(a max, then two sums) in DTensor ops, which is what XLA's partitioner
+does with the reference's sharded cache.
 
 Where the query heads are split over a mesh axis and the kv heads are
 not (fewer kv heads than the axis is wide: gemma3's single kv head),
@@ -259,8 +260,12 @@ def decode_attention(full: Callable, partial: Callable, q: DTensor,
     is (the query follows), its slots split or not.  Unsplit slots run
     ``full(q, kc, vc, valid)`` on each rank's shard; split slots run
     ``partial(q, kc, vc, valid)`` -> (unnormalised output (B,1,H,Dv)
-    fp32, row max (B,1,H), row sum (B,1,H)) on each rank's slots, merged
-    across ranks here."""
+    fp32, row max (B,1,H), row sum (B,1,H)) on each rank's slots (on
+    the card the kernel's partial instance, which raises rather than
+    fall back), merged across ranks here.  A rank whose share of a row
+    has no valid slot reports the max -2e38 and weighs 0 beside one that
+    has; where no rank has one, the merge gives the uniform mean of V,
+    as the unsplit kernel does."""
     _check(kc, "the key cache", (0, 1, 2))
     _check(vc, "the value cache", (0, 1, 2))
     mesh = kc.device_mesh
@@ -283,10 +288,6 @@ def decode_attention(full: Callable, partial: Callable, q: DTensor,
         return local_map(full, out_placements=q_pl,
                          in_placements=(q_pl, kv_pl, kv_pl, valid_pl),
                          device_mesh=mesh)(q, kc, vc, valid)
-    if q.to_local().is_cuda:
-        raise NotImplementedError(
-            "a decode cache split along its slots needs the partial "
-            "softmax statistics, which no decode kernel returns")
     # each rank's partials gain a leading dim, split over the slot axes
     lead = _lead([Replicate() if j in split else p
                   for j, p in enumerate(q_pl)], split)

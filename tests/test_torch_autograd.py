@@ -6,7 +6,7 @@ A CUDA kernel fills its output by a ctypes launch, which cuts the graph.
 version in the backward.  On the CPU a stand-in "kernel", the plain
 version called under ``torch.no_grad()``, cuts the graph exactly as a
 launch does: through the helper, its gradients must equal the plain
-version's for each of the eight wrappers' signatures (same ops, same
+version's for each of the nine wrappers' signatures (same ops, same
 order: exact).  The cases marked ``cuda`` run each wrapper's kernel
 route on the card, with the launch counter as proof that the forward was
 the kernel's, and the smallest loss of the port's main path (the reduced
@@ -71,6 +71,9 @@ def signatures(dtype=torch.float32):
                                          dtype=torch.float32),
           -torch.as_tensor(r.uniform(0.5, 2.0, 2), dtype=torch.float32),
           n(1, 16, 4), n(1, 16, 4)), (1, 1, 1, 1, 1)),
+        ("decode_attention_partial",
+         lambda *t: ref.decode_attention_partial_ref(*t, soft_cap=5.0),
+         (n(2, 4, 8), n(2, 16, 2, 8), n(2, 16, 2, 8), valid), (1, 1, 1, 0)),
     ]
 
 
@@ -258,11 +261,13 @@ WRAPPERS = {
         *t, scale=0.2),
     "topk_router": lambda x: ops.topk_router(x, 3),
     "mamba_chunk_scan": lambda *t: ops.mamba_chunk_scan(*t, chunk=8),
+    "decode_attention_partial": lambda *t: ops.decode_attention_partial(
+        *t, soft_cap=5.0),
 }
 #: the wrappers that take bf16 inputs on the card
 BF16 = ["fedavg_reduce", "flash_attention", "decode_attention",
         "paged_decode_attention", "paged_mla_decode_attention",
-        "mamba_chunk_scan"]
+        "mamba_chunk_scan", "decode_attention_partial"]
 
 
 @pytest.mark.cuda
@@ -430,7 +435,9 @@ def test_lm_hfl_step_and_sync_on_the_card(cuda_device):
     """The reduced fp32 gemma3's HFL step at 2 clusters on the card
     against the CPU: the same losses (3e-5 relative) and SGD updates
     (1e-3 of the leaf's largest), ``flash_attention`` launched once a
-    layer and cluster, and ``global_sync`` one ``fedavg_reduce``."""
+    layer and cluster, and once more where the config checkpoints each
+    layer (its backward runs the layer's forward again), and
+    ``global_sync`` one ``fedavg_reduce``."""
     from repro_torch.fl.collectives import global_sync, stack_for_clusters
     from repro_torch.params import flatten_with_path
     from repro_torch.training import (SGD, init_hfl_opt_state,
@@ -449,8 +456,9 @@ def test_lm_hfl_step_and_sync_on_the_card(cuda_device):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             after = ops.launch_counts()
+            again = 0 if cfg.run.remat == "none" else 1
             assert after["flash_attention"] - before["flash_attention"] \
-                == 2 * cfg.model.num_layers
+                == 2 * cfg.model.num_layers * (1 + again)
             assert after["fedavg_reduce"] - before["fedavg_reduce"] == 1
         out[dev.type] = (losses.cpu(), [x.cpu() for _, x in
                                         flatten_with_path(synced)],

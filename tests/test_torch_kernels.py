@@ -100,9 +100,9 @@ def test_cpu_calls_do_not_count_launches():
     ops.fedavg_reduce(torch.from_numpy(x), torch.from_numpy(w))
     assert ops.launch_counts() == {
         "gru_seq": 0, "fedavg_reduce": 0, "flash_attention": 0,
-        "decode_attention": 0, "paged_decode_attention": 0,
-        "paged_mla_decode_attention": 0, "topk_router": 0,
-        "mamba_chunk_scan": 0}
+        "decode_attention": 0, "decode_attention_partial": 0,
+        "paged_decode_attention": 0, "paged_mla_decode_attention": 0,
+        "topk_router": 0, "mamba_chunk_scan": 0}
 
 
 def test_wrappers_check_shapes_and_devices():

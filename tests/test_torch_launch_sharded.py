@@ -14,6 +14,14 @@ of the page pool): two decode steps of reduced stablelm (kv heads split
 over model) and reduced deepseek-v2-lite (MLA latent pages, MoE) after
 an unsharded paged prefill give the unsharded steps' logits within
 the same fp32 3e-5 (tensor-parallel partial sums add in another order).
+Dense decode with the cache split along its slots over model (the
+reference's ``kv_seq`` rule, ``cache_shardings``; each rank's share
+through the dense decode's partial instance, merged across the ranks):
+two steps of the same two models from a cache drawn from a seed, with
+rows whose tokens all lie in one half, span both, have wrapped the
+ring, or are none at all, give JAX's unsharded ``decode_step`` (a row at
+a time: its positions are one a call) on the same weights and cache
+within fp32 3e-5.
 
 The rank body lives in this module, which imports no JAX at module
 level: the spawned ranks import it."""
@@ -29,6 +37,8 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh, run_ranks  # noqa: E402
 from repro_torch.models import make_model  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    KVCache, map_kv_caches, ring_positions)
 from repro_torch.params import from_numpy_tree  # noqa: E402
 
 TOL = 3e-5
@@ -48,6 +58,14 @@ CASES = {"stablelm-1.6b": None, "gemma3-1b": 6}
 PAGED = ("stablelm-1.6b", "deepseek-v2-lite-16b")
 
 
+#: the split decode: ring caches of SPLIT_LEN slots (a windowed layer's
+#: fewer), halved over model; tokens cached a row before the first step:
+#: all in rank 0's half, both halves, a wrapped ring, none
+SPLIT_LEN = 32
+SPLIT_T = (5, 24, 70, 0)
+SPLIT_STEPS = 2
+
+
 def sharded_loss_rank(rank, results, cases):
     """One rank: every case's result on the (data 2, model 2) mesh."""
     mesh = make_test_mesh("cpu", (2, 2), ("data", "model"))
@@ -55,7 +73,70 @@ def sharded_loss_rank(rank, results, cases):
     out["paged"] = {arch: _sharded_paged(mesh, _cut(get_config(arch)
                                                      .reduced()))
                     for arch in PAGED}
+    out["split"] = {arch: _sharded_split(mesh, cfg, npp)
+                    for arch, (cfg, npp, _) in cases.items()}
     return out
+
+
+def split_case(cfg):
+    """The split decode's inputs, from seed 2: per cache leaf (the
+    port's ``init_cache`` tree) numpy K/V, positions and indices; the
+    tokens of each step (B, SPLIT_STEPS)."""
+    cache = make_model(cfg).init_cache(len(SPLIT_T), SPLIT_LEN, "cpu")
+    r = np.random.default_rng(2)
+
+    def fill(c):
+        C = c.k.shape[-3]
+        lead = c.k.shape[:-4]
+        pos = np.stack([ring_positions(C, t).numpy() for t in SPLIT_T])
+        return type(c)(
+            k=r.normal(size=c.k.shape).astype(np.float32),
+            v=r.normal(size=c.v.shape).astype(np.float32),
+            pos=np.broadcast_to(pos, lead + pos.shape).copy(),
+            index=np.broadcast_to(np.asarray(SPLIT_T, np.int32),
+                                  lead + (len(SPLIT_T),)).copy())
+
+    out = map_kv_caches(fill, cache)
+    tokens = r.integers(0, cfg.model.vocab_size,
+                        (len(SPLIT_T), SPLIT_STEPS))
+    return out, tokens
+
+
+def _sharded_split(mesh, cfg, npp):
+    """SPLIT_STEPS dense decode steps on DTensors, the cache laid out by
+    ``cache_shardings`` under ``DEFAULT_RULES`` (rows over data, slots
+    over model): the logits (B, SPLIT_STEPS, V) and whether every ring
+    leaf was split along its slots."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.common import logical_sharding
+    api = make_model(cfg)
+    params = from_numpy_tree(npp, "cpu")
+    _, axes = api.init_params(torch.Generator().manual_seed(0), "cpu",
+                              with_axes=True)
+    rules = sh.DEFAULT_RULES
+    dparams = sh.distribute_tree(
+        params, mesh, sh.params_shardings(axes, params, mesh, rules))
+    cache, tokens = split_case(cfg)
+    cache = map_kv_caches(lambda c: KVCache(*map(torch.as_tensor, c)), cache)
+    dcache = sh.distribute_tree(cache, mesh,
+                                sh.cache_shardings(cache, mesh, rules))
+    split = []
+    map_kv_caches(lambda c: split.append(c.k.placements[-1] == Shard(
+        c.k.ndim - 3)), dcache)
+    logits = []
+    for step in range(SPLIT_STEPS):
+        tok = torch.as_tensor(tokens[:, step:step + 1])
+        pos = torch.as_tensor(SPLIT_T) + step
+        dtok = sh.distribute_tree(tok, mesh, sh.batch_shardings(
+            {"tokens": tok}, mesh, rules)["tokens"])
+        with torch.no_grad(), logical_sharding(mesh, rules), \
+                implicit_replication():
+            got, dcache = api.decode_step(dparams, dtok, pos, dcache)
+        logits.append(got.full_tensor()[:, 0].numpy())
+    return {"logits": np.stack(logits, 1), "slots_split": all(split)}
 
 
 def _sharded_paged(mesh, cfg):
@@ -151,9 +232,9 @@ def runs():
     from repro.configs import get_config as jax_config
     from repro.models import make_model as jax_model
     from repro_torch.training.train_step import value_and_grad
-    out, cases = {}, {}
+    out, cases, jcfgs = {}, {}, {}
     for arch, layers in CASES.items():
-        jcfg = _cut(jax_config(arch).reduced(), layers)
+        jcfg = jcfgs[arch] = _cut(jax_config(arch).reduced(), layers)
         cfg = _cut(get_config(arch).reduced(), layers)
         jparams, _ = jax_model(jcfg).init_params(jax.random.key(0))
         npp = jax.tree.map(np.asarray, jparams)
@@ -174,7 +255,45 @@ def runs():
     res = {arch: (want, plain, norm, [r[arch] for r in ranks], cfg)
            for arch, (want, plain, norm, cfg) in out.items()}
     res["paged"] = [r["paged"] for r in ranks]
+    res["split"] = {arch: ([r["split"][arch] for r in ranks],
+                           _jax_split(jax_model(jcfgs[arch]), cfg, npp))
+                    for arch, (cfg, npp, _) in cases.items()}
     return res
+
+
+def _jax_split(api, cfg, npp):
+    """JAX's unsharded decode_step (``api``, its model) over
+    :func:`split_case`, a row at a time (its decode takes one position a
+    call): logits (B, SPLIT_STEPS, V)."""
+    import jax
+    import jax.numpy as jnp
+    params = jax.tree.map(jnp.asarray, npp)
+    cache, tokens = split_case(cfg)
+    rows = []
+    for b, t in enumerate(SPLIT_T):
+        template = api.init_cache(1, SPLIT_LEN)
+
+        def row(c, j):
+            return type(j)(k=jnp.asarray(c.k[..., b:b + 1, :, :, :]),
+                           v=jnp.asarray(c.v[..., b:b + 1, :, :, :]),
+                           pos=jnp.asarray(c.pos[..., b:b + 1, :]),
+                           index=jnp.asarray(c.index[..., b]))
+
+        layers = cache["layers"]
+        jc = {"lead": {k: row(c, template["lead"][k])
+                       for k, c in cache["lead"].items()},
+              "layers": ({k: row(c, template["layers"][k])
+                          for k, c in layers.items()}
+                         if isinstance(layers, dict)
+                         else row(layers, template["layers"]))}
+        out = []
+        for step in range(SPLIT_STEPS):
+            logit, jc = api.decode_step(
+                params, jnp.asarray(tokens[b:b + 1, step:step + 1]),
+                jnp.int32(t + step), jc)
+            out.append(np.asarray(logit)[0, 0])
+        rows.append(np.stack(out))
+    return np.stack(rows)
 
 
 @pytest.mark.parametrize("arch", list(CASES))
@@ -196,6 +315,14 @@ def test_sharded_gradients_equal_the_unsharded(runs, arch):
 def test_sharded_paged_decode_equals_the_unsharded(runs, arch):
     for r in runs["paged"]:
         assert r[arch] <= TOL, r[arch]
+
+
+@pytest.mark.parametrize("arch", list(CASES))
+def test_split_slot_decode_equals_jax_unsharded(runs, arch):
+    ranks, want = runs["split"][arch]
+    for r in ranks:
+        assert r["slots_split"]
+        np.testing.assert_allclose(r["logits"], want, atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("arch", list(CASES))
