@@ -96,10 +96,24 @@ through the entry points a user calls:
   cache (every layer's attention on the same inputs, the fp32 cuts'
   logits); the partial instance beside its plain version at a rank's
   share of 16,384 slots.
+- the reference's expert-parallel MoE (ep_moe): deepseek-v2-lite-16b at
+  full width in bf16 under EXPERT_PARALLEL_RULES on 2 ranks on the one
+  card (gloo, a (data 1, model 2) mesh: each rank holds 32 of the 64
+  routed experts and runs its experts' slots of the dispatch; its
+  shards drawn from the seed), a forward and loss on (2, 256) tokens
+  and 2 paged decode steps after the unsharded paged prefill, against
+  the unsharded port (every MoE layer's routed block replayed on the
+  same input, the logits against the control: the kernels' plain
+  versions), and 2-layer fp32 cuts with gradients under those rules and
+  under the override expert=("data",) on (data 2, model 1), whose
+  dispatch is an all-to-all; the kernels beside their plain versions
+  at a rank's shapes.
 - the dry-run launch layer (dryrun): ``launch/dryrun.py``'s
   ``run_combo`` at full width on the host, over a fake world:
   gemma3-1b's train_4k on the 256-rank mesh and decode_32k on the
-  512-rank one (one subprocess each, a record a line); meanwhile, in a
+  512-rank one, and deepseek-v2-lite-16b's decode_32k on the 256-rank
+  mesh under EXPERT_PARALLEL_RULES and under expert=("data",) (one
+  subprocess each, a record a line); meanwhile, in a
   one-rank NCCL process, gemma3-1b's loss at train_slice's shape as
   DTensors under the production rules (``flash_attention`` reached
   through ``local_map``), against the unsharded loss, beside the
@@ -311,11 +325,16 @@ DIST_RANKS = TRAIN_CLUSTERS
 DIST_BACKEND = "gloo"
 DIST_TIMEOUT = 420
 #: the dry-run phase: full-width combos traced on a fake world of 256 /
-#: 512 ranks on the host (each mesh size in a process of its own), and
-#: sharded_step: train_slice's gemma3-1b loss through the production
-#: rules on a one-rank CUDA mesh (nccl: one rank on its card)
-DRYRUN_COMBOS = (("single", GEMMA_ARCH, "train_4k"),
-                 ("multi", GEMMA_ARCH, "decode_32k"))
+#: 512 ranks on the host (each combo in a process of its own), under the
+#: config's rules (None) or a rule set of DRYRUN_RULES: deepseek's
+#: decode_32k under EXPERT_PARALLEL_RULES (its 64 experts 8 a rank over
+#: model 8) and under the override expert=("data",) (an all-to-all over
+#: data); and sharded_step: train_slice's gemma3-1b loss through the
+#: production rules on a one-rank CUDA mesh (nccl: one rank on its card)
+DRYRUN_COMBOS = (("single", GEMMA_ARCH, "train_4k", None),
+                 ("multi", GEMMA_ARCH, "decode_32k", None),
+                 ("single", MOE_ARCH, "decode_32k", "expert_parallel"),
+                 ("single", MOE_ARCH, "decode_32k", "expert_over_data"))
 DRYRUN_TIMEOUT = 240
 #: sharded_step's loss against the unsharded port's, the same card
 DRYRUN_LOSS_TOL = 1e-3
@@ -352,6 +371,41 @@ SPLIT_CONTROL_FACTOR = 2.0
 SPLIT_TIMEOUT = 400
 #: a rank's share of gemma3-1b's 512-slot local rings (its window)
 LOCAL_SHARE = 256
+#: the expert-parallel MoE (ep_moe): deepseek-v2-lite-16b at full width
+#: in bf16 under the reference's EXPERT_PARALLEL_RULES on a (data 1,
+#: model 2) mesh of 2 ranks on the one card over gloo, so each rank holds
+#: 32 of the 64 routed experts (and draws only its shard of each weight
+#: from the seed): a forward and loss on EP_BATCH tokens, then EP_STEPS
+#: paged decode steps on DTensors after the parent's unsharded paged
+#: prefill of EP_PROMPT tokens a row (pages of EP_PAGE tokens)
+EP_BATCH = (2, 256)
+EP_PROMPT = 64
+EP_STEPS = 2
+EP_PAGE = 16
+EP_TIMEOUT = 600
+#: each MoE layer's routed block on the ranks, replayed on its recorded
+#: input into the unsharded block and into its plain version (the
+#: router's): a token's k weighted expert rows are summed in fp32 and
+#: rounded once unsharded; each rank rounds its partial sum and the two
+#: partials' sum is rounded again, so at most two bf16 ulps apart (at
+#: each token's largest output)
+EP_BLOCK_ULPS = 2.0
+#: the bf16 logits' gap to the unsharded run, at most this many times the
+#: control's, the unsharded run with every kernel's plain version against
+#: the kernels: with random weights either gap grows through the 27
+#: layers (PERF.md)
+EP_CONTROL_FACTOR = 2.0
+#: the fp32 cut: the lead dense layer and one MoE layer, the loss and
+#: every gradient (gathered to full) against the unsharded port's on the
+#: card, under (a) EXPERT_PARALLEL_RULES on (data 1, model 2) and (b)
+#: the override expert=("data",) on (data 2, model 1), where each rank
+#: routes its own row and the dispatch is an all-to-all (the unsharded
+#: reference then the mean over the rows, capacity being per rank's
+#: tokens); the attention's query and key projections rescaled to a
+#: fan-in over their input, as the CPU tests do
+EP_CUT_LAYERS = 2
+EP_CUT_TOL = 3e-5
+EP_OVERRIDE = (("expert", ("data",)),)
 #: served trees at full width: leaf -> shape
 FULL_WIDTH = {
     LM_ARCH: {("layers", "attn", "wq"): (24, 2048, 32, 64)},
@@ -4134,9 +4188,12 @@ def dryrun_rank(rank, results):
 
 def phase_dryrun(torch, step_profile):
     """The dry-run launch layer: ``run_combo`` of gemma3-1b at full width
-    (train_4k on the 256-rank mesh, decode_32k on the 512-rank one)
-    traced on the host over a fake world, each mesh size in a
-    subprocess, the two at once; meanwhile sharded_step
+    (train_4k on the 256-rank mesh, decode_32k on the 512-rank one) and
+    of deepseek-v2-lite-16b's decode_32k on the 256-rank mesh under
+    EXPERT_PARALLEL_RULES (no all-to-all) and under the override
+    expert=("data",) (an all-to-all), traced on the host's torch over a
+    fake world, each combo in a subprocess, all at once; meanwhile
+    sharded_step
     (``dryrun_rank``) on the card: its loss against the unsharded one,
     ``flash_attention`` launched through ``local_map`` on each rank's
     (here: the one rank's) local tensors, and the analytic roofline of
@@ -4152,19 +4209,28 @@ def phase_dryrun(torch, step_profile):
     from repro_torch.launch import dryrun
     from repro_torch.launch.analytic import analytic_roofline
     from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.shardings import EXPERT_PARALLEL_RULES
 
+    rule_sets = {None: (),
+                 "expert_parallel": tuple(EXPERT_PARALLEL_RULES.items()),
+                 "expert_over_data": EP_OVERRIDE}
     t_phase = time.perf_counter()
     with ThreadPoolExecutor(len(DRYRUN_COMBOS)) as pool:
         futures = [pool.submit(dryrun.run_in_subprocess, mesh,
-                               [(arch, shape)], DRYRUN_TIMEOUT)
-                   for mesh, arch, shape in DRYRUN_COMBOS]
+                               [(arch, shape)], DRYRUN_TIMEOUT,
+                               rule_sets[rules])
+                   for mesh, arch, shape, rules in DRYRUN_COMBOS]
         t_step = time.perf_counter()
         step = run_ranks(dryrun_rank, 1, backend="nccl",
                          device=f"{DEVICE}:0", timeout=DRYRUN_TIMEOUT)[0]
         step_s = time.perf_counter() - t_step
         records = [r for f in futures for r in f.result()]
-    for rec in records:
-        emit({"phase": "dryrun_record", **rec})
+    all_to_alls = {}
+    for rec, (_, _, _, rules) in zip(records, DRYRUN_COMBOS):
+        emit({"phase": "dryrun_record", "rules": rules, **rec})
+        if rules:
+            all_to_alls[rules] = rec.get("roofline", {}).get(
+                "collective_counts", {}).get("all-to-all", 0)
     cfg = get_config(TRAIN_ARCH)
     shape = InputShape("train_slice", TRAIN_SEQ, TRAIN_BATCH, "train")
     ana = analytic_roofline(cfg, shape, {"data": 1, "model": 1})
@@ -4178,6 +4244,12 @@ def phase_dryrun(torch, step_profile):
             and sum(r.get("roofline", {}).get("collective_counts",
                                               {}).values()) > 0
             for r in records),
+        # the experts over model need no exchange; over data, an
+        # all-to-all there and back a MoE layer
+        "expert_parallel_no_all_to_all":
+            all_to_alls.get("expert_parallel") == 0,
+        "expert_over_data_all_to_all": all_to_alls.get(
+            "expert_over_data", 0) > 0,
         "sharded_on_dtensors": step["is_dtensor"],
         "sharded_loss_equals_unsharded": bool(np.isfinite(step["loss"]))
         and abs(step["loss"] - step["plain_loss"]) <= DRYRUN_LOSS_TOL,
@@ -4197,8 +4269,10 @@ def phase_dryrun(torch, step_profile):
     }
     emit({"phase": "dryrun", "seconds": time.perf_counter() - t_phase,
           "combos": [list(c) for c in DRYRUN_COMBOS],
-          "trace_s": {f"{r['arch']}__{r['shape']}__{r['mesh']}":
-                      r.get("trace_s") for r in records},
+          "all_to_alls": all_to_alls,
+          "trace_s": {f"{r['arch']}__{r['shape']}__{r['mesh']}"
+                      + (f"__{c[3]}" if c[3] else ""): r.get("trace_s")
+                      for r, c in zip(records, DRYRUN_COMBOS)},
           "sharded_step": {**step, "seconds": step_s,
                            "loss_gap": abs(step["loss"] - step["plain_loss"]),
                            "tol": DRYRUN_LOSS_TOL,
@@ -4260,13 +4334,7 @@ def split_cache(torch, api, mesh=None, rules=None):
         shapes = api.init_cache(len(SPLIT_TOKENS), SPLIT_SLOTS, device="cpu")
 
     def local(x, pl):
-        """This rank's slice of each dim of a tensor shaped as ``x``."""
-        start, size = [0] * x.ndim, list(x.shape)
-        for j, p in enumerate(pl or ()):
-            if p.is_shard():
-                size[p.dim] //= mesh.size(j)
-                start[p.dim] += mesh.get_coordinate()[j] * size[p.dim]
-        return tuple(slice(a, a + n) for a, n in zip(start, size))
+        return shard_slices(mesh, pl, x.shape)
 
     count = itertools.count()
 
@@ -4302,6 +4370,18 @@ def split_cache(torch, api, mesh=None, rules=None):
     if mesh is None:
         return map_kv_caches(one, shapes)
     return map_kv_caches(one, shapes, sh.cache_shardings(shapes, mesh, rules))
+
+
+def shard_slices(mesh, pl, shape) -> tuple:
+    """This rank's slice of each dim of a tensor of ``shape`` laid out by
+    the placements ``pl`` on ``mesh`` (None: whole), a dim split over
+    several mesh dims in mesh-dim order, the first the outermost."""
+    start, size = [0] * len(shape), list(shape)
+    for j, p in enumerate(pl or ()):
+        if p.is_shard():
+            size[p.dim] //= mesh.size(j)
+            start[p.dim] += mesh.get_coordinate()[j] * size[p.dim]
+    return tuple(slice(a, a + n) for a, n in zip(start, size))
 
 
 def split_tokens(cfg):
@@ -4485,6 +4565,21 @@ def phase_split_kernels(torch):
     return rows
 
 
+@contextlib.contextmanager
+def plain_kernels(names):
+    """``ops.<name>`` for each of ``names`` replaced by its plain version
+    (``kernels/ref.py``): the control runs."""
+    from repro_torch.kernels import ops, ref
+    kept = {n: getattr(ops, n) for n in names}
+    for n in names:
+        setattr(ops, n, getattr(ref, f"{n}_ref"))
+    try:
+        yield
+    finally:
+        for n, fn in kept.items():
+            setattr(ops, n, fn)
+
+
 def unsharded_split_run(torch, api, params, tokens, replay=None,
                         plain=False):
     """SPLIT_STEPS unsharded ``decode_step`` calls from a fresh
@@ -4494,28 +4589,22 @@ def unsharded_split_run(torch, api, params, tokens, replay=None,
     ranks' recorded attention calls take the place of this run's own
     (:func:`attention_calls`); ``plain``: the plain version in place of
     the decode kernel."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
 
     cache = split_cache(torch, api)
-    kernel = ops.decode_attention
-    if plain:
-        ops.decode_attention = ref.decode_attention_ref
     ops.reset_launches()
     logits, step_ms = [], []
-    try:
-        with attention_calls(replay=replay) as replayed:
-            for step in range(SPLIT_STEPS):
-                t0 = time.perf_counter()
-                tok = torch.as_tensor(tokens[:, step:step + 1],
-                                      device=DEVICE)
-                pos = torch.as_tensor(SPLIT_TOKENS, device=DEVICE) + step
-                with torch.no_grad():
-                    got, cache = api.decode_step(params, tok, pos, cache)
-                torch.cuda.synchronize()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                logits.append(got[:, 0].float().cpu())
-    finally:
-        ops.decode_attention = kernel
+    with plain_kernels(("decode_attention",) if plain else ()), \
+            attention_calls(replay=replay) as replayed:
+        for step in range(SPLIT_STEPS):
+            t0 = time.perf_counter()
+            tok = torch.as_tensor(tokens[:, step:step + 1], device=DEVICE)
+            pos = torch.as_tensor(SPLIT_TOKENS, device=DEVICE) + step
+            with torch.no_grad():
+                got, cache = api.decode_step(params, tok, pos, cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(got[:, 0].float().cpu())
     pos_after = [(r.pos[0] if r.pos.ndim == 3 else r.pos).cpu()
                  for r in rings(cache)]
     return (torch.stack(logits), step_ms, ops.launch_counts(), pos_after,
@@ -4686,6 +4775,561 @@ def phase_split_decode(torch, backend=DIST_BACKEND, devices=f"{DEVICE}:0",
     return total
 
 
+@contextlib.contextmanager
+def sharded_draws(torch, mesh, rules):
+    """``ParamInit.param`` drawing every leaf as the unsharded init does
+    (the same generator calls in the same order, a stacked leaf a layer
+    at a time) but keeping only this rank's shard of it, a DTensor laid
+    out by the leaf's logical axes under ``rules``: a rank of a model too
+    large to hold once a rank draws its shards from the seed, with the
+    values of the unsharded init's."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import common
+
+    param = common.ParamInit.param
+
+    def draw(self, path, shape, axes, init="fan_in", scale=1.0, dtype=None,
+             stack=0):
+        dtype = dtype or self.dtype
+        full = ((stack,) if stack else ()) + tuple(shape)
+        logical = (("layers",) if stack else ()) + tuple(axes)
+        pl = common.placements_for(mesh, rules, logical, full)
+        keep = shard_slices(mesh, pl, full)
+        if stack:
+            if keep[0] != slice(0, stack):
+                raise ValueError(f"{path}: its layers are split")
+            val = torch.empty(tuple(k.stop - k.start for k in keep),
+                              dtype=dtype, device=self.device)
+            for i in range(stack):
+                val[i] = self._draw(shape, init, scale, dtype)[keep[1:]]
+        else:
+            val = self._draw(shape, init, scale, dtype)[keep].to(
+                self.device).contiguous()
+        val = DTensor.from_local(
+            val, mesh, pl, run_check=False, shape=torch.Size(full),
+            stride=torch.empty(full, device="meta").stride())
+        common._insert(self.params, path, val)
+        common._insert(self.axes, path, logical)
+        return val
+
+    common.ParamInit.param = draw
+    try:
+        yield
+    finally:
+        common.ParamInit.param = param
+
+
+@contextlib.contextmanager
+def moe_blocks(torch, record):
+    """Every MoE layer's routed experts on DTensors (``sharded.moe``), in
+    call order: appends {x: its input, out: its output, whole on the
+    host; topi: this rank's expert ids (t, k); ms: the call's wall time,
+    synchronised}."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import sharded
+
+    routed, route = sharded.moe, moe_mod._route
+    picks = []
+
+    def route_at(p, moe, xf, with_aux):
+        out = route(p, moe, xf, with_aux)
+        picks.append(out[1].cpu())
+        return out
+
+    def routed_at(fn, x, weights):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = routed(fn, x, weights)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        record.append({"x": x.full_tensor().cpu(),
+                       "out": out.full_tensor().cpu(),
+                       "topi": picks.pop(), "ms": ms})
+        return out, aux
+
+    sharded.moe, moe_mod._route = routed_at, route_at
+    try:
+        yield
+    finally:
+        sharded.moe, moe_mod._route = routed, route
+
+
+@contextlib.contextmanager
+def exchanges(torch, record):
+    """The MoE dispatch's all-to-alls (``sharded._exchange``) of the
+    forward: appends (bytes this rank sends, wall ms, synchronised and
+    waited for)."""
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.models import sharded
+
+    exchange = sharded._exchange
+
+    def timed(t, group):
+        if group is None:
+            return exchange(t, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = funcol.wait_tensor(exchange(t, group))
+        torch.cuda.synchronize()
+        record.append((t.numel() * t.element_size(),
+                       (time.perf_counter() - t0) * 1e3))
+        return out
+
+    sharded._exchange = timed
+    try:
+        yield
+    finally:
+        sharded._exchange = exchange
+
+
+#: the kernels deepseek-v2-lite's paths launch
+EP_KERNELS = ("flash_attention", "topk_router", "paged_mla_decode_attention")
+
+
+def ep_tokens(cfg):
+    """EP_BATCH tokens from the seed."""
+    return np.random.default_rng(SEED + 28).integers(
+        0, cfg.model.vocab_size, EP_BATCH)
+
+
+def ep_block_tables():
+    """Each row's pages: EP_PROMPT + EP_STEPS tokens of EP_PAGE-token
+    pages, rows one after another."""
+    per_row = -(-(EP_PROMPT + EP_STEPS) // EP_PAGE)
+    return np.arange(EP_BATCH[0] * per_row, dtype=np.int32).reshape(
+        EP_BATCH[0], per_row)
+
+
+def ep_decode(torch, api, params, tokens, cache, bt, mesh=None, rules=None):
+    """EP_STEPS paged decode steps after the prompt: each step's logits
+    (rows, V) on the host and its wall ms; on ``mesh`` the tokens are
+    laid out by ``rules`` (params and cache are DTensors already)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.common import logical_sharding
+    logits, ms = [], []
+    for step in range(EP_STEPS):
+        t0 = time.perf_counter()
+        at = EP_PROMPT + step
+        tok = torch.as_tensor(tokens[:, at:at + 1], device=DEVICE)
+        pos = torch.full((EP_BATCH[0],), at, device=DEVICE)
+        with torch.no_grad():
+            if mesh is None:
+                got, cache = api.paged_decode_step(params, tok, pos, cache,
+                                                   bt)
+            else:
+                tok = sh.distribute_tree(tok, mesh, sh.batch_shardings(
+                    {"tokens": tok}, mesh, rules)["tokens"])
+                with logical_sharding(mesh, rules), implicit_replication():
+                    got, cache = api.paged_decode_step(params, tok, pos,
+                                                       cache, bt)
+                got = got.full_tensor()
+        got = got[:, 0].float().cpu()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(got)
+    return torch.stack(logits), ms
+
+
+def o1_scores(tree) -> None:
+    """The attention's query and key projections (``wq``, MLA's
+    ``w_uk``: (..., fan-in, H, hd)) rescaled in place from the init's
+    fan-in over the heads to one over their input, as the CPU tests do:
+    the fp32 softmax is ill-conditioned otherwise, and two summation
+    orders' gradients part by more than rounding."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            o1_scores(v)
+        elif k in ("wq", "w_uk") and v.ndim >= 3:
+            v.mul_(float(np.sqrt(v.shape[-2] / v.shape[-3])))
+
+
+def ep_cut(torch, mesh_shape, overrides):
+    """One fp32 cut on a (data, model) mesh of ``mesh_shape`` under
+    DEFAULT_RULES with ``overrides``: the unsharded port's loss and
+    gradients on the card (the mean over the data shards' rows), then
+    the same through DTensors (launches counted from 0 over it), every
+    gradient gathered to full and compared leaf by leaf."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.common import logical_sharding
+    from repro_torch.params import flatten_with_path
+    from repro_torch.training.train_step import value_and_grad
+
+    cfg = split_config(MOE_ARCH, "float32", EP_CUT_LAYERS)
+    api = make_model(cfg)
+    mesh = make_test_mesh(DEVICE, mesh_shape, ("data", "model"))
+    rules = sh.rules_for(cfg, mesh, overrides)
+    params, axes = api.init_params(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 1), DEVICE,
+        with_axes=True)
+    o1_scores(params)
+    tok = torch.as_tensor(ep_tokens(cfg), device=DEVICE)
+    batch = {"tokens": tok, "labels": tok}
+    rows = tok.shape[0] // mesh_shape[0]
+    want_loss, want = 0.0, {}
+    for r in range(mesh_shape[0]):
+        loss, grads = value_and_grad(api.loss, params, {
+            k: v[r * rows:(r + 1) * rows] for k, v in batch.items()})
+        want_loss += float(loss) / mesh_shape[0]
+        for path, g in flatten_with_path(grads):
+            want[path] = want.get(path, 0) + g / mesh_shape[0]
+        del grads
+    dparams = sh.distribute_tree(
+        params, mesh, sh.params_shardings(axes, params, mesh, rules))
+    dbatch = sh.distribute_tree(batch, mesh,
+                                sh.batch_shardings(batch, mesh, rules))
+    sent = []
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with logical_sharding(mesh, rules), implicit_replication(), \
+            exchanges(torch, sent):
+        loss, grads = value_and_grad(api.loss, dparams, dbatch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    moe = dparams["layers"]["moe"]
+    err, close = {}, True
+    for path, g in flatten_with_path(grads):
+        g = g.full_tensor()
+        err["/".join(path)] = float((g - want[path]).abs().max())
+        close &= bool(torch.allclose(g, want[path], atol=EP_CUT_TOL,
+                                     rtol=EP_CUT_TOL))
+    loss = float(loss.full_tensor())
+    return {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "overrides": [list(o) for o in overrides],
+            "loss": loss, "unsharded_loss": want_loss,
+            "loss_gap": abs(loss - want_loss),
+            "grads_close": close, "max_grad_err": max(err.values()),
+            "max_grad_err_by_leaf": err,
+            "expert_split": [p.is_shard(1) for p in moe["wo"].placements],
+            "local_experts": moe["wo"].to_local().shape[1],
+            "all_to_alls": len(sent), "all_to_all_bytes": sum(
+                b for b, _ in sent),
+            "all_to_all_ms": [ms for _, ms in sent],
+            "step_ms": step_ms, "launches": launches}
+
+
+def ep_rank(rank, results, conf):
+    """One rank of ep_moe (module level: the spawned ranks import it):
+    deepseek-v2-lite-16b's shards under EXPERT_PARALLEL_RULES on a
+    (data 1, model 2) mesh drawn from the seed (``sharded_draws``); its
+    forward with every MoE layer's routed block recorded, its loss, and
+    EP_STEPS paged decode steps from the parent's prefilled cache (the
+    pages whole on each rank), launches counted from 0 over the three;
+    then the fp32 cuts (``ep_cut``)."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.common import logical_sharding
+
+    startup_s = time.time() - conf["spawned_at"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prebuilt = (build.BUILD_ROOT / build.source_hash() / build.LIB_NAME
+                ).exists()
+    mesh = make_test_mesh(DEVICE, (1, 2), ("data", "model"))
+    rules = sh.rules_for(None, mesh, tuple(sh.EXPERT_PARALLEL_RULES.items()))
+    cfg = get_config(MOE_ARCH)
+    api = make_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with sharded_draws(torch, mesh, rules):
+        params = api.init_params(
+            torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    moe = params["layers"]["moe"]
+    tokens = conf["tokens"]
+    tok = torch.as_tensor(tokens, device=DEVICE)
+    batch = {"tokens": tok, "labels": tok}
+    dbatch = sh.distribute_tree(batch, mesh,
+                                sh.batch_shardings(batch, mesh, rules))
+    cache = sh.distribute_tree(
+        {k: {i: type(c)(*(t.to(DEVICE) for t in c)) for i, c in v.items()}
+         if k == "lead" else type(v)(*(t.to(DEVICE) for t in v))
+         for k, v in conf["cache"].items()},
+        mesh, (Replicate(), Replicate()))
+    bt = torch.as_tensor(conf["block_tables"], device=DEVICE)
+    blocks = []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.no_grad(), logical_sharding(mesh, rules), \
+            implicit_replication():
+        t0 = time.perf_counter()
+        with moe_blocks(torch, blocks):
+            logits, _ = api.forward(params, dbatch)
+            logits = logits.full_tensor().float().cpu()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loss = float(api.loss(params, dbatch).full_tensor())
+        torch.cuda.synchronize()
+        loss_ms = (time.perf_counter() - t0) * 1e3
+    steps, step_ms = ep_decode(torch, api, params, tokens, cache, bt, mesh,
+                               rules)
+    launches = ops.launch_counts()
+    out = {"rank": rank, "mesh": str(mesh), "startup_s": startup_s,
+           "prebuilt": prebuilt, "draw_s": draw_s,
+           "param_bytes": sh.local_bytes(params),
+           "local_experts": moe["wo"].to_local().shape[1],
+           "expert_placements": [str(p) for p in moe["wo"].placements],
+           "logits": logits, "loss": loss, "steps": steps,
+           "forward_ms": forward_ms, "loss_ms": loss_ms, "step_ms": step_ms,
+           "block_ms": [b["ms"] for b in blocks],
+           "topi": [b["topi"] for b in blocks],
+           "blocks": [(b["x"], b["out"]) for b in blocks] if rank == 0
+           else [b["out"] for b in blocks],
+           "launches": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del params, cache, blocks
+    torch.cuda.empty_cache()
+    out["cuts"] = {name: ep_cut(torch, shape, overrides) for name, shape,
+                   overrides in (
+                       ("expert_parallel", (1, 2),
+                        tuple(sh.EXPERT_PARALLEL_RULES.items())),
+                       ("expert_over_data", (2, 1), EP_OVERRIDE))}
+    return out
+
+
+def phase_ep_kernels(torch):
+    """The kernels of ep_moe at its shapes on a rank: the router over
+    EP_BATCH's 512 tokens and the 2 decode rows (64 experts, top-6),
+    flash at the rank's 8 of 16 heads (T 256, score dim 192, value dim
+    128) and absorbed-MLA paged decode at 8 heads (rows of 65 and 66
+    tokens in 16-token pages), bf16."""
+    rng = np.random.default_rng(SEED + 10)
+    B, T = EP_BATCH
+    per_row = ep_block_tables().shape[1]
+    rows = {"topk_router": check_router(torch, rng, B * T, 64, 6),
+            "topk_router_decode": check_router(torch, rng, B, 64, 6),
+            "flash_attention": check_flash(torch, rng, B * 8, B * 8, T, 192,
+                                           0, "bfloat16", Dv=128),
+            "paged_mla_decode_attention": check_paged_mla(
+                torch, rng, B, 8, 512, 64, EP_PAGE, per_row,
+                [EP_PROMPT + 1, EP_PROMPT + 2], B * per_row, "bfloat16")}
+    bad = [r for r in rows.values() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"ep_moe kernels disagree with their plain "
+                             f"versions: {bad}")
+    return rows
+
+
+def ep_unsharded(torch, api, params, tokens, bt):
+    """The unsharded port's forward logits, loss and paged prefill (its
+    cache, copied to the host before the steps) and EP_STEPS decode
+    steps' logits, launches counted from 0 over them."""
+    from repro_torch.kernels import ops
+    tok = torch.as_tensor(tokens, device=DEVICE)
+    ops.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, _ = api.forward(params, {"tokens": tok, "labels": tok})
+        logits = logits.float().cpu()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        loss = float(api.loss(params, {"tokens": tok, "labels": tok}))
+        cache = api.init_paged_cache(bt.numel(), EP_PAGE, DEVICE)
+        _, cache = api.paged_prefill(params, tok[:, :EP_PROMPT], cache, bt)
+    host = {k: {i: type(c)(*(t.cpu() for t in c)) for i, c in v.items()}
+            if k == "lead" else type(v)(*(t.cpu() for t in v))
+            for k, v in cache.items()}
+    steps, step_ms = ep_decode(torch, api, params, tokens, cache, bt)
+    return {"logits": logits, "loss": loss, "steps": steps,
+            "forward_ms": forward_ms, "step_ms": step_ms, "cache": host,
+            "launches": ops.launch_counts()}
+
+
+def phase_ep_moe(torch, backend=DIST_BACKEND, devices=f"{DEVICE}:0",
+                 phase="ep_moe"):
+    """Expert-parallel MoE on the card.  First, here, the unsharded port
+    at full width (its kernels, then every kernel's plain version: the
+    control), its outputs kept and its weights freed; then ``ep_rank``
+    on 2 ranks (by default both on the one card over gloo); then, here
+    again, every MoE layer's routed block replayed on the ranks' recorded
+    input into the unsharded block and into its plain version.  Checks:
+    each rank holds 32 experts and launched the router on its tokens
+    once a MoE layer and pass (26 a forward or decode step), flash once
+    a layer a forward and the paged MLA kernel once a layer a step; the
+    ranks' expert ids equal the unsharded router's on the same input,
+    and their blocks within EP_BLOCK_ULPS bf16 ulps of both; the ranks'
+    logits equal, finite and within EP_CONTROL_FACTOR times the
+    control's gap of the unsharded ones; the loss's gap likewise; each
+    fp32 cut's loss and gradients within EP_CUT_TOL, an all-to-all in
+    (b) and none in (a)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import make_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import layer_slice
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    m = cfg.model
+    api = make_model(cfg)
+    tokens = ep_tokens(cfg)
+    bt = torch.as_tensor(ep_block_tables(), device=DEVICE)
+
+    def draw():
+        return api.init_params(
+            torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+
+    params = draw()
+    want = ep_unsharded(torch, api, params, tokens, bt)
+    with plain_kernels(EP_KERNELS):
+        control = ep_unsharded(torch, api, params, tokens, bt)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    unsharded_s = time.perf_counter() - t_phase
+    t_ranks = time.perf_counter()
+    ranks = run_ranks(ep_rank, 2, backend=backend, device=devices,
+                      timeout=EP_TIMEOUT,
+                      args=({"spawned_at": time.time(), "tokens": tokens,
+                             "cache": want.pop("cache"),
+                             "block_tables": ep_block_tables()},))
+    ranks_s = time.perf_counter() - t_ranks
+
+    # every MoE layer's routed block on the ranks' recorded input
+    params = draw()
+    moe_layers = m.num_layers - m.moe.first_dense_layers
+    dtype = getattr(torch, m.dtype)
+    gaps, ulp, picks_equal = [], [], []
+    for i, (x, out) in enumerate(ranks[0]["blocks"]):
+        p = {k: v for k, v in layer_slice(params["layers"], i)["moe"].items()
+             if k != "shared"}
+        x = x.to(DEVICE)
+        with torch.no_grad():
+            kernel = moe_mod._routed(p, m.moe, x, m.act, 1, False)[0].cpu()
+            topi = moe_mod._route(p, m.moe, x.reshape(-1, m.d_model),
+                                  False)[1].cpu()
+            with plain_kernels(("topk_router",)):
+                plain = moe_mod._routed(p, m.moe, x, m.act, 1, False)[0]
+                plain_topi = moe_mod._route(
+                    p, m.moe, x.reshape(-1, m.d_model), False)[1].cpu()
+        plain = plain.cpu()
+        outs = [out] + ranks[1]["blocks"][i:i + 1]
+        # [ranks vs kernel, ranks vs plain, kernel vs plain]
+        pairs = [(o, kernel) for o in outs] + [(o, plain) for o in outs] + [
+            (kernel, plain)]
+        gaps.append([float((a.float() - b.float()).abs().max())
+                     for a, b in pairs])
+        ulp.append([ulps(torch, a, b, dtype) for a, b in pairs])
+        picks_equal.append(all(torch.equal(r["topi"][i].int(), topi.int())
+                               for r in ranks)
+                           and torch.equal(plain_topi.int(), topi.int()))
+    del params
+    torch.cuda.empty_cache()
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+
+    control_gap = {"logits": gap(control["logits"], want["logits"]),
+                   "loss": abs(control["loss"] - want["loss"]),
+                   "steps": [gap(c, w) for c, w in
+                             zip(control["steps"], want["steps"])]}
+    got_gap = {"logits": max(gap(r["logits"], want["logits"])
+                             for r in ranks),
+               "loss": max(abs(r["loss"] - want["loss"]) for r in ranks),
+               "steps": [max(gap(r["steps"][s], want["steps"][s])
+                             for r in ranks) for s in range(EP_STEPS)]}
+    L = m.num_layers
+    expect = {k: 0 for k in ops.launch_counts()}
+    expect.update(flash_attention=2 * L,
+                  topk_router=(2 + EP_STEPS) * moe_layers,
+                  paged_mla_decode_attention=EP_STEPS * L)
+    total = {k: sum(r["launches"][k] for r in ranks) for k in expect}
+    cuts = {name: [r["cuts"][name] for r in ranks]
+            for name in ranks[0]["cuts"]}
+    checks = {
+        "experts_split": all(r["local_experts"] == m.moe.num_experts // 2
+                             for r in ranks),
+        "launches": all(r["launches"] == expect for r in ranks),
+        # the unsharded run's paged prefill routes too
+        "unsharded_launches": want["launches"]["topk_router"]
+        == (3 + EP_STEPS) * moe_layers,
+        "blocks_recorded": len(ranks[0]["blocks"]) == moe_layers,
+        "routing_equal": all(picks_equal),
+        "blocks_ulps": all(max(u[:4]) <= EP_BLOCK_ULPS for u in ulp),
+        "ranks_equal": torch.equal(ranks[0]["logits"], ranks[1]["logits"])
+        and all(torch.equal(ranks[0]["steps"], r["steps"]) for r in ranks),
+        "finite": all(bool(r["logits"].isfinite().all())
+                      and bool(r["steps"].isfinite().all()) for r in ranks)
+        and tuple(ranks[0]["logits"].shape) == (*EP_BATCH, m.vocab_size),
+        "logits_vs_control": got_gap["logits"]
+        <= EP_CONTROL_FACTOR * control_gap["logits"],
+        "steps_vs_control": all(
+            g <= EP_CONTROL_FACTOR * c for g, c in
+            zip(got_gap["steps"], control_gap["steps"])),
+        "kernels_loaded_not_rebuilt": all(r["prebuilt"] for r in ranks),
+    }
+    for name, rs in cuts.items():
+        checks[f"cut_{name}_loss"] = all(r["loss_gap"] <= EP_CUT_TOL
+                                         for r in rs)
+        checks[f"cut_{name}_grads"] = all(r["grads_close"] for r in rs)
+        checks[f"cut_{name}_all_to_all"] = all(
+            (r["all_to_alls"] > 0) == (name == "expert_over_data")
+            for r in rs)
+        checks[f"cut_{name}_experts_split"] = all(
+            r["local_experts"] == m.moe.num_experts // 2 for r in rs)
+    emit({"phase": phase, "seconds": time.perf_counter() - t_phase,
+          "unsharded_seconds": unsharded_s, "ranks_seconds": ranks_s,
+          "backend": backend, "devices": devices, "mesh": ranks[0]["mesh"],
+          "rules": "EXPERT_PARALLEL_RULES", "batch": list(EP_BATCH),
+          "prompt": EP_PROMPT, "steps": EP_STEPS,
+          "startup_s": [r["startup_s"] for r in ranks],
+          "draw_s": [r["draw_s"] for r in ranks],
+          "param_bytes": [r["param_bytes"] for r in ranks],
+          "local_experts": [r["local_experts"] for r in ranks],
+          "expert_placements": [r["expert_placements"] for r in ranks],
+          "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+          "forward_ms": [r["forward_ms"] for r in ranks],
+          "loss_ms": [r["loss_ms"] for r in ranks],
+          "step_ms": [r["step_ms"] for r in ranks],
+          "unsharded_forward_ms": want["forward_ms"],
+          "unsharded_step_ms": want["step_ms"],
+          "block_ms": [r["block_ms"] for r in ranks],
+          "loss": [r["loss"] for r in ranks],
+          "unsharded_loss": want["loss"], "plain_loss": control["loss"],
+          "gap": got_gap, "control_gap": control_gap,
+          "control_factor": EP_CONTROL_FACTOR,
+          "max_abs_logit": float(want["logits"].abs().max()),
+          # per MoE layer: [rank 0, rank 1 vs kernel; rank 0, rank 1 vs
+          # plain; kernel vs plain]
+          "block_max_abs_err_by_layer": gaps,
+          "block_max_ulps_by_layer": ulp,
+          "block_max_ulps": [max(u[i] for u in ulp) for i in range(5)],
+          "block_ulps_tol": EP_BLOCK_ULPS,
+          "launches": [r["launches"] for r in ranks],
+          "unsharded_launches": want["launches"]})
+    for name, rs in cuts.items():
+        emit({"phase": f"{phase}_cut", "cut": name, "layers": EP_CUT_LAYERS,
+              "tol": EP_CUT_TOL, "ranks": rs})
+    emit({"phase": f"{phase}_checks", "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return total
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4840,6 +5484,10 @@ def main() -> int:
         split_rows = phase_split_kernels(torch)
         phase = at("split_decode")
         split_launches = phase_split_decode(torch)
+        phase = at("ep_kernels")
+        ep_rows = phase_ep_kernels(torch)
+        phase = at("ep_moe")
+        ep_launches = phase_ep_moe(torch)
         phase = at("dryrun")
         dryrun_launches, dryrun_grad_launches = phase_dryrun(
             torch, train_profile)
@@ -4858,6 +5506,7 @@ def main() -> int:
              "whisper_slice": whisper_launches, "vlm_slice": vlm_launches,
              "train_slice": train_launches, "remat": remat_launches,
              "dist_slice": dist_launches, "split_decode": split_launches,
+             "ep_moe": ep_launches,
              "dryrun_sharded_step": {k: dryrun_launches.get(k, 0)
                                      for k in launches},
              "dryrun_sharded_grad": {k: dryrun_grad_launches.get(k, 0)
@@ -4926,6 +5575,21 @@ def main() -> int:
               split_launches["decode_attention_partial"], row)
              for key, row in split_rows.items()
              if key != "stablelm_rank1_bfloat16"},
+          # the expert-parallel MoE's shapes on a rank (both ranks'
+          # launches): the router over 512 tokens and 2 decode rows, flash
+          # and paged MLA at 8 of the 16 heads
+          **{f"{name}_ep": kernel_entry(
+              kernel, f"{csrc}/{kernel}.cu", replaces,
+              ep_launches[kernel], ep_rows[name])
+             for name, kernel, replaces in (
+                 ("topk_router", "topk_router",
+                  "src/repro/kernels/topk_router.py:32"),
+                 ("topk_router_decode", "topk_router",
+                  "src/repro/kernels/topk_router.py:32"),
+                 ("flash_attention", "flash_attention",
+                  "src/repro/kernels/flash_attention.py:70"),
+                 ("paged_mla_decode_attention", "paged_mla_decode_attention",
+                  "src/repro/kernels/paged_decode_attention.py:183"))},
           # the most replicas the wrapper admits (ROADMAP Queue 3)
           **{f"fedavg_reduce_max_replicas_{row['dtype']}": kernel_entry(
               "fedavg_reduce", f"{csrc}/fedavg_reduce.cu",

@@ -7,7 +7,13 @@ Two processes share ``cuda:0`` (``run_ranks``).  First NCCL: one
 collective the distributed syncs use (``all_gather`` of int8, bf16 and
 fp32 rows, ``all_reduce`` SUM and MAX), on CUDA tensors and on CPU
 tensors, each reported as ok with its result checked, or with the error
-the backend raised.  Prints one JSON line per backend, and the card's
+the backend raised.  Then the all-to-all of the expert-parallel MoE's
+dispatch over gloo, each form in ranks of its own (a form that kills
+its process fails only its own line): c10d's ``all_to_all_single``, the
+functional ``all_to_all_single_autograd`` and
+``torch.distributed.nn.functional.all_to_all_single``, forward and (the
+two autograd forms) backward, on CUDA and CPU tensors.  Prints one JSON
+line per backend and per all-to-all form, and the card's
 ``nvidia-smi`` name and power limit.
 
     python3 scripts/torch_collectives_probe.py
@@ -66,6 +72,46 @@ def gloo_rank(rank, results):
     return out
 
 
+#: the all-to-all forms the MoE dispatch could take
+A2A_FORMS = ("c10d", "funcol_autograd", "nn_functional")
+
+
+def a2a_rank(rank, results, form, dev):
+    """One all-to-all of ``form`` on ``dev`` tensors over the world: rank
+    r sends block j (rows of value 10 r + j) to rank j; the autograd
+    forms also run the backward of the received rows weighted by their
+    source, whose gradient each rank gets back is its own index."""
+    group = dist.group.WORLD
+    world = dist.get_world_size(group)
+    x = torch.cat([torch.full((2, 3), 10.0 * rank + j) for j in
+                   range(world)]).to(dev).requires_grad_(form != "c10d")
+    want = torch.cat([torch.full((2, 3), 10.0 * j + rank) for j in
+                      range(world)])
+    if form == "c10d":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+    elif form == "funcol_autograd":
+        import torch.distributed._functional_collectives as funcol
+        out = funcol.all_to_all_single_autograd(x, None, None, group)
+        out = funcol.wait_tensor(out) if isinstance(
+            out, funcol.AsyncCollectiveTensor) else out
+    else:
+        import torch.distributed.nn.functional as nnf
+        out = nnf.all_to_all_single(torch.empty_like(x), x, group=group)
+    res = {"forward": bool(torch.equal(out.detach().cpu(), want))}
+    if form != "c10d":
+        # weight each received block by its source: the gradient sent
+        # back to each rank is then that rank's own index
+        w = torch.repeat_interleave(torch.arange(world, dtype=x.dtype),
+                                    2)[:, None].to(dev)
+        (out * w).sum().backward()
+        res["backward"] = bool(torch.equal(
+            x.grad.cpu(), torch.full_like(x.grad.cpu(), float(rank))))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -90,6 +136,17 @@ def main() -> int:
                     timeout=120)
     print(json.dumps({"backend": "gloo", "ok": True, "ranks": res}),
           flush=True)
+    for form in A2A_FORMS:
+        for dev in ("cuda", "cpu"):
+            line = {"all_to_all": form, "device": dev, "backend": "gloo"}
+            try:
+                line["ranks"] = run_ranks(a2a_rank, 2, backend="gloo",
+                                          device="cuda:0", timeout=120,
+                                          args=(form, dev))
+                line["ok"] = all(all(r.values()) for r in line["ranks"])
+            except Exception as e:
+                line.update(ok=False, error=f"{type(e).__name__}: {e}"[-2000:])
+            print(json.dumps(line), flush=True)
     return 0
 
 

@@ -236,16 +236,18 @@ def _failed(arch, shape, mesh_kind, err: str, tb: str) -> Dict[str, Any]:
             "ok": False, "error": err, "traceback": tb}
 
 
-def run_mesh(mesh_kind: str, todo: Iterable[Tuple[str, str]], out: str
-             ) -> List[Dict[str, Any]]:
+def run_mesh(mesh_kind: str, todo: Iterable[Tuple[str, str]], out: str,
+             rules_overrides=()) -> List[Dict[str, Any]]:
     """Every combo of ``todo`` on one mesh in this process (rank 0 of a
     fake world of that mesh's size), one JSON file a combo under
-    ``out`` (none when ``out`` is empty)."""
+    ``out`` (none when ``out`` is empty); ``rules_overrides`` as
+    :func:`run_combo` takes them."""
     init_fake_world(MESHES[mesh_kind][1])
     recs = []
     for arch, shape in todo:
         try:
-            rec = run_combo(arch, shape, mesh_kind == "multi")
+            rec = run_combo(arch, shape, mesh_kind == "multi",
+                            rules_overrides)
         except Exception as e:  # noqa: BLE001 -- recorded, and counted
             rec = _failed(arch, shape, mesh_kind, repr(e),
                           traceback.format_exc())
@@ -259,7 +261,7 @@ def run_mesh(mesh_kind: str, todo: Iterable[Tuple[str, str]], out: str
 
 
 def run_in_subprocess(mesh_kind: str, todo: List[Tuple[str, str]],
-                      timeout: Optional[float] = None
+                      timeout: Optional[float] = None, rules_overrides=()
                       ) -> List[Dict[str, Any]]:
     """:func:`run_mesh` in a child process (a fresh default group), its
     records read back from its output.  A child that dies records every
@@ -268,9 +270,10 @@ def run_in_subprocess(mesh_kind: str, todo: List[Tuple[str, str]],
         os.path.abspath(__file__))))
     env = dict(os.environ)
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--worker",
-           "--mesh", mesh_kind, "--combos",
-           ",".join(f"{a}:{s}" for a, s in todo), "--out", ""]
+    call = (f"run_mesh({mesh_kind!r}, {list(todo)!r}, '', "
+            f"{tuple((k, tuple(v)) for k, v in rules_overrides)!r})")
+    cmd = [sys.executable, "-c",
+           f"from repro_torch.launch.dryrun import run_mesh; {call}"]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
                               timeout=timeout)
@@ -299,14 +302,7 @@ def main() -> None:
     ap.add_argument("--mesh", default="single,multi")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--force", action="store_true")
-    ap.add_argument("--worker", action="store_true",
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--combos", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.worker:
-        todo = [tuple(c.split(":")) for c in args.combos.split(",") if c]
-        run_mesh(args.mesh, todo, args.out)
-        return
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     arch_f = set(args.arch.split(",")) if args.arch else None

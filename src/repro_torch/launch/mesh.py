@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import faulthandler
 import os
+import pickle
 import shutil
 import tempfile
 import time
@@ -204,9 +205,10 @@ def host_staged_all_gather() -> None:
 
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,
                device: str, store_path: str, results: str,
-               timeout: float, args: tuple) -> None:
-    """One rank: its device and process group, then ``fn``; its return
-    value goes to ``results/rank{rank}.pt``, a failure's traceback to
+               timeout: float, args_path: str) -> None:
+    """One rank: its device and process group, then ``fn`` on the
+    arguments pickled at ``args_path``; its return value goes to
+    ``results/rank{rank}.pt``, a failure's traceback to
     ``rank{rank}.err`` and a nonzero exit."""
     # every rank is on this host: gloo talks over the loopback device
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -223,6 +225,8 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
             backend, store=store, rank=rank, world_size=world,
             timeout=timedelta(seconds=timeout),
             device_id=dev if backend == "nccl" else None)
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         try:
             out = fn(rank, results, *args)
             torch.save(out, os.path.join(results, f"rank{rank}.pt"))
@@ -256,6 +260,10 @@ def run_ranks(fn: Callable, world: int, *, backend: str,
 
     ``fn`` must be a module-level function: the processes are started
     in *spawn* mode (the caller may hold CUDA), so they import it.
+    The arguments go to the ranks through a file in that directory: a
+    process's start blocks until the child has read what it is handed
+    through its pipe, which it does only after its imports, so large
+    arguments handed that way would start the ranks one after another.
     ``device`` is one device for every rank (``"cuda:0"``: ranks that
     share a card; ``"cpu"``) or a sequence of one a rank; by default one
     card a rank, ``cuda:{rank}``, and it raises where CUDA is absent, as
@@ -277,12 +285,15 @@ def run_ranks(fn: Callable, world: int, *, backend: str,
     results = os.path.join(tmp, "results")
     os.makedirs(results)
     store_path = os.path.join(tmp, "store")
+    args_path = os.path.join(tmp, "args.pkl")
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, fn, world, backend, devices[r], store_path,
-                               results, timeout, tuple(args)))
+                               results, timeout, args_path))
              for r in range(world)]
     try:
+        with open(args_path, "wb") as f:
+            pickle.dump(tuple(args), f)
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout

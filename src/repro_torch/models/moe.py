@@ -25,13 +25,19 @@ slot's layer sees one token.  Routing is still one kernel launch over
 all the tokens.
 
 On DTensors the routed experts run on each rank's tokens through
-``models/sharded.py`` (capacity and aux loss then per rank's tokens);
-the shared experts are DTensor ops.
+``models/sharded.py``, whether the experts are whole or split over the
+mesh: capacity and aux loss are then per rank's tokens, a named
+deviation (the reference's one program takes them over the global
+batch); the shared experts are DTensor ops.  Where the experts are
+split over the mesh (the expert-parallel rules), :func:`_routed` hands
+its dispatch block to ``sharded.moe``'s placement, which runs this
+rank's experts' blocks (from every rank that shares a token axis with
+them, through an all-to-all) and returns the block's outputs.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -128,7 +134,8 @@ def apply_moe(p: Dict[str, Any], moe: MoEConfig, x: torch.Tensor, act: str,
     ``with_aux`` (training's forward), else it is 0."""
     if sharded.is_dtensor(x):
         out, aux = sharded.moe(
-            lambda xl, ps: _routed(ps, moe, xl, act, groups, with_aux),
+            lambda xl, ps, place: _routed(ps, moe, xl, act, groups,
+                                          with_aux, place),
             x, {k: v for k, v in p.items() if k != "shared"})
     else:
         out, aux = _routed(p, moe, x, act, groups, with_aux)
@@ -138,20 +145,36 @@ def apply_moe(p: Dict[str, Any], moe: MoEConfig, x: torch.Tensor, act: str,
     return out, aux
 
 
+def _route(p: Dict[str, Any], moe: MoEConfig, xf: torch.Tensor,
+           with_aux: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Routing of the tokens xf (t, d): (top-k weights, expert ids (t, K),
+    aux loss)."""
+    logits = xf.float() @ p["router"]                          # (t, E)
+    topw, topi = ops.topk_router(logits.contiguous(), moe.top_k)
+    aux = (aux_loss(torch.softmax(logits, dim=-1), topi, moe) if with_aux
+           else logits.new_zeros(()))
+    return topw, topi, aux
+
+
 def _routed(p: Dict[str, Any], moe: MoEConfig, x: torch.Tensor, act: str,
-            groups: int, with_aux: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+            groups: int, with_aux: bool,
+            place: Optional[Callable] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed experts of :func:`apply_moe`: x (B,S,d) -> (out
-    (B,S,d), aux)."""
+    (B,S,d), aux).  Routing, then the dispatch into the (E, slots, d)
+    block, the experts on it, and the combine.  ``place(xs, run)`` runs
+    the experts where they are split over the mesh: it takes the whole
+    block ``xs`` of these tokens and ``run``, the experts' MLP on a block
+    of this rank's experts (``p`` holds only those), and returns the
+    block's outputs (zero rows for experts another rank of a partial
+    sum runs)."""
     B, S, d = x.shape
     t = B * S
     E, K = moe.num_experts, moe.top_k
     if t % groups:
         raise ValueError(f"{groups} capacity groups do not divide {t} tokens")
     xf = x.reshape(t, d)
-    logits = xf.float() @ p["router"]                          # (t, E)
-    topw, topi = ops.topk_router(logits.contiguous(), K)
-    aux = (aux_loss(torch.softmax(logits, dim=-1), topi, moe) if with_aux
-           else logits.new_zeros(()))
+    topw, topi, aux = _route(p, moe, xf, with_aux)
 
     tg = t // groups
     C = _capacity(tg, moe)
@@ -166,7 +189,11 @@ def _routed(p: Dict[str, Any], moe: MoEConfig, x: torch.Tensor, act: str,
     src[slot] = token
     x_pad = torch.cat([xf, xf.new_zeros((1, d))])
     xs = x_pad[src[:n_slots]].reshape(E, groups * width, d)
-    y = _experts(p, xs, act).reshape(n_slots, d)
+
+    def run(block):
+        return _experts(p, block, act)
+
+    y = (run(xs) if place is None else place(xs, run)).reshape(n_slots, d)
     y = torch.cat([y, y.new_zeros((1, d))])[slot]             # (t*K, d)
     y = y * topw.reshape(t * K, 1).to(x.dtype)
     return y.reshape(t, K, d).sum(dim=1).reshape(B, S, d), aux

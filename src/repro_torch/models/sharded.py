@@ -13,7 +13,10 @@ rank's shard:
   decode kernel and the two paged ones over (batch, heads)
   (:func:`attention`, :func:`decode_attention`, :func:`paged`);
 - the router (``topk_router``) over tokens, inside the MoE's routed
-  experts (:func:`moe`);
+  experts (:func:`moe`), whose expert weights may be split over the
+  mesh: along their experts (the reference's ``EXPERT_PARALLEL_RULES``,
+  or an override that puts ``expert`` on a token axis, whose dispatch
+  is then an all-to-all over that axis) and along their FFN width;
 - the SSD scan (``mamba_chunk_scan``) over (batch, heads) (:func:`scan`).
 
 The same is done, for DTensor's sake, where a plain op sequence would
@@ -27,9 +30,11 @@ there (:func:`_grad_pl`), and a partial result comes back stacked on a
 leading dim and is summed as a DTensor (:func:`_lead`).
 
 A placement that would split a kernel's reduction axis raises rather
-than gathers: the keys' sequence and head dim of attention, the experts
-of a router row, the time axis of a scan.  The one exception is a
-decode cache split along its slots (the reference's ``kv_seq`` rule):
+than gathers: the keys' sequence and head dim of attention, the time
+axis of a scan.  (The router's logits stay whole along the experts on
+every rank: the router weight is gathered, however it is laid out.)
+The one exception is a decode cache split along its slots (the
+reference's ``kv_seq`` rule):
 :func:`decode_attention` runs each rank's slots on their own, through
 the dense decode kernel's partial instance (``decode_attention_partial``,
 which returns the unnormalised output, the row max and the row sum; its
@@ -44,6 +49,8 @@ a local copy that moves nothing between ranks.
 """
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Callable, List, Sequence
 
 import torch
@@ -397,49 +404,128 @@ def _as_dtensor(x, mesh):
 
 
 def moe(fn: Callable, x: DTensor, weights: dict):
-    """The routed experts ``fn(x, weights) -> (out, aux)`` on each rank's
-    tokens: x (B,S,d) split over its batch rows only (so each rank routes
-    whole rows of d), the router whole, each expert's FFN width kept
-    split as the weights are (``"mlp"``: the output is then a partial sum
-    over those ranks).  Capacity is then per rank's tokens, as separate
-    calls would give it, and the aux loss is the mean of the ranks'.
-    Experts split across ranks (the expert-parallel rules) raise: the
-    dispatch would need an all-to-all."""
+    """The routed experts ``fn(x, weights, place) -> (out, aux)`` on each
+    rank's tokens: x (B,S,d) split over its batch rows only (so each rank
+    routes whole rows of d), the router whole, each expert weight split
+    as ``params_shardings`` lays it out along its experts (dim 0) and its
+    FFN width (``"mlp"``), its other splits gathered.  Capacity is per
+    rank's tokens, as separate calls would give it, and the aux loss is
+    the mean of the ranks'.
+
+    Experts split over mesh dims where x's rows are whole (the
+    expert-parallel rules: experts over ``model``, rows over the data
+    axes) need no exchange: every rank of such a line routes the same
+    tokens, runs its own experts' slots of the dispatch block, and the
+    output is a partial sum over those dims, as it is over the dims that
+    split the FFN width.  Experts split over mesh dims that also split
+    the rows (an override such as ``expert=("data",)``) are reached by
+    an all-to-all over those dims: each rank sends every peer the slots
+    its tokens give that peer's experts, runs its own experts on the
+    slots from every peer, and a second all-to-all returns the outputs
+    (:func:`_exchange`).  ``place`` does both for ``fn`` (see
+    ``models/moe.py``'s ``_routed``); it is None where no expert weight
+    is split.
+
+    Every rank of a partial sum returns its output and aux loss stacked
+    on a leading dim split over the partial dims (:func:`_lead`), and
+    its gradients of x and of the weights are partial sums there too:
+    the routing (router, x through the logits, the aux loss) is the
+    same on each such rank, and the aux loss's mean over those copies
+    hands each a share of its gradient."""
     mesh = x.device_mesh
-    x_pl = [Shard(0) if p.is_shard(0) else Replicate()
-            for p in x.placements]
     keys = sorted(weights)
-    ws, w_pl = [], []
-    split_ff = set()
-    for k in keys:
-        w = _as_dtensor(weights[k], mesh)
-        if k == "router":
-            pl = [Replicate()] * mesh.ndim
-        else:
-            if any(p.is_shard(0) for p in w.placements):
-                raise NotImplementedError(
-                    f"experts of {k} split over the mesh: the dispatch "
-                    "would need an all-to-all, which is not ported")
-            ff = 2 if k != "wo" else 1
-            pl = [Shard(ff) if p.is_shard(ff) else Replicate()
-                  for p in w.placements]
-            split_ff.update(j for j, p in enumerate(pl) if p.is_shard())
-        ws.append(w.redistribute(mesh, pl))
-        w_pl.append(pl)
-    batch = [j for j, p in enumerate(x_pl) if p.is_shard(0)]
+    ws = [_as_dtensor(weights[k], mesh) for k in keys]
+    ff = {k: 2 if k != "wo" else 1 for k in keys if k != "router"}
+    experts = {k: [j for j, p in enumerate(w.placements) if p.is_shard(0)]
+               for k, w in zip(keys, ws) if k in ff}
+    split = next(iter(experts.values()), [])
+    if any(e != split for e in experts.values()):
+        raise ValueError(f"the expert weights split their experts over "
+                         f"different mesh dims: {experts}")
+    split_ff = sorted({j for k, w in zip(keys, ws) if k in ff
+                       for j, p in enumerate(w.placements)
+                       if p.is_shard(ff[k])})
+    rows = [j for j, p in enumerate(x.placements)
+            if p.is_shard(0) and j not in split_ff]
+    x_pl = [Shard(0) if j in rows else Replicate() for j in range(mesh.ndim)]
+    exchange = [j for j in split if j in rows]
+    partial = sorted({j for j in split if j not in rows} | set(split_ff))
+    w_pl = [[Replicate()] * mesh.ndim if k == "router" else
+            [Shard(0) if j in split else Shard(ff[k]) if p.is_shard(ff[k])
+             else Replicate() for j, p in enumerate(w.placements)]
+            for k, w in zip(keys, ws)]
+    place = _expert_placement(mesh, split, exchange) if split else None
 
     def local(xl, *wl):
-        out, aux = fn(xl, dict(zip(keys, wl)))
+        out, aux = fn(xl, dict(zip(keys, wl)), place)
         return out[None], aux[None]
 
     out, aux = local_map(
-        local, out_placements=(_lead(x_pl, sorted(split_ff)),
-                               _lead([Replicate()] * mesh.ndim, batch)),
+        local, out_placements=(_lead(x_pl, partial),
+                               _lead([Replicate()] * mesh.ndim,
+                                     sorted(rows + partial))),
         in_placements=(x_pl,) + tuple(w_pl),
-        in_grad_placements=(x_pl,) + tuple(_grad_pl(pl, batch)
-                                           for pl in w_pl),
-        device_mesh=mesh)(x.redistribute(mesh, x_pl), *ws)
+        in_grad_placements=(_grad_pl(x_pl, partial),) + tuple(
+            _grad_pl(pl, rows + partial) for pl in w_pl),
+        device_mesh=mesh)(x.redistribute(mesh, x_pl),
+                          *(w.redistribute(mesh, pl)
+                            for w, pl in zip(ws, w_pl)))
     return _sum_lead(out), aux.mean(0)
+
+
+def _expert_placement(mesh, split: Sequence[int], exchange: Sequence[int]
+                      ) -> Callable:
+    """``place(xs, run)`` for experts split over the mesh dims ``split``
+    (in mesh order: DTensor's chunk of the expert dim), ``exchange`` the
+    ones among them that also split the tokens.  xs (E, slots, d) is the
+    dispatch block of this rank's tokens; ``run`` is the experts' MLP on
+    a block of this rank's experts.  Returns the (E, slots, d) outputs of
+    the experts this rank and its ``exchange`` peers hold (the rows of
+    the others zero: a partial sum over the rest of ``split``)."""
+    group = None
+    if exchange:
+        from repro_torch.launch.mesh import axes_group
+        group = axes_group(mesh, [mesh.mesh_dim_names[j] for j in exchange])
+    n_chunks = math.prod(mesh.size(j) for j in split)
+
+    def place(xs, run):
+        E, width, d = xs.shape
+        el = E // n_chunks
+        coord = mesh.get_coordinate()
+        chunks = []
+        # the exchange group's members in its rank order (row-major over
+        # the exchange dims), each with the chunk of experts it holds
+        for peer in itertools.product(*(range(mesh.size(j))
+                                         for j in exchange)):
+            at = dict(zip(exchange, peer))
+            c = 0
+            for j in split:
+                c = c * mesh.size(j) + at.get(j, coord[j])
+            chunks.append(c)
+        idx = torch.cat([torch.arange(c * el, (c + 1) * el, device=xs.device)
+                         for c in chunks])
+        n = len(chunks)
+        blk = _exchange(xs[idx], group)     # (n * el, width, d): by peer
+        blk = blk.reshape(n, el, width, d).transpose(0, 1)
+        ys = run(blk.reshape(el, n * width, d))
+        ys = ys.reshape(el, n, width, d).transpose(0, 1).reshape(
+            n * el, width, d)
+        return xs.new_zeros(xs.shape).index_copy(0, idx,
+                                                 _exchange(ys, group))
+
+    return place
+
+
+def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s equal blocks along dim 0, block i sent to the ``group``'s
+    rank i, the blocks received stacked in the senders' order (an
+    all-to-all, differentiable: its backward is the reverse exchange);
+    ``t`` itself where there is no group."""
+    if group is None:
+        return t
+    import torch.distributed._functional_collectives as funcol
+    return funcol.all_to_all_single_autograd(t.contiguous(), None, None,
+                                             group)
 
 
 def scan(fn: Callable, xin: DTensor, dt, A, Bm, Cm) -> DTensor:

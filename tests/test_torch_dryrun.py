@@ -10,9 +10,14 @@ default group).
   its 16 steps and counted as 16, in the forward and again in the
   backward's recomputation of its checkpointed block; a reduced
   stablelm-1.6b prefill and decode and a reduced qwen2-moe decode on the
-  same mesh;
+  same mesh, the last also under ``EXPERT_PARALLEL_RULES`` (its 4
+  experts 2 a rank over model: no all-to-all) and under the override
+  ``expert=("data",)`` (the dispatch an all-to-all over data);
 - one combo through the tool's own path (``run_in_subprocess``, the
-  production mesh of 256 ranks): gemma3-1b long_500k.
+  production mesh of 256 ranks): gemma3-1b long_500k;
+- on the card (``cuda``): reduced deepseek-v2-lite's MoE layer under
+  ``EXPERT_PARALLEL_RULES`` on two gloo ranks sharing it, the router's
+  kernel against its plain version.
 
 Each record has flops and collectives, a dominant term, and the
 reference's record keys (less ``lower_s`` / ``compile_s``, with
@@ -53,17 +58,22 @@ SMALL = textwrap.dedent("""
     from repro_torch.launch.mesh import init_fake_world, make_test_mesh
     init_fake_world(8)
     mesh = make_test_mesh("cpu", (2, 2, 2), ("pod", "data", "model"))
-    cases = [("xlstm-125m", False, InputShape("train", 16, 8, "train")),
-             ("stablelm-1.6b", True, InputShape("prefill", 32, 8, "prefill")),
-             ("stablelm-1.6b", True, InputShape("decode", 32, 8, "decode")),
-             ("qwen2-moe-a2.7b", True, InputShape("decode", 32, 8, "decode"))]
-    for arch, reduced, shape in cases:
+    decode = InputShape("decode", 32, 8, "decode")
+    ep = tuple(sh.EXPERT_PARALLEL_RULES.items())
+    cases = [("xlstm-125m", False, InputShape("train", 16, 8, "train"), ()),
+             ("stablelm-1.6b", True, InputShape("prefill", 32, 8, "prefill"),
+              ()),
+             ("stablelm-1.6b", True, decode, ()),
+             ("qwen2-moe-a2.7b", True, decode, ()),
+             ("qwen2-moe-a2.7b", True, decode, ep),
+             ("qwen2-moe-a2.7b", True, decode, (("expert", ("data",)),))]
+    for arch, reduced, shape, overrides in cases:
         cfg = get_config(arch)
         cfg = cfg.reduced() if reduced else dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model, num_layers=4))
         rec = {"arch": arch, "shape": shape.name}
         rec.update(dryrun.trace_combo(cfg, shape, mesh,
-                                      sh.rules_for(cfg, mesh),
+                                      sh.rules_for(cfg, mesh, overrides),
                                       recurrent_steps=8))
         print(json.dumps(rec), flush=True)
 """)
@@ -77,7 +87,7 @@ def small():
     assert proc.returncode == 0, proc.stderr[-4000:]
     recs = [json.loads(line) for line in proc.stdout.splitlines()
             if line.startswith("{")]
-    assert len(recs) == 4
+    assert len(recs) == 6
     return recs
 
 
@@ -97,7 +107,7 @@ def _check(rec):
             roof["collective_bytes_per_device"])
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(6))
 def test_small_mesh_programs_trace(small, case):
     rec = small[case]
     _check(rec)
@@ -123,6 +133,17 @@ def test_decode_splits_the_cache_and_merges_the_softmax(small):
     assert rec["roofline"]["collective_counts"].get("all-reduce", 0) > 0
 
 
+@pytest.mark.parametrize("case,all_to_alls", [(3, False), (4, False),
+                                               (5, True)])
+def test_moe_decode_exchanges_only_where_experts_share_the_rows_axis(
+        small, case, all_to_alls):
+    """qwen2-moe's decode under DEFAULT_RULES (experts whole),
+    EXPERT_PARALLEL_RULES (experts over model, where the rows are whole)
+    and expert=("data",) (experts over data, which splits the rows)."""
+    counts = small[case]["roofline"]["collective_counts"]
+    assert (counts.get("all-to-all", 0) > 0) == all_to_alls, counts
+
+
 def test_the_tool_runs_a_production_combo_in_a_subprocess():
     recs = dryrun.run_in_subprocess("single", [("gemma3-1b", "long_500k")],
                                     timeout=300)
@@ -132,3 +153,84 @@ def test_the_tool_runs_a_production_combo_in_a_subprocess():
     assert set(rec) == KEYS
     assert rec["mesh"] == "32x8" and rec["n_chips"] == 256
     _check(rec)
+
+
+def ep_moe_rank(rank, results):
+    """One of two gloo ranks sharing the card: reduced deepseek-v2-lite's
+    MoE layer (fp32, drawn on the card from a seed) as DTensors under
+    EXPERT_PARALLEL_RULES on a (data 1, model 2) mesh, with the router's
+    kernel and with its plain version: both outputs whole, the kernel's
+    launches and the experts this rank holds."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.common import layer_slice, logical_sharding
+    from repro_torch.models.moe import apply_moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    m = dataclasses.replace(cfg.model, dtype="float32",
+                            param_dtype="float32")
+    cfg = dataclasses.replace(cfg, model=m)
+    mesh = make_test_mesh("cuda", (1, 2), ("data", "model"))
+    rules = sh.rules_for(cfg, mesh, tuple(sh.EXPERT_PARALLEL_RULES.items()))
+    params, axes = make_model(cfg).init_params(
+        torch.Generator(device="cuda").manual_seed(0), "cuda",
+        with_axes=True)
+    dparams = sh.distribute_tree(
+        params, mesh, sh.params_shardings(axes, params, mesh, rules))
+    p = layer_slice(dparams["layers"], 0)["moe"]
+    x = torch.randn((2, 16, m.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    dx = sh.distribute_tree(x, mesh, sh.placements_for(
+        mesh, rules, ("batch", "seq", "embed_act"), x.shape))
+    out = {"local_experts": p["wo"].to_local().shape[0]}
+    kernel = ops.topk_router
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            ops.topk_router = ref.topk_router_ref
+        ops.reset_launches()
+        try:
+            with torch.no_grad(), logical_sharding(mesh, rules), \
+                    implicit_replication():
+                y, _ = apply_moe(p, m.moe, dx, m.act)
+            out[name] = y.full_tensor().cpu()
+        finally:
+            ops.topk_router = kernel
+        out[f"{name}_launches"] = ops.launch_counts()["topk_router"]
+    return out
+
+
+@pytest.fixture
+def cuda_device(monkeypatch):
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_expert_parallel_moe_on_two_ranks_sharing_the_card(cuda_device):
+    """Each rank holds 2 of the 4 experts, launches the router's kernel
+    once on its (whole) tokens and gives the plain version's output
+    within fp32 3e-5."""
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+    ranks = run_ranks(ep_moe_rank, 2, backend="gloo", device="cuda:0",
+                      timeout=300)
+    for r in ranks:
+        assert r["local_experts"] == 2
+        assert (r["kernel_launches"], r["plain_launches"]) == (1, 0)
+        torch.testing.assert_close(r["kernel"], r["plain"], atol=3e-5,
+                                   rtol=3e-5)
+    assert torch.equal(ranks[0]["kernel"], ranks[1]["kernel"])
