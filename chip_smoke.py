@@ -185,6 +185,14 @@ HFL_SIM_S = 60
 HFL_PROFILE_STEPS = 20
 #: attention kernels against their plain versions: tests/test_kernels.py
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+#: a bf16 GQA decode row whose walk the kernel splits over blocks (S > 1)
+#: is also held within this many bf16 ulps of its plain version at each
+#: output vector's largest magnitude: both accumulate in fp32 from the
+#: same inputs and round once.  3e-2 alone may not see a chunk dropped
+#: from a long row (the mean of V over 1,500 slots moves by less), and
+#: every split row's check must reject the plain output with the last
+#: chunk that counts a slot masked out (the power check)
+DECODE_SPLIT_ULPS = 1.0
 #: the LM slice: stablelm-1.6b at full width, 8 tokens per request, two
 #: request batches per tier (B = the tier's rows).  Prompts of 56 tokens
 #: (prefill bucket 64): a paged tier's page budget is what its dense
@@ -642,8 +650,7 @@ def phase_sass():
     mla = [r for fn, r in rows.items()
            if is_kernel(fn, "paged_mla_decode_mma_kernel")]
     # template <typename T, bool kVec, ...>: the vector instances are Lb1E
-    # right after the type (the dense kernel's last flag, kPartial, is one
-    # more Lb0E / Lb1E)
+    # right after the type
     vec = {name: [r for fn, r in rows.items()
                   if is_kernel(fn, name)
                   and re.search(r"I(?:f|13__nv_bfloat16)Lb1E", fn)]
@@ -666,7 +673,8 @@ def phase_sass():
                            ("bfloat16", "I13__nv_bfloat16Li"))}
     # the instances gemma3's head dim 256 takes: both decode kernels' rows
     # over 16 lanes, one query head a block (template <T, kVec, kLanes,
-    # kDims, kGB>, the dense kernel's full and partial instances), flash's
+    # kDims, kGB, kSplit>; the dense kernel's full and partial outputs are
+    # one instance, a split walk (kSplit) another), flash's
     # bf16 Dv-256 instances (template <kNo, kVec>) and fp32 8-chunk
     # instance (template <T, kChunks>)
     wide = {fn: r for fn, r in rows.items()
@@ -704,10 +712,10 @@ def phase_sass():
                       and r.get("spill_stores") == 0
                       and r.get("spill_loads") == 0 for r in v)
                   for v in fed.values()),
-              # 3 decode instances (dense full and partial, paged) x 2
-              # dtypes x 2 load widths, flash's two bf16 instances and its
+              # 2 decode kernels (dense, paged) x 2 dtypes x 2 load
+              # widths x split or not, flash's two bf16 instances and its
               # fp32 one
-              "head_dim_256_no_spills": len(wide) == 15 and all(
+              "head_dim_256_no_spills": len(wide) == 19 and all(
                   r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                   for r in wide.values())}
     emit({"phase": "sass", "functions": rows,
@@ -960,11 +968,14 @@ def phase_autograd(torch):
 
 
 def check_attention(torch, kernel, shape, dtype_name, call, plain,
-                    library, nbytes, flops, compared=None, tol=None):
+                    library, nbytes, flops, compared=None, tol=None,
+                    extra=None):
     """One attention kernel at one shape: error against its plain
     version (over every output, where it returns several, each as
     ``compared`` maps the outputs) within ``tol`` (default the dtype's
-    ATTN_TOL), times, and the bound of the work its inputs need."""
+    ATTN_TOL), times, and the bound of the work its inputs need.
+    ``extra(outs, wants)`` -> (fields, ok) adds checks of its own (the
+    decode kernels' split, :func:`split_checks`)."""
     outs, wants = call(), plain()
     torch.cuda.synchronize()
     if not isinstance(outs, tuple):
@@ -977,10 +988,12 @@ def check_attention(torch, kernel, shape, dtype_name, call, plain,
     ok = all(o.dtype == w.dtype and torch.allclose(
         o.float(), w.float(), atol=tol, rtol=tol)
         for o, w in zip(outs, wants))
+    fields, extra_ok = extra(outs, wants) if extra else ({}, True)
+    ok = ok and extra_ok
     rate = BF16_FLOP_PER_S if dtype_name == "bfloat16" else FP32_FLOP_PER_S
     bound_ms, bound_by = bound(nbytes, flops, rate)
     row = {"kernel": kernel, "shape": list(shape), "dtype": dtype_name,
-           "max_abs_err": err, "tol": tol, "ok": ok,
+           "max_abs_err": err, "tol": tol, "ok": ok, **fields,
            **timings(torch, call, plain, library, 200, 20),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bytes": nbytes, "flops": flops}
@@ -1043,15 +1056,68 @@ def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None,
         pairs * 2 * (D + Dv))
 
 
+def drop_last_chunk(valid, walks, S):
+    """``valid`` (B, slots) with, in each row, the slots of the last of
+    the S chunks of its walk ``walks[b]`` = (first, last) that counts a
+    slot masked out (``ref.walk_chunks``, the kernels' chunks)."""
+    from repro_torch.kernels import ref
+    out = np.array(valid, bool)
+    for b, (first, last) in enumerate(walks):
+        for lo, hi in reversed(ref.walk_chunks(first, last, S)):
+            if out[b, lo:hi].any():
+                out[b, lo:hi] = False
+                break
+    return out
+
+
+def split_checks(torch, S, expect, dtype_name, plain_on, valid, walks,
+                 partial=False):
+    """The ``extra`` of a GQA decode row whose wrapper splits each row's
+    walk into S chunks: records S and, where ``expect`` is True (a long
+    row) or False (a serving row), holds S > 1 or S = 1.  Split, a bf16
+    row's output within DECODE_SPLIT_ULPS of the plain version's, and the
+    check's power: ``plain_on(mask)`` (the plain version with ``mask``
+    (B, slots) as the counted slots) over ``valid`` and over
+    :func:`drop_last_chunk` of it must fail the checks the row applies
+    (ATTN_TOL, and the ulps in bf16; the partial statistics' o / l at
+    PARTIAL_TOL)."""
+    def extra(outs, wants):
+        fields = {"splits": S, "splits_expected": expect}
+        ok = expect is None or (S > 1) == expect
+        if S == 1:
+            return fields, ok
+        full, cut = (plain_on(torch.as_tensor(m, device=DEVICE))
+                     for m in (valid, drop_last_chunk(valid, walks, S)))
+        tol = PARTIAL_TOL if partial else ATTN_TOL[dtype_name]
+        if partial:
+            full, cut = normalised(*full)[0], normalised(*cut)[0]
+        seen = not torch.allclose(full.float(), cut.float(), atol=tol,
+                                  rtol=tol)
+        power = {"max_abs": (full.float() - cut.float()).abs().max().item(),
+                 "seen_at_tol": seen}
+        if dtype_name == "bfloat16" and not partial:
+            fields["kernel_ulps"] = ulps(torch, outs[0], wants[0],
+                                         torch.bfloat16)
+            ok = ok and fields["kernel_ulps"] <= DECODE_SPLIT_ULPS
+            power["ulps"] = ulps(torch, full, cut, torch.bfloat16)
+            seen = seen or power["ulps"] > DECODE_SPLIT_ULPS
+        power["seen"] = seen
+        fields["power"] = power
+        return fields, ok and seen
+    return extra
+
+
 def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name,
-                 valid=None, soft_cap=0.0):
+                 valid=None, soft_cap=0.0, split=None):
     """``n_valid`` (B,) leading valid slots per row, as a ring cache
     holds them before it wraps; None: 80% of the slots at random; or
     ``valid``, a (B, C) bool mask as it is.  The bound counts each row's
     valid slots (K and V, scores and P.V), and for a row with none only
     the V of all C slots and its mean (every score is -1e30, so the
     output does not depend on K).  With ``soft_cap`` the shape gains it
-    and there is no yardstick (SDPA has no cap)."""
+    and there is no yardstick (SDPA has no cap).  ``split``: True at a
+    long row (the wrapper must split its walk), False at a serving one
+    (it must not), None either (:func:`split_checks`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
@@ -1083,10 +1149,15 @@ def check_decode(torch, rng, B, H, Hkv, C, D, n_valid, dtype_name,
                                          soft_cap=soft_cap),
         None if soft_cap else library,
         it * (2 * B * H * D + (2 * keys + mean_rows * C) * Hkv * D) + B * C,
-        (keys * 4 + mean_rows * C * 2) * H * D)
+        (keys * 4 + mean_rows * C * 2) * H * D,
+        extra=split_checks(
+            torch, da.splits(B, H, Hkv, C, D, D, q.device), split,
+            dtype_name, lambda m: ref.decode_attention_ref(
+                q, k, v, m, soft_cap=soft_cap), valid, [(0, C)] * B))
 
 
-def check_decode_partial(torch, rng, B, H, Hkv, C, D, valid, dtype_name):
+def check_decode_partial(torch, rng, B, H, Hkv, C, D, valid, dtype_name,
+                         split=None):
     """The partial instance over one rank's share of C slots, ``valid``
     (B, C) as it is: its (o, m, l) against the plain version's within
     PARTIAL_TOL whatever the dtype, o as o / l: o is a sum over the
@@ -1101,7 +1172,8 @@ def check_decode_partial(torch, rng, B, H, Hkv, C, D, valid, dtype_name):
     decode's softmax statistics, the memory-efficient attention with
     ``compute_log_sumexp`` (its output normalised, with the log of the
     sum), over the kv heads repeated per query head (outside its timing)
-    with an additive mask; None with the reason where it refuses."""
+    with an additive mask; None with the reason where it refuses.
+    ``split`` as :func:`check_decode`'s."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     dtype = getattr(torch, dtype_name)
@@ -1136,7 +1208,11 @@ def check_decode_partial(torch, rng, B, H, Hkv, C, D, valid, dtype_name):
         it * (B * H * D + (2 * keys + mean_rows * C) * Hkv * D) + B * C
         + 4 * B * H * (D + 2),
         (keys * 4 + mean_rows * C * 2) * H * D,
-        compared=normalised, tol=PARTIAL_TOL)
+        compared=normalised, tol=PARTIAL_TOL,
+        extra=split_checks(
+            torch, da.splits(B, H, Hkv, C, D, D, q.device), split,
+            dtype_name, lambda m: ref.decode_attention_partial_ref(
+                q, k, v, m), valid, [(0, C)] * B, partial=True))
     if mean_rows:
         empty = torch.as_tensor(~valid.any(1), device=DEVICE)
         o, m, l = da.decode_attention_partial(q, k, v, valid_t)
@@ -1194,11 +1270,25 @@ def paged_work(lengths, ps, Pseq, window=None):
     return tokens, int((~counted).sum()) * Pseq * ps, int(pages.sum())
 
 
+def paged_walks(lengths, slots, window=None):
+    """Each row's walk (first, last) in the paged GQA kernel: from the
+    32-slot window of its first counted token to its last, or every slot
+    of a row with none."""
+    walks = []
+    for n in np.asarray(lengths):
+        hi = min(int(n), slots)
+        lo = max(0, int(n) - window) if window else 0
+        walks.append((lo & ~31, hi) if lo < hi else (0, slots))
+    return walks
+
+
 def check_paged(torch, rng, B, H, Hkv, ps, Pseq, D, lengths, num_pages,
-                soft_cap, window, dtype_name):
+                soft_cap, window, dtype_name, split=None):
     """paged_decode_attention on rows of ``lengths`` tokens (see
     ``paged_tables``).  The yardstick (no soft cap) is two calls: a
-    gather of each row's pages, then SDPA with the row's mask."""
+    gather of each row's pages, then SDPA with the row's mask.
+    ``split`` as :func:`check_decode`'s; the power check's plain version
+    is the dense one over the gathered rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import ref
@@ -1225,6 +1315,9 @@ def check_paged(torch, rng, B, H, Hkv, ps, Pseq, D, lengths, num_pages,
         return F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=H != Hkv)[:, :, 0]
 
+    kg, vg = (x[bt_l].flatten(1, 2) for x in (kp, vp))
+    S = pda.splits(B, H, Hkv, ps, Pseq, D, D,
+                   window if window and window < Pseq * ps else 0, q.device)
     return check_attention(
         torch, "paged_decode_attention", (B, H, Hkv, ps, Pseq, D),
         dtype_name, lambda: pda.paged_decode_attention(q, kp, vp, bt_t, ln_t,
@@ -1232,14 +1325,42 @@ def check_paged(torch, rng, B, H, Hkv, ps, Pseq, D, lengths, num_pages,
         lambda: ref.paged_decode_attention_ref(q, kp, vp, bt_t, ln_t, **kw),
         None if soft_cap else library,
         it * (2 * B * H * D + (2 * tokens + mean_slots) * Hkv * D)
-        + 4 * (pages + B), (tokens * 4 + mean_slots * 2) * H * D)
+        + 4 * (pages + B), (tokens * 4 + mean_slots * 2) * H * D,
+        extra=split_checks(
+            torch, S, split, dtype_name, lambda m: ref.decode_attention_ref(
+                q, kg, vg, m, soft_cap=soft_cap), allowed, paged_walks(
+                lengths, Pseq * ps, window)))
+
+
+def long_decode_rows(torch, rng, H, Hkv, D):
+    """Rows whose walks the GQA decode kernels split over blocks (each
+    must be split), in fp32 and bf16: dense and partial over 1,000 slots
+    (no multiple of 32 S) of 3 rows whose valid slots end inside a chunk
+    (517), lie only in the last chunk (the last slot) and are none; paged
+    over 63 pages of 16 with 517 tokens, a full table and length 0, with
+    no window and a window of 300 (its walk starts inside a chunk)."""
+    valid = np.zeros((3, 1000), bool)
+    valid[0, :517] = True
+    valid[1, -1] = True
+    rows = []
+    for dt in ("float32", "bfloat16"):
+        rows.append(check_decode(torch, rng, 3, H, Hkv, 1000, D, None, dt,
+                                 valid=valid, split=True))
+        rows.append(check_decode_partial(torch, rng, 3, H, Hkv, 1000, D,
+                                         valid, dt, split=True))
+        for window in (None, 300):
+            rows.append(check_paged(torch, rng, 3, H, Hkv, 16, 63, D,
+                                    [517, 1008, 0], 96, 0.0, window, dt,
+                                    split=True))
+    return rows
 
 
 def phase_attention_kernels(torch):
     """The LM path's shapes in bf16 (full-width stablelm: 32 heads,
     head_dim 64, prompts in the 64-token bucket; decode at 57 to 64
-    cached tokens, the paged tiers' pages filled to their budget), then
-    the sweep shapes of tests/test_kernels.py in fp32 and bf16."""
+    cached tokens, the paged tiers' pages filled to their budget: none
+    split), long rows at head dim 64 (8 heads on 2: split), then the
+    sweep shapes of tests/test_kernels.py in fp32 and bf16."""
     rng = np.random.default_rng(SEED + 4)
     lens = lambda B: LM_PROMPT + 1 + np.arange(B) % LM_STEPS  # noqa: E731
     main = {"flash_attention": check_flash(torch, rng, 32, 32, 64, 64, 0,
@@ -1247,16 +1368,17 @@ def phase_attention_kernels(torch):
     rows = [main["flash_attention"]]
     for B in (1, 4, 8):
         rows.append(check_decode(torch, rng, B, 32, 32, 256, 64, lens(B),
-                                 "bfloat16"))
+                                 "bfloat16", split=False))
     main["decode_attention"] = rows[-1]
     # every slot valid: masked slots are not read, so this row's time is
     # the one to set beside the 57-64-valid row's
     rows.append(check_decode(torch, rng, 8, 32, 32, 256, 64, [256] * 8,
-                             "bfloat16"))
+                             "bfloat16", split=False))
     for B, pages in ((4, 16), (16, 64), (32, 128)):
         rows.append(check_paged(torch, rng, B, 32, 32, 16, 16, 64, lens(B),
-                                pages, 0.0, None, "bfloat16"))
+                                pages, 0.0, None, "bfloat16", split=False))
     main["paged_decode_attention"] = rows[-1]
+    rows += long_decode_rows(torch, rng, 8, 2, 64)
     for dt in ("float32", "bfloat16"):
         for BH, BHkv, T, D in ((2, 2, 128, 64), (2, 2, 256, 32),
                                (2, 2, 256, 128), (2, 2, 100, 64),
@@ -1303,9 +1425,11 @@ def phase_gemma_kernels(torch):
     dense decode at B 1/4/8 over 256-slot rings of 57-64 valid slots and
     the long run's full 512-slot local ring and 1024-slot global ring of
     616 tokens; paged decode at B 4/16/32 over 16-token pages and the long
-    run's 616-token rows under the 512 window.  Then fp32 rows (the parity
-    cut's instances: flash on the CUDA cores at Dv 256), decode with a
-    soft cap among them (no registered config sets one)."""
+    run's 616-token rows under the 512 window (the long rows split, the
+    serving ones not), and :func:`long_decode_rows` at gemma3's heads.
+    Then fp32 rows (the parity cut's instances: flash on the CUDA cores
+    at Dv 256), decode with a soft cap among them (no registered config
+    sets one)."""
     rng = np.random.default_rng(SEED + 8)
     lens = lambda B: LM_PROMPT + 1 + np.arange(B) % LM_STEPS  # noqa: E731
     long_len = [LONG_PROMPT + LONG_STEPS] * LONG_ROWS
@@ -1315,27 +1439,29 @@ def phase_gemma_kernels(torch):
     rows += [check_flash(torch, rng, 4, 1, 1024, 256, w, "bfloat16")
              for w in (512, 0)]
     rows += [check_decode(torch, rng, B, 4, 1, 256, 256, lens(B),
-                          "bfloat16") for B in (1, 4, 8)]
+                          "bfloat16", split=False) for B in (1, 4, 8)]
     main["decode_attention"] = rows[-1]
     rows.append(check_decode(torch, rng, LONG_ROWS, 4, 1, 512, 256,
-                             [512] * LONG_ROWS, "bfloat16"))
+                             [512] * LONG_ROWS, "bfloat16", split=True))
     rows.append(check_decode(torch, rng, LONG_ROWS, 4, 1, 1024, 256,
-                             long_len, "bfloat16"))
+                             long_len, "bfloat16", split=True))
     for B, pages in ((4, 16), (16, 64), (32, 128)):
         rows.append(check_paged(torch, rng, B, 4, 1, 16, 16, 256, lens(B),
-                                pages, 0.0, None, "bfloat16"))
+                                pages, 0.0, None, "bfloat16", split=False))
     main["paged_decode_attention"] = rows[-1]
     rows.append(check_paged(torch, rng, LONG_ROWS, 4, 1, 16, 64, 256,
-                            long_len, 64 * LONG_ROWS, 0.0, 512, "bfloat16"))
+                            long_len, 64 * LONG_ROWS, 0.0, 512, "bfloat16",
+                            split=True))
+    rows += long_decode_rows(torch, rng, 4, 1, 256)
     rows += [check_flash(torch, rng, 4, 1, 1024, 256, 512, "float32"),
              check_flash(torch, rng, 2, 1, 100, 256, 0, "float32"),
              check_flash(torch, rng, 2, 2, 77, 136, 20, "float32", Dv=256),
              check_decode(torch, rng, 2, 4, 1, 512, 256, [512, 300],
-                          "float32", soft_cap=1.0),
+                          "float32", soft_cap=1.0, split=True),
              check_decode(torch, rng, 2, 4, 1, 1024, 256, [616, 0],
-                          "float32"),
+                          "float32", split=True),
              check_paged(torch, rng, 2, 4, 1, 16, 64, 256, [616, 37], 130,
-                         1.0, 512, "float32")]
+                         1.0, 512, "float32", split=True)]
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"head-dim-256 attention kernels disagree with "
@@ -2440,6 +2566,25 @@ def phase_lm_parity(torch, arch, phase, numpy_params,
                              f"{[k for k, v in checks.items() if not v]}")
 
 
+def scan_work(B, L, H, P, N, Q, G, it, dtype_name):
+    """The work of a scan of G groups of N-wide B, C (``it``-byte
+    elements): (bytes, flops, on the tensor cores, bound ms, bound by).
+    C.B^T once per batch, chunk and group (causal, Q(Q+1)/2 pairs), and
+    per head the causal scores . u, C . S and the B (x) u update; the
+    bf16 instance on the tensor cores (chunk and N multiples of 16, P of
+    8; csrc/mamba_chunk_scan.cu) is bound at their bf16 rate."""
+    from repro_torch.kernels import mamba_scan as ms
+    nbytes = it * (2 * B * L * H * P + 2 * B * L * G * N) \
+        + 4 * (B * L * H + H + B * H * N * P)
+    pairs = Q * (Q + 1)          # 2 x the causal pairs of a chunk
+    flops = B * (L // Q) * (G * pairs * N
+                            + H * (pairs * P + 4 * Q * N * P))
+    tc = (dtype_name == "bfloat16" and ms.kernel_chunk(Q) % 16 == 0
+          and N % 16 == 0 and P % 8 == 0)
+    return (nbytes, flops, tc,
+            *bound(nbytes, flops, BF16_FLOP_PER_S if tc else FP32_FLOP_PER_S))
+
+
 def check_mamba_scan(torch, rng, B, L, H, P, N, Q, dtype_name):
     """mamba_chunk_scan at one shape: sweep-style inputs (normal x, B,
     C; dt uniform in [0.01, 0.2); A in -[0.5, 2)), error of y and of the
@@ -2465,17 +2610,8 @@ def check_mamba_scan(torch, rng, B, L, H, P, N, Q, dtype_name):
               and torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol)
               and torch.allclose(st, sr, atol=SCAN_STATE_TOL,
                                  rtol=SCAN_STATE_TOL))
-    it = x.element_size()
-    nbytes = it * (2 * B * L * H * P + 2 * B * L * N) \
-        + 4 * (B * L * H + H + B * H * N * P)
-    pairs = Q * (Q + 1)          # 2 x the causal pairs of a chunk
-    flops = B * (L // Q) * (pairs * N + H * (pairs * P + 4 * Q * N * P))
-    # the bf16 instance on the tensor cores (chunk and N multiples of 16,
-    # P of 8; csrc/mamba_chunk_scan.cu) is bound at their bf16 rate
-    tc = (dtype_name == "bfloat16" and ms.kernel_chunk(Q) % 16 == 0
-          and N % 16 == 0 and P % 8 == 0)
-    bound_ms, bound_by = bound(nbytes, flops,
-                               BF16_FLOP_PER_S if tc else FP32_FLOP_PER_S)
+    nbytes, flops, tc, bound_ms, bound_by = scan_work(
+        B, L, H, P, N, Q, 1, x.element_size(), dtype_name)
     row = {"kernel": "mamba_chunk_scan", "shape": [B, L, H, P, N, Q],
            "dtype": dtype_name, "tensor_cores": tc,
            "max_abs_err": err, "tol": tol,
@@ -2530,10 +2666,14 @@ def check_mamba_scan_groups(torch, rng, B, L, H, P, N, Q, G, dtype_name):
     err = (y.float() - yr.float()).abs().max().item()
     ok = bool(y.dtype == dtype and launches == G
               and torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol))
+    nbytes, flops, tc, bound_ms, bound_by = scan_work(
+        B, L, H, P, N, Q, G, x.element_size(), dtype_name)
     row = {"kernel": "mamba_chunk_scan", "shape": [B, L, H, P, N, Q],
            "groups": G, "dtype": dtype_name, "launches_a_call": launches,
            "max_abs_err": err, "tol": tol, "ok": ok,
-           **timings(torch, grouped, plain, None, 50, 10)}
+           **timings(torch, grouped, plain, None, 50, 10),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": flops}
     emit({"phase": "kernel_check", **row})
     return row
 
@@ -2881,7 +3021,7 @@ def phase_whisper_kernels(torch):
     for dt in ("bfloat16", "float32"):
         for B in (1, 4, 8):
             rows.append(check_decode(torch, rng, B, 12, 12, F, 64, [F] * B,
-                                     dt))
+                                     dt, split=True))
             if dt == "bfloat16" and B == 4:
                 main["decode"] = rows[-1]
     bad = [r for r in rows if not r["ok"]]
@@ -4401,7 +4541,9 @@ def attention_calls(record=None, replay=None):
     plain version's out on the same inputs): the same attention inputs,
     so two runs' decode outputs compare layer by layer although their
     hidden states part (bf16 rounding compounds through the layers),
-    and the plain version is the third witness."""
+    and the plain version is the third witness (computed in fp64 for
+    the fp32 cuts)."""
+    import torch
     from repro_torch.kernels import ref
     from repro_torch.models import attention as attn
     from repro_torch.models import sharded
@@ -4425,8 +4567,15 @@ def attention_calls(record=None, replay=None):
             _, q_r, out_r = next(todo)
             q_r = q_r.to(q.device)
             out = decode(q_r, kc, vc, valid, soft_cap)
-            plain = ref.decode_attention_ref(q_r[:, 0], kc, vc, valid,
-                                             soft_cap=soft_cap)
+            # fp32: the witness sums in fp64; on an H100 its fp32 sums
+            # over 32,768 slots were 1.08e-4 (1.9x the 3e-5 check) from
+            # the fp64 ones where the kernel's were 4.6e-5 (0.46x;
+            # PERF.md §6)
+            wide = (lambda t: t.double()) if kc.dtype == torch.float32 \
+                else (lambda t: t)
+            plain = ref.decode_attention_ref(
+                wide(q_r[:, 0]), wide(kc), wide(vc), valid,
+                soft_cap=soft_cap).to(kc.dtype)
             done.append(("decode", out.cpu(), out_r, plain[:, None].cpu()))
             return out
         out = decode(q, kc, vc, valid, soft_cap)
@@ -4539,21 +4688,23 @@ def phase_split_kernels(torch):
     rank 1: none (V only), 3,617, all) at stablelm's heads (32 heads, 32
     kv heads, D 64) and gemma3's (4 heads, 1 kv head, D 256), and a share
     of gemma3's 512-slot local ring (window 512: all valid), bf16 and
-    fp32."""
+    fp32.  The 16,384-slot shares' walks are split inside the card, the
+    256-slot local share's not."""
     rng = np.random.default_rng(SEED + 9)
     half = SPLIT_SLOTS // 2
     glob = split_masks(SPLIT_SLOTS)
     shares = {f"rank{r}": glob[:, r * half:(r + 1) * half] for r in (0, 1)}
     local = split_masks(2 * LOCAL_SHARE, window=2 * LOCAL_SHARE)
     rows = {}
-    for name, H, Hkv, D, masks in (
-            ("stablelm", 32, 32, 64, shares), ("gemma", 4, 1, 256, shares),
-            ("gemma", 4, 1, 256, {"local": local[:, :LOCAL_SHARE]})):
+    for name, H, Hkv, D, masks, split in (
+            ("stablelm", 32, 32, 64, shares, True),
+            ("gemma", 4, 1, 256, shares, True),
+            ("gemma", 4, 1, 256, {"local": local[:, :LOCAL_SHARE]}, False)):
         for share, valid in masks.items():
             for dtype_name in ("bfloat16", "float32"):
                 rows[f"{name}_{share}_{dtype_name}"] = check_decode_partial(
                     torch, rng, len(SPLIT_TOKENS), H, Hkv, valid.shape[1], D,
-                    valid, dtype_name)
+                    valid, dtype_name, split=split)
     bad = [r for r in rows.values() if not r["ok"]]
     if bad:
         raise AssertionError(f"decode_attention_partial disagrees with its "

@@ -39,11 +39,13 @@ SIGNATURES = {
     "fedavg_reduce_floor": (_I, _I, _I, _L, _I, _P),
     **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 8 + (_P,)
        for t in ("f32", "bf16")},
-    **{f"decode_attention_{t}": (_P,) * 5 + (_I,) * 6 + (_F, _P)
+    # the GQA decode kernels: a scratch pointer, then S (chunks a row's
+    # walk is split into) after the shapes
+    **{f"decode_attention_{t}": (_P,) * 6 + (_I,) * 7 + (_F, _P)
        for t in ("f32", "bf16")},
-    **{f"decode_attention_partial_{t}": (_P,) * 7 + (_I,) * 6 + (_F, _P)
+    **{f"decode_attention_partial_{t}": (_P,) * 8 + (_I,) * 7 + (_F, _P)
        for t in ("f32", "bf16")},
-    **{f"paged_decode_attention_{t}": (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
+    **{f"paged_decode_attention_{t}": (_P,) * 7 + (_I,) * 8 + (_F, _I, _P)
        for t in ("f32", "bf16")},
     **{f"paged_mla_decode_attention_{t}": (_P,) * 7 + (_I,) * 6 + (_F, _P)
        for t in ("f32", "bf16")},

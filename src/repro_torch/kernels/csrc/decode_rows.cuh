@@ -16,15 +16,33 @@
 // output is the uniform mean of V over the walked slots; the body then
 // reads every walked slot's V and no K, and gives the same.
 //
-// The epilogue is a template flag.  By default a block writes o / l in
-// T.  With kPartial it writes the statistics instead, all fp32, to a
-// `PartialOut`: the unnormalised o = sum exp(s - m) . v, the row max m
-// and the row sum l = sum exp(s - m), so that shares of a row's slots
-// held by different ranks can be merged (models/sharded.py).  A row with
-// no counted slot reports m = kPartialNegInf (-2e38, the plain version's
-// mask), l = the walked slots and o = the sum of their V: a merge then
-// gives it weight 0 beside a share with a counted slot, and the uniform
-// mean of V where no share has one.
+// A row's walk may be split into S chunks (walk_chunk), each walked by a
+// block of its own: S blocks a (row, kv head, head group), so that a long
+// row keeps many SMs busy where the rows and heads alone give few blocks.
+// The host picks S from shapes only (kernels/decode_attention.py
+// decode_splits); each block works out its own row's chunk on the device,
+// round_up(ceil(walk / S), 32) slots of that row's walk.  With S = 1 a
+// block writes its output directly (the kSplit = false instance, the code
+// the kernels ran before the split).  With S > 1 each chunk writes its
+// softmax statistics to fp32 scratch, and a second kernel,
+// merge_chunks_kernel, launched behind it on the same stream, merges
+// them: no host sync, safe in a CUDA graph.  Measured against a merge by
+// the last chunk block to finish (a self-resetting counter, a fence and
+// an atomic a block), the second launch was as fast or faster at every
+// split shape on an H100 (PERF.md §6).
+//
+// The output is a `DecodeOut`: o / l in T, or with `part` set the
+// statistics, all fp32: the unnormalised o = sum exp(s - m) . v, the row
+// max m and the row sum l = sum exp(s - m), so that shares of a row's
+// slots held by different ranks (models/sharded.py), or the chunks of a
+// split walk, can be merged.  Where a block counted no slot, m is
+// kPartialNegInf (-2e38, the plain version's mask): with no slot walked
+// (an empty chunk, or a chunk with none counted in a row that has some,
+// which reads no K or V) l = 0 and o = 0; in a row with no counted slot
+// at all, l = the walked slots and o = the sum of their V.  A merge then
+// gives such a part weight 0 beside a part with a counted slot, and the
+// uniform mean of V where no part has one.  -2e38, not -inf: the merge
+// takes exp(m - max m), which stays 1 where every m is -2e38.
 //
 // What bounds it on this card: bytes (each counted K/V row once).  The
 // design is about keeping enough of them in flight:
@@ -56,6 +74,7 @@
 // fp32 arithmetic, expf and tanhf without fast math; D, Dv <= 256.
 #pragma once
 
+#include <cstdint>
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -103,11 +122,69 @@ struct RowPiece {
 // plain version's mask value (kernels/ref.py PARTIAL_NEG_INF).
 constexpr float kPartialNegInf = -2.0e38f;
 
-// Where the partial instance writes a block's rows: o (ng, Dv), m (ng)
-// and l (ng), each at the block's first query head.
+// Where statistics go: o (rows, Dv), m (rows) and l (rows), fp32.
 struct PartialOut {
   float *o, *m, *l;
+  // the same arrays from row r on
+  __device__ __forceinline__ PartialOut at(size_t r, int Dv) const {
+    return {o + r * Dv, m + r, l + r};
+  }
 };
+
+// Where a block writes its ng rows: o / l in T at `out` (ng, Dv), or,
+// where part.o is set, the statistics there.
+template <typename T>
+struct DecodeOut {
+  T* out;
+  PartialOut part;
+  __device__ __forceinline__ DecodeOut at(size_t r, int Dv) const {
+    return {part.o ? out : out + r * Dv, part.o ? part.at(r, Dv) : part};
+  }
+};
+
+// The chunks of a split walk: fp32 statistics (S, rows, Dv) o and
+// (S, rows) m and l, `rows` = B * H; S = 1: none (a block writes its
+// output).
+struct Split {
+  float* scratch;
+  int S;
+  size_t rows;
+  // chunk c's statistics, from row r on
+  __device__ __forceinline__ PartialOut chunk(int c, size_t r, int Dv) const {
+    const size_t n = static_cast<size_t>(S) * rows;
+    return PartialOut{scratch, scratch + n * Dv, scratch + n * Dv + n}.at(
+        static_cast<size_t>(c) * rows + r, Dv);
+  }
+};
+
+// Chunk c of S of a walk [first, last) (first a multiple of 32): each
+// chunk round_up(ceil(walk / S), 32) slots, so every chunk starts on a
+// 32-slot window and the S chunks cover the walk; trailing ones may be
+// empty.
+struct Chunk {
+  int begin, end;
+};
+__device__ __forceinline__ Chunk walk_chunk(int first, int last, int c, int S) {
+  const int size = ((last - first + S - 1) / S + kWarp - 1) & ~(kWarp - 1);
+  const int begin = min(last, first + c * size);
+  return {begin, min(last, begin + size)};
+}
+
+// Whether some byte of a row's `n` mask bytes is set, for the whole
+// block (16 bytes a load where the row allows it; also a barrier).
+__device__ __forceinline__ bool block_any(const unsigned char* mask, int n) {
+  int mine = 0;
+  if (n % 16 == 0 && reinterpret_cast<uintptr_t>(mask) % 16 == 0) {
+    const uint4* m4 = reinterpret_cast<const uint4*>(mask);
+    for (int i = threadIdx.x; i < n / 16; i += blockDim.x) {
+      const uint4 w = __ldg(m4 + i);
+      mine |= (w.x | w.y | w.z | w.w) != 0u;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) mine |= mask[i];
+  }
+  return __syncthreads_or(mine);
+}
 
 // Sum over the `kLanes` consecutive lanes of a lane group (a power of 2).
 template <int kLanes>
@@ -138,16 +215,13 @@ __device__ __forceinline__ void load_query(float* qs, const T* q, int n, float s
 // kWarps: the block's warps, fixed at compile time (6-8% faster at the
 // dense kernel's shapes than a count read at run time).
 // `qs` holds the pre-scaled query rows (published by a barrier), `red`
-// the merge area; `out` points at the block's first output row, or with
-// kPartial `part` at its first row of statistics (`out` unused).
-template <typename T, bool kVec, int kLanes, int kDims, int kGB, int kWarps,
-          bool kPartial = false, class Rows>
+// the merge area; `out` is at the block's first row.
+template <typename T, bool kVec, int kLanes, int kDims, int kGB, int kWarps, class Rows>
 __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
                                             const T* __restrict__ v,
-                                            T* __restrict__ out, const float* qs,
+                                            const DecodeOut<T>& out, const float* qs,
                                             float* red, const Rows& rows, bool any,
-                                            int ng, int D, int Dv, float soft_cap,
-                                            PartialOut part = {}) {
+                                            int ng, int D, int Dv, float soft_cap) {
   using P = RowPiece<T, kVec>;
   constexpr int kEpl = P::kEpl;
   constexpr int kPieces = kDims / kEpl;  // loads a lane makes a row
@@ -292,16 +366,120 @@ __device__ __forceinline__ void decode_rows(const T* __restrict__ k,
       lsum = fmaf(e0[1], f, lsum);
       o = fmaf(e0[2 + d], f, o);
     }
-    if constexpr (kPartial) {
-      part.o[static_cast<size_t>(g) * Dv + d] = o;
+    if (out.part.o) {
+      out.part.o[static_cast<size_t>(g) * Dv + d] = o;
       if (d == 0) {
-        part.m[g] = any ? mx : kPartialNegInf;
-        part.l[g] = lsum;
+        // a real score is far above -1e30: mx stays there only where no
+        // slot counted
+        out.part.m[g] = mx > kNegInf ? mx : kPartialNegInf;
+        out.part.l[g] = lsum;
       }
     } else {
-      out[static_cast<size_t>(g) * Dv + d] = from_float<T>(o / fmaxf(lsum, 1e-30f));
+      out.out[static_cast<size_t>(g) * Dv + d] = from_float<T>(o / fmaxf(lsum, 1e-30f));
     }
   }
+}
+
+// Shared memory the merge of S chunks takes: (ng, S) row maxima (then
+// weights) and sums, and (ng, 2) the merged max and sum.
+inline size_t merge_smem_bytes(int kGB, int S) {
+  return sizeof(float) * static_cast<size_t>(kGB) * (2 * S + 2);
+}
+
+// Merge the S chunks' statistics of the block's ng rows (from row r0 of
+// `split`) into `out`: m* = max m, o = sum o e^(m - m*), l = sum l
+// e^(m - m*), written as o / l in T, or as (o, m*, l).  The scratch is
+// read once, with the loads of up to 8 chunks in flight together: a merge
+// costs a few L2 round trips, not one a chunk.  A warp a row weighs the
+// chunks.  `smem` holds merge_smem_bytes.
+template <typename T>
+__device__ __forceinline__ void merge_chunks(float* smem, const Split& split, size_t r0,
+                                             int ng, int Dv, const DecodeOut<T>& out) {
+  constexpr int kBatch = 8;  // chunks whose loads a thread issues at once
+  const int S = split.S;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  float* w = smem;            // (ng, S): m, then the weights
+  float* ls = w + ng * S;     // (ng, S): l
+  float* ml = ls + ng * S;    // (ng, 2)
+  for (int i = threadIdx.x; i < ng * S; i += blockDim.x) {
+    const int g = i / S, c = i - g * S;
+    const PartialOut p = split.chunk(c, r0 + g, Dv);
+    w[i] = __ldg(p.m);
+    ls[i] = __ldg(p.l);
+  }
+  __syncthreads();
+  for (int g = warp; g < ng; g += blockDim.x / kWarp) {
+    float mx = kPartialNegInf;
+    for (int c = lane; c < S; c += kWarp) mx = fmaxf(mx, w[g * S + c]);
+    mx = warp_max(mx);
+    float l = 0.0f;
+    for (int c = lane; c < S; c += kWarp) {
+      const float f = expf(w[g * S + c] - mx);
+      w[g * S + c] = f;
+      l = fmaf(ls[g * S + c], f, l);
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      ml[2 * g] = mx;
+      ml[2 * g + 1] = l;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ng * Dv; i += blockDim.x) {
+    const int g = i / Dv, d = i - g * Dv;
+    float o = 0.0f;
+    for (int c0 = 0; c0 < S; c0 += kBatch) {
+      float x[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        x[j] = c0 + j < S ? __ldg(split.chunk(c0 + j, r0 + g, Dv).o + d) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (c0 + j < S) o = fmaf(x[j], w[g * S + c0 + j], o);
+    }
+    if (out.part.o) {
+      out.part.o[static_cast<size_t>(g) * Dv + d] = o;
+      if (d == 0) {
+        out.part.m[g] = ml[2 * g];
+        out.part.l[g] = ml[2 * g + 1];
+      }
+    } else {
+      out.out[static_cast<size_t>(g) * Dv + d] =
+          from_float<T>(o / fmaxf(ml[2 * g + 1], 1e-30f));
+    }
+  }
+}
+
+// The second pass of a split walk: one block of kMergeThreads per (kv
+// head, b, group of kGB query heads), the grid of the first pass without
+// its chunks, merging the S chunks' statistics into `out`.
+constexpr int kMergeThreads = 128;
+template <typename T, int kGB>
+__global__ void __launch_bounds__(kMergeThreads)
+merge_chunks_kernel(DecodeOut<T> out, Split split, int H, int Hkv, int Dv) {
+  extern __shared__ float smem[];
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int G = H / Hkv;
+  const int h0 = kvh * G + blockIdx.z * kGB;  // first query head
+  const int ng = min(kGB, kvh * G + G - h0);
+  const size_t r0 = static_cast<size_t>(b) * H + h0;
+  merge_chunks<T>(smem, split, r0, ng, Dv, out.at(r0, Dv));
+}
+
+// Launch the first pass `kernel` (grid (Hkv, B, groups * S)) with its
+// arguments, then, where S > 1, the merge over (Hkv, B, groups); return
+// the first non-zero cudaGetLastError() of the two.
+template <typename T, int kGB, class Kernel, class... Args>
+int launch_split(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                 const DecodeOut<T>& out, const Split& split, int H, int Hkv, int Dv,
+                 Args... args) {
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split.S == 1) return static_cast<int>(err);
+  merge_chunks_kernel<T, kGB><<<dim3(grid.x, grid.y, grid.z / split.S), kMergeThreads,
+                                merge_smem_bytes(kGB, split.S), stream>>>(out, split, H,
+                                                                          Hkv, Dv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Host side: pick the instance for the row widths and the group size.

@@ -15,7 +15,13 @@ A row with ``lengths[b] = 0`` has no counted token: every score is
 -1e30 in the JAX kernels, so they, the plain versions and the kernels
 here give the uniform mean of V (of the ``c_kv`` latents) over all
 ``Pseq * ps`` gathered slots of the row, reading every table entry of
-that row."""
+that row.
+
+The GQA kernel splits a long row's walk over blocks as the dense one does
+(``decode_attention.decode_splits``), sized from the longest walk a row
+can have: every ``Pseq * ps`` slot, or with a window
+``round_up(window, 32) + 32`` of them (a walk starts at the window of its
+first counted token)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -24,6 +30,8 @@ import torch
 
 from repro_torch.device import common_device
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import fedavg_reduce as fr
 from repro_torch.kernels._checks import head_dims, kernel_inputs
 from repro_torch.kernels._grad import with_grad
 
@@ -80,12 +88,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         out = torch.empty((B, H, Dv), dtype=q.dtype, device=dev)
         if B == 0 or H == 0:
             return out
+        S = splits(B, H, Hkv, ps, Pseq, D, Dv, win, dev)
+        work = da.scratch(S, B, H, Dv, dev)
         with torch.cuda.device(dev):
             build.launch(f"paged_decode_attention_{suffix}", q.data_ptr(),
                          k_pages.data_ptr(), v_pages.data_ptr(),
                          block_tables.data_ptr(), lengths.data_ptr(),
-                         out.data_ptr(), B, H, Hkv, ps, Pseq, D, Dv,
-                         float(soft_cap), win,
+                         out.data_ptr(), work.data_ptr(), B, H, Hkv, ps,
+                         Pseq, D, Dv, S, float(soft_cap), win,
                          torch.cuda.current_stream().cuda_stream)
         paged_decode_attention.launches += 1
         return out
@@ -96,6 +106,26 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def longest_walk(ps: int, Pseq: int, window: int) -> int:
+    """Slots the longest walk of a row of ``Pseq`` pages of ``ps`` takes:
+    every slot, or with a window (0: none) the tokens from the 32-slot
+    window of its first counted one, at most window + 31."""
+    slots = Pseq * ps
+    if not window:
+        return slots
+    return min(-(-window // 32) * 32 + 32, slots)
+
+
+def splits(B: int, H: int, Hkv: int, ps: int, Pseq: int, D: int, Dv: int,
+           window: int, device: torch.device) -> int:
+    """S of a paged GQA decode call of these shapes on ``device``
+    (``window`` 0: none)."""
+    G = H // Hkv
+    return da.decode_splits(B, Hkv, G, da.heads_per_block(G, D, Dv),
+                            longest_walk(ps, Pseq, window),
+                            fr.sms(device.index), warps=da.PAGED_WARPS)
 
 
 def _pages_per_seq(name: str, block_tables: torch.Tensor) -> int:

@@ -10,7 +10,7 @@ reference's XLA partitioning, not one of its kernels."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -76,17 +76,20 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,H,D); k/v (B,C,Hkv,D); valid (B,C) bool -> (B,H,Dv).  With
     ``soft_cap`` the scores are capped before the mask, as in
     :func:`paged_decode_attention_ref` (the JAX oracle has no cap: at 0
-    this is it)."""
+    this is it).  Computed in fp32, or in fp64 for fp64 inputs (an exact
+    witness for long fp32 rows, whose fp32 sums over thousands of slots
+    carry more rounding than a 3e-5 check allows)."""
     B, H, D = q.shape
     Hkv = k.shape[2]
+    ct = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(B, Hkv, H // Hkv, D)
-    s = torch.einsum("bhgd,bchd->bhgc", qg.float(), k.float()) \
+    s = torch.einsum("bhgd,bchd->bhgc", qg.to(ct), k.to(ct)) \
         / math.sqrt(D)
     if soft_cap:
         s = torch.tanh(s / soft_cap) * soft_cap
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
+    o = torch.einsum("bhgc,bchd->bhgd", p, v.to(ct))
     return o.reshape(B, H, v.shape[-1]).to(q.dtype)
 
 
@@ -125,6 +128,33 @@ def decode_attention_partial_ref(q: torch.Tensor, k: torch.Tensor,
     e = torch.exp(s - m[..., None])
     o = torch.einsum("bhgc,bchd->bhgd", e, v.float())
     return o.reshape(B, H, Dv), m.reshape(B, H), e.sum(-1).reshape(B, H)
+
+
+def walk_chunks(first: int, last: int, S: int) -> List[Tuple[int, int]]:
+    """The S chunks [begin, end) of a row's walk [first, last) that the
+    GQA decode kernels give their blocks (``csrc/decode_rows.cuh``
+    ``walk_chunk``): round_up(ceil((last - first) / S), 32) slots each,
+    from ``first`` on; trailing chunks may be empty."""
+    size = -(-max(last - first, 0) // S)
+    size = -(-size // 32) * 32
+    out = []
+    for c in range(S):
+        begin = min(last, first + c * size)
+        out.append((begin, min(last, begin + size)))
+    return out
+
+
+def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge partial softmax statistics over their leading dim (the
+    chunks of a split walk, or ranks' shares of the slots): o (S,...,Dv),
+    m and l (S,...) -> (sum o e^(m - m*), m*, sum l e^(m - m*)) with m* =
+    max m.  o / l of the result is the attention over all the parts; a
+    part with m = :data:`PARTIAL_NEG_INF` weighs nothing beside one with
+    a counted slot, and where every part has that m each weighs 1."""
+    top = m.amax(0)
+    w = torch.exp(m - top)
+    return (o * w[..., None]).sum(0), top, (l * w).sum(0)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

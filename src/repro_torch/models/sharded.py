@@ -58,6 +58,8 @@ from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
                                       Shard)
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.kernels import ref
+
 
 def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
@@ -306,10 +308,8 @@ def decode_attention(full: Callable, partial: Callable, q: DTensor,
     o, m, s = local_map(part, out_placements=(lead, lead, lead),
                         in_placements=(q_pl, kv_pl, kv_pl, valid_pl),
                         device_mesh=mesh)(q, kc, vc, valid)
-    m_all = m.amax(0, keepdim=True)
-    w = torch.exp(m - m_all)
-    out = (o * w[..., None]).sum(0) / (s * w).sum(0)[..., None]
-    return out.to(vc.dtype)
+    o, _, s = ref.combine_partials(o, m, s)
+    return (o / s[..., None]).to(vc.dtype)
 
 
 def write_rows(buf: DTensor, new, slot) -> None:

@@ -80,6 +80,60 @@ def signatures(dtype=torch.float32):
 SIGNATURES = [s[0] for s in signatures()]
 
 
+def split_signatures(dtype=torch.float32):
+    """The three GQA decode wrappers at shapes whose walk the kernels
+    split over blocks (:func:`decode_splits` > 1 on any card of 8 to 264
+    SMs): 2 rows of 600 dense slots, 2 of 40 pages of 16."""
+    r = np.random.default_rng(1)
+    n = lambda *s: _normal(r, s).to(dtype)  # noqa: E731
+    valid = torch.as_tensor(r.uniform(size=(2, 600)) < 0.7)
+    valid[1] = False
+    bt = torch.as_tensor(r.permutation(81)[:80].reshape(2, 40),
+                         dtype=torch.int32)
+    lengths = torch.tensor([0, 517], dtype=torch.int32)
+    return [
+        ("decode_attention",
+         lambda *t: ref.decode_attention_ref(*t, soft_cap=5.0),
+         (n(2, 4, 8), n(2, 600, 2, 8), n(2, 600, 2, 8), valid), (1, 1, 1, 0)),
+        ("paged_decode_attention",
+         lambda *t: ref.paged_decode_attention_ref(*t, soft_cap=5.0),
+         (n(2, 4, 8), n(81, 16, 2, 8), n(81, 16, 2, 8), bt, lengths),
+         (1, 1, 1, 0, 0)),
+        ("decode_attention_partial",
+         lambda *t: ref.decode_attention_partial_ref(*t, soft_cap=5.0),
+         (n(2, 4, 8), n(2, 600, 2, 8), n(2, 600, 2, 8), valid), (1, 1, 1, 0)),
+    ]
+
+
+def _splits(name, inputs, sms):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    q = inputs[0]
+    B, H, D = q.shape
+    if name == "paged_decode_attention":
+        P, ps, Hkv, _ = inputs[1].shape
+        G = H // Hkv
+        return da.decode_splits(B, Hkv, G, da.heads_per_block(G, D, D),
+                                pda.longest_walk(ps, inputs[3].shape[1], 0),
+                                sms, warps=da.PAGED_WARPS)
+    Hkv = inputs[1].shape[2]
+    G = H // Hkv
+    return da.decode_splits(B, Hkv, G, da.heads_per_block(G, D, D),
+                            inputs[1].shape[1], sms)
+
+
+@pytest.mark.parametrize("sms", [8, 132, 264])
+def test_split_shapes_split_and_the_small_ones_do_not(sms):
+    """The ``cuda`` gradient cases below run the split walk; the ones at
+    :func:`signatures`' shapes run one block a row."""
+    for name, _, inputs, _ in split_signatures():
+        assert _splits(name, inputs, sms) > 1, name
+    for name, _, inputs, _ in signatures():
+        if name in ("decode_attention", "paged_decode_attention",
+                    "decode_attention_partial"):
+            assert _splits(name, inputs, sms) == 1, name
+
+
 def _signature(name, dtype=torch.float32, device="cpu"):
     for sig in signatures(dtype):
         if sig[0] == name:
@@ -469,3 +523,36 @@ def test_lm_hfl_step_and_sync_on_the_card(cuda_device):
         du, dw = g - o, w - o
         tol = 1e-3 * max(1e-2, float(dw.abs().max()))
         assert float((du - dw).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention",
+                                  "decode_attention_partial"])
+def test_split_kernel_route_gradients_match_the_plain_version(cuda_device,
+                                                              name, dtype):
+    """The GQA decode kernels with their walks split over blocks: one
+    launch a call, the outputs and the plain version's gradients."""
+    for sig in split_signatures(dtype):
+        if sig[0] == name:
+            _, plain, inputs, diff = sig
+    inputs = [t.to(cuda_device) for t in inputs]
+    assert _splits(name, inputs, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count) > 1
+    kernel = getattr(ops, name)
+    before = kernel.launches
+    got_out, got = _grads(WRAPPERS[name] if name != "paged_decode_attention"
+                          else lambda *t: ops.paged_decode_attention(
+                              *t, soft_cap=5.0),
+                          _leaves(inputs, diff), diff)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want_out, want = _grads(plain, _leaves(inputs, diff), diff)
+    outs = got_out if isinstance(got_out, tuple) else (got_out,)
+    wants = want_out if isinstance(want_out, tuple) else (want_out,)
+    # the partial statistics at fp32's tolerance whatever the dtype
+    tol = TOL[torch.float32 if name == "decode_attention_partial" else dtype]
+    for o, w in zip(outs, wants):
+        torch.testing.assert_close(o.float(), w.float(), **tol)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])

@@ -149,6 +149,41 @@ def test_every_kernel_source_is_built_and_bound():
     assert len(build.source_hash()) == 16
 
 
+def _entry_parameters():
+    """Each ``extern "C"`` entry point of the sources: its parameter
+    types as ctypes would pass them."""
+    import ctypes
+    import re
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "long long": ctypes.c_longlong}
+    text = "".join(p.read_text() for p in build.sources())
+    entries = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                   text):
+        types = []
+        for param in params.split(","):
+            kind = " ".join(param.split()[:-1]).replace("const ", "")
+            types.append(ctypes.c_void_p if kind.endswith("*")
+                         else kinds[kind])
+        entries[name] = tuple(types)
+    return entries
+
+
+def test_signatures_match_the_entry_points():
+    """``build.SIGNATURES`` passes each entry point's parameters in its
+    order and types: the GQA decode kernels' scratch pointer and chunk
+    count S among them."""
+    import ctypes
+    entries = _entry_parameters()
+    assert set(entries) == set(build.SIGNATURES)
+    for name, types in build.SIGNATURES.items():
+        assert entries[name] == types, name
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert build.SIGNATURES["decode_attention_bf16"][4:7] == (P, P, I)
+    assert build.SIGNATURES["decode_attention_partial_f32"][6:9] == (P, P, I)
+    assert build.SIGNATURES["paged_decode_attention_bf16"][5:8] == (P, P, I)
+
+
 def _chip_smoke():
     """``chip_smoke.py`` (the repo root's) as a module: its parsers of
     the compiler's reports."""
