@@ -4,8 +4,9 @@
 Builds the port's CUDA kernels from the sources in this checkout,
 reports what the attention kernels, the SSD scan, the router and the
 GRU's cluster kernel compiled to (tensor-core, 16-byte load,
-warp-reduction and cluster-barrier instructions, registers, spills),
-holds each kernel against its plain PyTorch version on the card (the
+warp-reduction and cluster-barrier instructions, registers, spills; a
+process of its own works this out beside the card's phases, and its
+line comes after them), holds each kernel against its plain PyTorch version on the card (the
 router and FedAvg beside an empty kernel's launch floor, the GRU beside
 a kernel that only exchanges its state), differentiates the reduced GRU's loss
 on the card through ``gru_seq`` against the CPU, then drives these paths
@@ -131,6 +132,7 @@ without CUDA, outside a checkout of the repo, or when a phase fails.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -193,6 +195,18 @@ ATTN_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 #: every split row's check must reject the plain output with the last
 #: chunk that counts a slot masked out (the power check)
 DECODE_SPLIT_ULPS = 1.0
+#: seconds the sass report (run beside the card's phases) may still take
+#: once they have ended
+SASS_TIMEOUT = 300
+#: a bf16 flash row is also held within this many bf16 ulps of its plain
+#: version at each output vector's largest magnitude, split or not: the
+#: kernel rounds P to bf16 for P.V, the plain version keeps it in fp32,
+#: and both round once at the end (every bf16 row measured 1.0 on an
+#: H100).  Over whisper's 1,500 keys a row's outputs are about as small
+#: as 3e-2, so 3e-2 alone would pass a chunk merged with a wrong weight;
+#: every split row's check must reject the plain output with each
+#: block's last chunk masked out (the power check)
+FLASH_ULPS = 1.0
 #: the LM slice: stablelm-1.6b at full width, 8 tokens per request, two
 #: request batches per tier (B = the tier's rows).  Prompts of 56 tokens
 #: (prefill bucket 64): a paged tier's page budget is what its dense
@@ -552,13 +566,15 @@ def phase_build():
 
 
 #: kernel functions whose compiled code the sass phase reports: the two
-#: GQA decode kernels (dense and paged), flash's bf16 (tensor-core) and
-#: fp32 (CUDA-core) kernels, the MLA decode's bf16 tensor-core kernel,
+#: GQA decode kernels (dense and paged), flash's bf16 (tensor-core: the
+#: TMA and the one-warpgroup instances), split merge and fp32 (CUDA-core)
+#: kernels, the MLA decode's bf16 tensor-core kernel,
 #: the SSD scan's three kernels (every instance), the router's register
 #: kernel, the GRU's cluster kernel and both FedAvg instances (every
 #: count and dtype)
 SASS_KERNELS = ("decode_attention_kernel", "paged_decode_attention_kernel",
-                "flash_attention_wgmma_kernel", "flash_attention_kernel",
+                "flash_attention_tma_kernel", "flash_attention_wgmma_kernel",
+                "flash_attention_merge_kernel", "flash_attention_kernel",
                 "paged_mla_decode_mma_kernel", "mamba_chunk_local_kernel",
                 "mamba_chunk_pass_kernel", "mamba_chunk_outputs_kernel",
                 "topk_router_kernel", "gru_seq_cluster_kernel",
@@ -624,11 +640,12 @@ def is_kernel(fn: str, name: str) -> bool:
     return re.search(rf"\d{name}[IE]", fn) is not None
 
 
-def phase_sass():
+def sass_report() -> dict:
     """What the compiled attention kernels contain: per function (one per
     template instance) the tensor-core and 16-byte-load instructions that
     ``cuobjdump -sass`` lists, and registers and spills from ``ptxas
-    -v``.  Fails unless every bf16 flash instance, the bf16 MLA decode
+    -v``.  Fails unless every bf16 flash instance (and every TMA instance
+    moves registers with ``setmaxnreg``: USETMAXREG), the bf16 MLA decode
     kernel and the two product kernels of every bf16 tensor-core instance
     of the SSD scan have tensor-core instructions, the vector instances of both GQA
     decode kernels load K/V in 16 bytes, every vector instance of
@@ -646,7 +663,14 @@ def phase_sass():
     sass, regs = sass_counts(listing), ptxas_report(build.build_log())
     rows = {fn: {**sass[fn], **regs.get(fn, {})} for fn in sass
             if any(k in fn for k in SASS_KERNELS)}
-    tc = [r for fn, r in rows.items() if "flash_attention_wgmma_kernel" in fn]
+    tc = [r for fn, r in rows.items()
+          if is_kernel(fn, "flash_attention_wgmma_kernel")
+          or is_kernel(fn, "flash_attention_tma_kernel")]
+    # the TMA instances (Dv 64, 128, 256): the producer's registers moved
+    # to the consumers
+    maxreg = sass_counts(listing, ("USETMAXREG",))
+    tma = {fn: maxreg[fn]["USETMAXREG"] for fn in rows
+           if is_kernel(fn, "flash_attention_tma_kernel")}
     mla = [r for fn, r in rows.items()
            if is_kernel(fn, "paged_mla_decode_mma_kernel")]
     # template <typename T, bool kVec, ...>: the vector instances are Lb1E
@@ -675,17 +699,20 @@ def phase_sass():
     # over 16 lanes, one query head a block (template <T, kVec, kLanes,
     # kDims, kGB, kSplit>; the dense kernel's full and partial outputs are
     # one instance, a split walk (kSplit) another), flash's
-    # bf16 Dv-256 instances (template <kNo, kVec>) and fp32 8-chunk
-    # instance (template <T, kChunks>)
+    # bf16 Dv-256 instances (template <kNo>: TMA and one-warpgroup) and
+    # fp32 8-chunk instance (template <T, kChunks>)
     wide = {fn: r for fn, r in rows.items()
             if ((is_kernel(fn, "decode_attention_kernel")
                  or is_kernel(fn, "paged_decode_attention_kernel"))
                 and re.search(r"Lb[01]ELi16ELi16E", fn))
-            or (is_kernel(fn, "flash_attention_wgmma_kernel")
+            or ((is_kernel(fn, "flash_attention_wgmma_kernel")
+                 or is_kernel(fn, "flash_attention_tma_kernel"))
                 and "ILi256E" in fn)
             or (is_kernel(fn, "flash_attention_kernel") and "Li8EE" in fn)}
-    checks = {"flash_bf16_on_tensor_cores": bool(tc) and all(
+    checks = {"flash_bf16_on_tensor_cores": len(tc) == 6 and all(
                   r["HGMMA"] > 0 for r in tc),
+              "flash_tma_setmaxnreg": len(tma) == 3 and all(
+                  n > 0 for n in tma.values()),
               "decode_16_byte_loads": bool(vec["decode_attention_kernel"])
               and all(r["LDG.E.128"] > 0
                       for r in vec["decode_attention_kernel"]),
@@ -713,13 +740,55 @@ def phase_sass():
                       and r.get("spill_loads") == 0 for r in v)
                   for v in fed.values()),
               # 2 decode kernels (dense, paged) x 2 dtypes x 2 load
-              # widths x split or not, flash's two bf16 instances and its
-              # fp32 one
+              # widths x split or not, flash's two bf16 instances (TMA,
+              # one-warpgroup) and its fp32 one
               "head_dim_256_no_spills": len(wide) == 19 and all(
                   r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                   for r in wide.values())}
-    emit({"phase": "sass", "functions": rows,
-          "head_dim_256": sorted(wide), "checks": checks})
+    return {"phase": "sass", "functions": rows,
+            "flash_tma_usetmaxreg": tma, "head_dim_256": sorted(wide),
+            "checks": checks}
+
+
+def sass_worker(conn) -> None:
+    """:func:`sass_report` in a process of its own (module level: the
+    spawned child imports it), sent back through ``conn``; a failure as
+    its traceback."""
+    try:
+        conn.send(("ok", sass_report()))
+    except Exception:  # the parent reports it as the sass phase's
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def start_sass():
+    """Start :func:`sass_worker` (host work only: ``cuobjdump`` and the
+    parsers) beside the card's phases; :func:`finish_sass` collects it."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=sass_worker, args=(send,), daemon=True)
+    proc.start()
+    send.close()
+    return recv, proc
+
+
+def finish_sass(recv, proc) -> None:
+    """Emit the sass line of :func:`start_sass`'s process and fail unless
+    its checks hold."""
+    try:
+        if not recv.poll(SASS_TIMEOUT):
+            raise TimeoutError(f"sass: no report in {SASS_TIMEOUT} s")
+        status, line = recv.recv()
+    finally:
+        proc.join(10)
+        if proc.is_alive():
+            proc.terminate()
+    if status != "ok":
+        raise RuntimeError(f"sass report failed:\n{line}")
+    emit(line)
+    checks = line["checks"]
     if not all(checks.values()):
         raise AssertionError(f"sass checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
@@ -1007,12 +1076,16 @@ def _randn(torch, rng, shape, dtype):
 
 
 def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None,
-                causal=True, Tk=None):
+                causal=True, Tk=None, split=None):
     """``Dv`` (default D) is the value dim: MLA prefill scores over 192
     dims and returns 128.  ``causal=False`` drops the causal mask
     (whisper's encoder), and then ``Tk`` (default T) may give the keys a
     length of their own (its cross attention); such a row's shape ends
-    in ("non-causal", Tk)."""
+    in ("non-causal", Tk).  Each row records the instance and its S
+    (``flash_attention.splits``); ``split`` True (a long walk on a small
+    grid) or False (a serving shape, or a grid that fills the card)
+    holds S > 1 or S = 1, and a split row must see its last chunk
+    (:func:`flash_split_checks`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1045,6 +1118,8 @@ def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None,
         return F.scaled_dot_product_attention(q4, k4, v4,
                                               is_causal=causal)[0]
 
+    win = window if 0 < window < T else 0
+    S = fa.splits(q, k, v, causal, win)
     shape = ((BH, BHkv, T, D, window) + ((Dv,) if Dv != D else ())
              + (() if causal else ("non-causal", Tk)))
     return check_attention(
@@ -1053,7 +1128,145 @@ def check_flash(torch, rng, BH, BHkv, T, D, window, dtype_name, Dv=None,
         lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window),
         library, it * (BH * T * (D + Dv) + BHkv * Tk * (D + Dv)),
-        pairs * 2 * (D + Dv))
+        pairs * 2 * (D + Dv),
+        extra=flash_split_checks(torch, S, split, dtype_name, q, k, v,
+                                 allowed, causal, win,
+                                 fa.instance(q, k, v)
+                                 if dtype_name == "bfloat16" else "fp32"))
+
+
+@contextlib.contextmanager
+def flash_launch_shapes():
+    """The (BH, BHkv, T, Tk, D, Dv, causal, window, S) of every flash
+    kernel launch inside the block, as the wrapper passes them to its
+    entry point (``build.launch`` wrapped; fp32 calls with S 1)."""
+    from repro_torch.kernels import build
+    seen, launch = [], build.launch
+
+    def recording(name, *args):
+        if name == "flash_attention_bf16":
+            seen.append(tuple(args[5:14]))
+        elif name == "flash_attention_f32":
+            seen.append(tuple(args[4:12]) + (1,))
+        return launch(name, *args)
+
+    build.launch = recording
+    try:
+        yield seen
+    finally:
+        build.launch = launch
+
+
+def flash_masked_plain(torch, q, k, v, allowed):
+    """The plain flash attention with ``allowed`` (T, Tk) as the visible
+    keys (a row with none averages V, as the kernels' -1e30 mask does)."""
+    from repro_torch.kernels import ref
+    G = q.shape[0] // k.shape[0]
+    kx, vx = (x.repeat_interleave(G, 0).float() for x in (k, v))
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kx) / np.sqrt(q.shape[-1])
+    s = torch.where(torch.as_tensor(allowed, device=q.device)[None], s,
+                    ref.NEG_INF)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1),
+                        vx).to(q.dtype)
+
+
+def flash_split_checks(torch, S, expect, dtype_name, q, k, v, allowed,
+                       causal, window, instance):
+    """The ``extra`` of a flash row: records S and the instance, holds S >
+    1 or S = 1 where ``expect`` says, and a bf16 row's output within
+    FLASH_ULPS of the plain version's.  Split, the check's power: the
+    plain output with the keys of each block's last chunk (``ref``'s
+    ``flash_walk`` / ``flash_chunks``, the kernel's blocks of 64 or 128
+    rows) masked out must fail the checks the row applies (its
+    tolerance, and FLASH_ULPS in bf16)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def extra(outs, wants):
+        fields = {"splits": S, "splits_expected": expect,
+                  "instance": instance}
+        ok = expect is None or (S > 1) == expect
+        bf16 = dtype_name == "bfloat16"
+        if bf16:
+            fields["kernel_ulps"] = ulps(torch, outs[0], wants[0],
+                                         torch.bfloat16)
+            ok = ok and fields["kernel_ulps"] <= FLASH_ULPS
+        if S == 1:
+            return fields, ok
+        BH, T = q.shape[:2]
+        Tk = k.shape[1]
+        rows = 64 if fa.paired(BH, k.shape[0]) else 128
+        cut = np.array(allowed, bool)
+        for r0 in range(0, T, rows):
+            r1 = min(T, r0 + rows)
+            chunks = ref.flash_chunks(*ref.flash_walk(r0, r1, Tk, causal,
+                                                      window), S)
+            b, e = [c for c in chunks if c[1] > c[0]][-1]
+            cut[r0:r1, b * 64:min(Tk, e * 64)] = False
+        full, dropped = (flash_masked_plain(torch, q, k, v, m)
+                         for m in (allowed, cut))
+        tol = ATTN_TOL[dtype_name]
+        seen = not torch.allclose(full.float(), dropped.float(), atol=tol,
+                                  rtol=tol)
+        power = {"max_abs": (full.float() - dropped.float()).abs()
+                 .max().item(), "seen_at_tol": seen}
+        if bf16:
+            power["ulps"] = ulps(torch, full, dropped, torch.bfloat16)
+            seen = seen or power["ulps"] > FLASH_ULPS
+        power["seen"] = seen
+        fields["power"] = power
+        return fields, ok and seen
+    return extra
+
+
+def check_flash_merge(torch, rng, BH, BHkv, T, D, window):
+    """The split's merge kernel alone, at a bf16 split shape: the entry
+    point launched on a scratch of this function's, then the merged
+    output held against ``ref.combine_partials`` of the chunks'
+    statistics the kernel left there (o / l rounded to bf16, within one
+    bf16 ulp of the largest output); its device time from the profiler
+    beside the plain merge's, and the bound of its bytes (the scratch
+    read, the output written)."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (_randn(torch, rng, s, torch.bfloat16)
+               for s in ((BH, T, D), (BHkv, T, D), (BHkv, T, D)))
+    win = window if 0 < window < T else 0
+    S = fa.splits(q, k, v, True, win)
+    work = fa.scratch(S, BH, T, D, q.device)
+    out = torch.empty_like(q)
+    n = S * BH * T
+    o, m, l = (work[:n * D].view(S, BH, T, D),
+               work[n * D:n * (D + 1)].view(S, BH, T),
+               work[n * (D + 1):].view(S, BH, T))
+
+    def launch():
+        build.launch("flash_attention_bf16", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), work.data_ptr(), BH, BHkv,
+                     T, T, D, D, 1, win, S,
+                     torch.cuda.current_stream().cuda_stream)
+
+    def plain():
+        top, bot = ref.combine_partials(o, m, l)[::2]
+        return (top / bot[..., None]).to(torch.bfloat16)
+
+    launch()
+    torch.cuda.synchronize()
+    want = plain()
+    err = (out.float() - want.float()).abs().max().item()
+    ulp = ulps(torch, out, want, torch.bfloat16)
+    split = kernel_split_ms(torch, launch)
+    merge_ms = [t for key, t in split.items() if "merge" in key]
+    bound_ms, bound_by = bound(4 * n * (D + 2) + 2 * BH * T * D, 2 * n * D)
+    row = {"kernel": "flash_attention_merge", "shape": [S, BH, T, D],
+           "dtype": "bfloat16", "splits": S, "max_abs_err": err,
+           "ulps": ulp, "ok": S > 1 and ulp <= 1.0 and len(merge_ms) == 1,
+           "ms": merge_ms[0] if merge_ms else None,
+           "kernels_ms": split, "plain_ms": device_ms(torch, plain, 20),
+           "library_ms": None, "call_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    emit({"phase": "kernel_check", **row})
+    return row
 
 
 def drop_last_chunk(valid, walks, S):
@@ -1364,7 +1577,7 @@ def phase_attention_kernels(torch):
     rng = np.random.default_rng(SEED + 4)
     lens = lambda B: LM_PROMPT + 1 + np.arange(B) % LM_STEPS  # noqa: E731
     main = {"flash_attention": check_flash(torch, rng, 32, 32, 64, 64, 0,
-                                           "bfloat16")}
+                                           "bfloat16", split=False)}
     rows = [main["flash_attention"]]
     for B in (1, 4, 8):
         rows.append(check_decode(torch, rng, B, 32, 32, 256, 64, lens(B),
@@ -1396,9 +1609,11 @@ def phase_attention_kernels(torch):
             rows.append(check_decode(torch, rng, 2, H, Hkv, 256, 64, None, dt,
                                      valid=edge))
         # head dims that are no multiple of 16 (zero-padded on the tensor
-        # cores in bf16)
+        # cores in bf16), and in bf16 rows that are no whole 16-byte
+        # pieces (D 36, the one-warpgroup instance)
         for window in (0, 64):
             rows.append(check_flash(torch, rng, 2, 2, 100, 40, window, dt))
+            rows.append(check_flash(torch, rng, 4, 2, 100, 36, window, dt))
         for H, Hkv, ps, Pseq in ((8, 2, 16, 4), (4, 4, 8, 6)):
             for cap, window in ((0.0, None), (30.0, None), (0.0, 20)):
                 rows.append(check_paged(
@@ -1434,10 +1649,13 @@ def phase_gemma_kernels(torch):
     lens = lambda B: LM_PROMPT + 1 + np.arange(B) % LM_STEPS  # noqa: E731
     long_len = [LONG_PROMPT + LONG_STEPS] * LONG_ROWS
     main = {"flash_attention": check_flash(torch, rng, 4, 1, 64, 256, 0,
-                                           "bfloat16")}
+                                           "bfloat16", split=False)}
     rows = [main["flash_attention"]]
-    rows += [check_flash(torch, rng, 4, 1, 1024, 256, w, "bfloat16")
-             for w in (512, 0)]
+    rows += [check_flash(torch, rng, 4, 1, 1024, 256, w, "bfloat16",
+                         split=True) for w in (512, 0)]
+    main["flash_attention_merge"] = check_flash_merge(torch, rng, 4, 1, 1024,
+                                                      256, 0)
+    rows.append(main["flash_attention_merge"])
     rows += [check_decode(torch, rng, B, 4, 1, 256, 256, lens(B),
                           "bfloat16", split=False) for B in (1, 4, 8)]
     main["decode_attention"] = rows[-1]
@@ -1590,7 +1808,7 @@ def phase_moe_kernels(torch):
                                     lens(B), pages, "bfloat16"))
     main["paged_mla_decode_attention"] = rows[-1]
     rows.append(check_flash(torch, rng, 16, 16, 64, 192, 0, "bfloat16",
-                            Dv=128))
+                            Dv=128, split=False))
     main["flash_attention"] = rows[-1]
     for dt in ("float32", "bfloat16"):
         for H, R, Dr, ps, Pseq in ((8, 64, 16, 16, 4), (4, 128, 32, 8, 3)):
@@ -1714,7 +1932,8 @@ def phase_slice(torch):
             "flash_attention": 0, "decode_attention": 0,
             "decode_attention_partial": 0,
             "paged_decode_attention": 0, "paged_mla_decode_attention": 0,
-            "topk_router": 0, "mamba_chunk_scan": 0}
+            "topk_router": 0, "mamba_chunk_scan": 0,
+            "flash_attention_merge": 0}
     checks = {
         "full_width": (rep.cfg.model.rnn_hidden == 128
                        and tuple(rep.params["gru"]["1"]["w_h"].shape)
@@ -1999,9 +2218,36 @@ def norm_params(m) -> int:
     return n
 
 
-def expected_lm_launches(m, calls):
+def flash_split_layers(m, rows, T, share=1):
+    """Per decoder layer of ``m``, whether ``flash_splits`` splits its
+    causal flash call over ``rows`` sequences of T tokens: the call's
+    shape as ``models/attention.py`` folds it, (rows * H, rows * Hkv, T,
+    T) under the layer's own window (MLA: every head, D 192, Dv 128),
+    with H and Hkv over ``share`` (a rank's heads where the model axis
+    splits them).  Only bf16 calls split."""
+    from repro_torch.kernels import fedavg_reduce as fr
+    from repro_torch.kernels.flash_attention import flash_splits
+    from repro_torch.models.transformer import layer_window
+    a = m.attention
+    if a.kind == "mla":
+        H = Hkv = a.num_heads
+        D = a.mla.qk_nope_head_dim + a.mla.qk_rope_head_dim
+        Dv = a.mla.v_head_dim
+    else:
+        H, Hkv, D, Dv = a.num_heads, a.num_kv_heads, a.head_dim, a.head_dim
+    if m.dtype != "bfloat16":
+        return [False] * m.num_layers
+    H, Hkv = H // share, Hkv // share
+    return [flash_splits(rows * H, rows * Hkv, T, T, True,
+                         w if 0 < w < T else 0, D, Dv, fr.sms(0)) > 1
+            for w in (layer_window(m, i) for i in range(m.num_layers))]
+
+
+def expected_lm_launches(m, calls, prefill):
     """Kernel launches of the LM engines' calls: one attention launch per
-    layer per admission (flash) and per decode step (the dense or paged
+    layer per admission (flash; an admission prefills one row padded to
+    ``prefill`` tokens, and its layers' calls that ``flash_splits``
+    splits launch the merge too) and per decode step (the dense or paged
     decode kernel of the attention kind; MLA's dense decode has none),
     one router launch per MoE layer per admission and per step."""
     L = m.num_layers
@@ -2016,7 +2262,9 @@ def expected_lm_launches(m, calls):
             "paged_decode_attention": 0 if mla else L * paged,
             "paged_mla_decode_attention": L * paged if mla else 0,
             "topk_router": moe_layers * (admits + dense + paged),
-            "mamba_chunk_scan": 0}
+            "mamba_chunk_scan": 0,
+            "flash_attention_merge": admits * sum(flash_split_layers(
+                m, 1, prefill))}
 
 
 def phase_lm(torch, arch, phase):
@@ -2028,7 +2276,8 @@ def phase_lm(torch, arch, phase):
     from repro_torch.models import make_model
     from repro_torch.params import flatten_with_path
     from repro_torch.routing import LatencyModel
-    from repro_torch.serving import ReplicaPool, lm_tiers, paged_lm_tiers
+    from repro_torch.serving import (ReplicaPool, bucket_len, lm_tiers,
+                                     paged_lm_tiers)
 
     cfg = get_config(arch)
     m = cfg.model
@@ -2092,7 +2341,9 @@ def phase_lm(torch, arch, phase):
                               torch.tensor([LM_PROMPT], device=DEVICE), cache)
     calls = {k: {c: sum(v[t][c] for t in v) for c in ("admit", "decode")}
              for k, v in counts.items()}
-    want = expected_lm_launches(m, calls)
+    # every prompt (LM_PROMPT tokens, and measure()'s prompt_len)
+    # prefills at one bucket
+    want = expected_lm_launches(m, calls, bucket_len(LM_PROMPT))
     all_out = [o for k in outs for t in outs[k] for o in outs[k][t]]
     first_same = all(
         torch.equal(d[:, 0], p[:d.shape[0], 0])
@@ -2313,10 +2564,12 @@ def phase_gemma_long(torch, params):
     holding exactly the last 512 positions written (it wrapped), the
     global layer's (1024) every one; flash runs at T 1024 under the
     window and both decode kernels under it past position 512.  Launches
-    exact: 26 flash an admission, 26 decode a step."""
+    exact: 26 flash an admission, each split and merged (its shapes
+    recorded), 26 decode a step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.serving import PagedServeEngine, ServeEngine
+    from repro_torch.serving import (PagedServeEngine, ServeEngine,
+                                     bucket_len)
 
     cfg = get_config(GEMMA_ARCH)
     m = cfg.model
@@ -2331,13 +2584,16 @@ def phase_gemma_long(torch, params):
         count_calls(eng, counts[k])
     ops.reset_launches()
     t0 = time.perf_counter()
-    out = {k: eng.generate(prompts, LONG_STEPS).cpu()
-           for k, eng in engines.items()}
-    torch.cuda.synchronize()
+    with flash_launch_shapes() as shapes:
+        out = {k: eng.generate(prompts, LONG_STEPS).cpu()
+               for k, eng in engines.items()}
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()
-    want = expected_lm_launches(m, counts)
-    window = m.attention.window
+    T = bucket_len(LONG_PROMPT)
+    want = expected_lm_launches(m, counts, T)
+    a = m.attention
+    window = a.window
     # positions written: the prompt's, then one a decode step
     written = LONG_PROMPT + LONG_STEPS - 1
     rings = engines["dense"].cache["layers"]
@@ -2356,8 +2612,18 @@ def phase_gemma_long(torch, params):
                                                       out["paged"][:, 0]),
         "launches": launches == want and all(
             launches[k] > 0 for k, v in want.items() if v),
+        # the engines admit one row at a time: every flash call is one
+        # row's heads over the prompt's bucket (BH 4 on 1 kv head, T
+        # 1024), and every one, global or windowed, splits its walks
+        "flash_shapes": {s[:4] for s in shapes} == {(a.num_heads,
+                                                     a.num_kv_heads, T, T)},
+        "flash_all_split": all(s[-1] > 1 for s in shapes)
+        and launches["flash_attention_merge"]
+        == launches["flash_attention"] == len(shapes),
     }
     emit({"phase": "gemma_long", "arch": GEMMA_ARCH, "rows": LONG_ROWS,
+          "flash_calls": [list(k) + [n] for k, n in
+                          collections.Counter(shapes).items()],
           "prompt_len": LONG_PROMPT, "new_tokens": LONG_STEPS,
           "max_len": LONG_MAX_LEN, "seconds": seconds,
           "local_ring_capacity": rings["0"].capacity,
@@ -2385,7 +2651,7 @@ def phase_gemma_scheduler(torch, params):
     from repro_torch.kernels import ops
     from repro_torch.serving import (ContinuousBatchingScheduler,
                                      PagedServeEngine, ServeEngine,
-                                     lm_tiers, paged_lm_tiers,
+                                     bucket_len, lm_tiers, paged_lm_tiers,
                                      poisson_requests, requests_from_events)
     from repro_torch.telemetry import Telemetry
 
@@ -2433,7 +2699,8 @@ def phase_gemma_scheduler(torch, params):
         launches[kind] = ops.launch_counts()
         none = {"admit": 0, "decode": 0}
         want = expected_lm_launches(m, {"dense": none, "paged": none,
-                                        kind: counts})
+                                        kind: counts},
+                                    bucket_len(SCHED_PROMPT))
         snap = tel[kind].metrics.snapshot()
         run = {k: v - before.get(k, 0) for k, v in snap["counters"].items()}
         spans = [sp.name for sp in tel[kind].tracer.spans[n_spans:]]
@@ -2511,7 +2778,8 @@ def phase_lm_parity(torch, arch, phase, numpy_params,
     from repro_torch.configs import get_config
     from repro_torch.models import make_model
     from repro_torch.params import from_numpy_tree
-    from repro_torch.serving import PagedServeEngine, ServeEngine, bucket_len
+    from repro_torch.serving import (PagedServeEngine, ServeEngine,
+                                     bucket_len)
 
     cfg = get_config(arch)
     m = dataclasses.replace(cfg.model, num_layers=layers,
@@ -2705,7 +2973,8 @@ def phase_ssm_kernels(torch):
                                      "bfloat16")
     # the forward's shared attention: 2 x 32 heads of 64 over 1024 tokens
     # (window 4096 > T, so none)
-    flash = check_flash(torch, rng, B * 32, B * 32, L, 64, 0, "bfloat16")
+    flash = check_flash(torch, rng, B * 32, B * 32, L, 64, 0, "bfloat16",
+                        split=False)
     bad = [r for r in rows + [groups, flash] if not r["ok"]]
     if bad:
         raise AssertionError(f"hybrid forward kernels disagree with their "
@@ -2713,17 +2982,25 @@ def phase_ssm_kernels(torch):
     return rows[0], flash
 
 
-def expected_hybrid_launches(m, forwards, prompt_tokens, steps):
-    """Per forward one mamba_chunk_scan per Mamba2 layer and one
-    flash_attention per complete segment; serving one decode_attention
-    per complete segment per prompt token (the recurrent prefill runs
-    the decode step) and per decode step, and no other kernel."""
+def expected_hybrid_launches(m, batch, forwards, prompt_tokens, steps):
+    """Per forward of ``batch`` (B, T) one mamba_chunk_scan per Mamba2
+    layer and one flash_attention per complete segment (merged too where
+    ``flash_splits`` splits it); serving one decode_attention per
+    complete segment per prompt token (the recurrent prefill runs the
+    decode step) and per decode step, and no other kernel."""
+    from repro_torch.kernels import fedavg_reduce as fr
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_splits
     from repro_torch.models.hybrid import _segments
     shared = sum(complete for _, _, complete in _segments(m))
+    (B, T), a = batch, m.attention
+    split = flash_splits(B * a.num_heads, B * a.num_kv_heads, T, T, True,
+                         a.window if 0 < a.window < T else 0, a.head_dim,
+                         a.head_dim, fr.sms(0)) > 1
     zero = {k: 0 for k in ops.launch_counts()}
     return ({**zero, "mamba_chunk_scan": m.num_layers * forwards,
-             "flash_attention": shared * forwards},
+             "flash_attention": shared * forwards,
+             "flash_attention_merge": shared * forwards * split},
             {**zero, "decode_attention": shared * (prompt_tokens + steps)})
 
 
@@ -2795,7 +3072,7 @@ def phase_hybrid(torch):
     calls = {c: sum(v[c] for v in counts.values())
              for c in ("admit", "decode", "prompt_tokens")}
     want_forward, want_serving = expected_hybrid_launches(
-        m, 2, calls["prompt_tokens"], calls["decode"])
+        m, HYBRID_BATCH, 2, calls["prompt_tokens"], calls["decode"])
     all_out = [o for os_ in outs.values() for o in os_]
     fp32_leaves = {k[-1] for k, x in leaves.items()
                    if x.dtype == torch.float32}
@@ -3008,13 +3285,13 @@ def phase_whisper_kernels(torch):
     F = 1500
     BH = 2 * 12
     main = {"encoder": check_flash(torch, rng, BH, BH, F, 64, 0,
-                                   "bfloat16", causal=False)}
+                                   "bfloat16", causal=False, split=False)}
     rows = [main["encoder"],
             check_flash(torch, rng, BH, BH, F, 64, 0, "float32",
                         causal=False)]
     for T in (16, 64):
         rows.append(check_flash(torch, rng, BH, BH, T, 64, 0, "bfloat16",
-                                causal=False, Tk=F))
+                                causal=False, Tk=F, split=True))
     main["cross"] = rows[-1]
     rows.append(check_flash(torch, rng, BH, BH, 64, 64, 0, "float32",
                             causal=False, Tk=F))
@@ -3173,15 +3450,31 @@ def phase_recurrent_profile(torch, phase, pool, batches, forward=None):
 
 
 def expected_whisper_launches(m, frames, forwards, decode_rows, serving):
-    """Per encoding one non-causal flash a layer; per forward the
-    encoding's and, a decoder layer, one causal and one cross flash; per
-    decode step (the recurrent prefill's too) one ``decode_attention`` a
-    decoder layer for the self ring and one for the cross rows."""
+    """Per encoding one non-causal flash a layer over the frames; per
+    forward the encoding's and, a decoder layer, one causal flash over
+    its WHISPER_TOKENS and one cross flash from them to the frames, at
+    batch 2; each flash call that ``flash_splits`` splits merges too.
+    Per decode step (the recurrent prefill's too) one
+    ``decode_attention`` a decoder layer for the self ring and one for
+    the cross rows."""
+    from repro_torch.kernels import fedavg_reduce as fr
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_splits
+    F = m.frontend.num_positions
+    BH, D = 2 * m.attention.num_heads, m.attention.head_dim
+
+    def split(T, Tk, causal):
+        return flash_splits(BH, BH, T, Tk, causal, 0, D, D, fr.sms(0)) > 1
+
     zero = {k: 0 for k in ops.launch_counts()}
-    flash = m.encoder_layers * (frames + forwards) \
-        + 2 * m.num_layers * forwards
-    return {**zero, "flash_attention": flash,
+    encodings = m.encoder_layers * (frames + forwards)
+    return {**zero,
+            "flash_attention": encodings + 2 * m.num_layers * forwards,
+            "flash_attention_merge": (
+                encodings * split(F, F, False)
+                + m.num_layers * forwards
+                * (split(WHISPER_TOKENS, WHISPER_TOKENS, True)
+                   + split(WHISPER_TOKENS, F, False))),
             "decode_attention": 2 * m.num_layers * (decode_rows + serving)}
 
 
@@ -3276,7 +3569,12 @@ def phase_whisper(torch):
                       for t, os_ in outs.items() for o in os_),
         "token_ids": all(bool(((o >= 0) & (o < m.padded_vocab)).all())
                          for os_ in outs.values() for o in os_),
-        "forward_launches": after_forward == want_forward,
+        # the cross attention (64 tokens to 1500 frames) splits its
+        # walks, the encodings (one, and the forward's and the loss's)
+        # fill the card unsplit: one merge a decoder layer a pass
+        "forward_launches": after_forward == want_forward
+        and after_forward["flash_attention_merge"]
+        == 2 * m.num_layers > 0,
         "decode_launches": decoding == want_decode,
         "serving_launches": serving == want_serving
         and serving["decode_attention"] > 0,
@@ -3485,18 +3783,22 @@ def replicas_identical(torch, stacked) -> bool:
                for c in range(1, x.shape[0]))
 
 
-def expected_train_launches(m, steps, microbatches, sync_groups, remat):
-    """Kernel launches of ``steps`` cluster steps (each a forward at
-    ``microbatches`` slices: one flash a layer, one router a MoE layer;
-    the backward is the plain versions') and of the syncs: one
-    ``fedavg_reduce`` a dtype group of a plain sync, one an int8 sync.
-    With ``remat`` other than "none" every layer of the stack (all but
-    the ``lead`` dense layers) is checkpointed, and the backward runs its
-    forward again: its flash and its router launch twice."""
+def expected_train_launches(m, batch, steps, microbatches, sync_groups,
+                            remat):
+    """Kernel launches of ``steps`` cluster steps on ``batch`` (B, T)
+    tokens (each a forward at ``microbatches`` slices of B / microbatches
+    rows: one flash a layer, merged too where ``flash_splits`` splits
+    it, one router a MoE layer; the backward is the plain versions') and
+    of the syncs: one ``fedavg_reduce`` a dtype group of a plain sync,
+    one an int8 sync.  With ``remat`` other than "none" every layer of
+    the stack (all but the ``lead`` dense layers) is checkpointed, and
+    the backward runs its forward again: its flash and its router launch
+    twice."""
     forwards = steps * microbatches
     lead = m.moe.first_dense_layers if m.moe else 0
     moe_layers = m.num_layers - lead if m.moe else 0
     again = 0 if remat == "none" else 1
+    split = flash_split_layers(m, batch[0] // microbatches, batch[1])
     want = {k: 0 for k in ("gru_seq", "fedavg_reduce", "flash_attention",
                            "decode_attention", "decode_attention_partial",
                            "paged_decode_attention",
@@ -3504,6 +3806,8 @@ def expected_train_launches(m, steps, microbatches, sync_groups, remat):
                            "mamba_chunk_scan")}
     want["flash_attention"] = (m.num_layers
                                + again * (m.num_layers - lead)) * forwards
+    want["flash_attention_merge"] = (sum(split)
+                                     + again * sum(split[lead:])) * forwards
     want["topk_router"] = (1 + again) * moe_layers * forwards
     want["fedavg_reduce"] = sync_groups
     return want
@@ -3594,7 +3898,8 @@ def phase_train(torch):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
-    want = expected_train_launches(m, C * TRAIN_ROUNDS,
+    want = expected_train_launches(m, (TRAIN_BATCH, TRAIN_SEQ),
+                                   C * TRAIN_ROUNDS,
                                    cfg.run.microbatches, groups + 1,
                                    cfg.run.remat)
 
@@ -3623,7 +3928,8 @@ def phase_train(torch):
     rng = np.random.default_rng(SEED + 21)
     B, H, Hkv = TRAIN_BATCH, m.attention.num_heads, m.attention.num_kv_heads
     flash_rows = [check_flash(torch, rng, B * H, B * Hkv, TRAIN_SEQ,
-                              m.attention.head_dim, w, "bfloat16")
+                              m.attention.head_dim, w, "bfloat16",
+                              split=False)
                   for w in (m.attention.window, 0)]
     flat_losses = [x for row in losses for x in row]
     checks = {
@@ -3723,9 +4029,12 @@ def phase_remat(torch, smi):
         equal &= same
         within &= same or gap <= update_tol(1.0, a.float())
     flash = {r: runs[r]["launches"]["flash_attention"] for r in runs}
+    merges = {r: runs[r]["launches"]["flash_attention_merge"] for r in runs}
+    split = sum(flash_split_layers(m, B, T))
     act = {r: max(runs[r]["activation_bytes"]) for r in runs}
     others = {r: {k: v for k, v in runs[r]["launches"].items()
-                  if k != "flash_attention" and v} for r in runs}
+                  if k not in ("flash_attention", "flash_attention_merge")
+                  and v} for r in runs}
     checks = {
         "losses_equal": torch.equal(runs["none"]["loss_bits"],
                                     runs["layer"]["loss_bits"])
@@ -3734,6 +4043,8 @@ def phase_remat(torch, smi):
         "activation_memory_lower_with_remat": act["layer"] < act["none"],
         "flash_launches": flash == {"none": m.num_layers,
                                     "layer": 2 * m.num_layers},
+        # merged where flash_splits splits a layer's call at (1, 4096)
+        "flash_merges": merges == {"none": split, "layer": 2 * split},
         "no_other_kernel": others == {"none": {}, "layer": {}},
     }
     worst = max(gaps.items(), key=lambda kv: kv[1])
@@ -3749,7 +4060,7 @@ def phase_remat(torch, smi):
                                for r in runs},
           "device_ms": {r: runs[r]["ms"] for r in runs},
           "wall_ms": {r: runs[r]["wall_ms"] for r in runs},
-          "flash_attention_launches": flash,
+          "flash_attention_launches": flash, "flash_merges": merges,
           "layer_over_none_ms": (min(runs["layer"]["ms"])
                                  / min(runs["none"]["ms"])),
           "checks": checks})
@@ -3856,7 +4167,8 @@ def phase_train_parity(torch):
     div_err = abs(card["divergence"] - cpu["divergence"]) / (
         TRAIN_UPDATE_TOL * max(lr, largest_update))
     launches = card["launches"]
-    want = expected_train_launches(m, C * TRAIN_PARITY_STEPS, 1, 2,
+    want = expected_train_launches(m, (TRAIN_PARITY_BATCH, TRAIN_SEQ),
+                                   C * TRAIN_PARITY_STEPS, 1, 2,
                                    pcfg.run.remat)
     result = {"losses": {"card": card["losses"].tolist(),
                          "cpu": cpu["losses"].tolist()},
@@ -3872,9 +4184,10 @@ def phase_train_parity(torch):
         run=dataclasses.replace(mcfg.run, microbatches=TRAIN_MOE_K))
     mapi = make_model(mcfg)
     mtree = mapi.init_params(torch.Generator().manual_seed(SEED), "cpu")
+    mshape = (4, 32)
     mbatch = TokenStream(TokenStreamConfig(
-        vocab_size=mcfg.model.vocab_size, seq_len=32, batch_size=4,
-        seed=2)).next_batch()
+        vocab_size=mcfg.model.vocab_size, seq_len=mshape[1],
+        batch_size=mshape[0], seed=2)).next_batch()
     moe = {}
     for dev in (DEVICE, "cpu"):
         ops.reset_launches()
@@ -3891,8 +4204,8 @@ def phase_train_parity(torch):
         for p, x in flatten_with_path(mtree))
     moe_loss_err = abs(moe[DEVICE]["loss"] - moe["cpu"]["loss"]) / abs(
         moe["cpu"]["loss"])
-    moe_want = expected_train_launches(mcfg.model, 1, TRAIN_MOE_K, 0,
-                                       mcfg.run.remat)
+    moe_want = expected_train_launches(mcfg.model, mshape, 1, TRAIN_MOE_K,
+                                       0, mcfg.run.remat)
 
     checks = {
         "losses_match_cpu": loss_err <= TRAIN_LOSS_RTOL,
@@ -4160,7 +4473,8 @@ def phase_dist(torch, train_losses, backend=DIST_BACKEND,
                       args=({"spawned_at": time.time()},))
     cfg = get_config(TRAIN_ARCH)
     # a plain sync's launches a dtype group, one an int8 sync, one manual
-    want = expected_train_launches(cfg.model, TRAIN_ROUNDS,
+    want = expected_train_launches(cfg.model, (TRAIN_BATCH, TRAIN_SEQ),
+                                   TRAIN_ROUNDS,
                                    cfg.run.microbatches,
                                    ranks[0]["groups"] + 2, cfg.run.remat)
     gaps = [[abs(r["losses"][t] - train_losses[t][c]) / abs(
@@ -5270,7 +5584,8 @@ def phase_ep_kernels(torch):
     rows = {"topk_router": check_router(torch, rng, B * T, 64, 6),
             "topk_router_decode": check_router(torch, rng, B, 64, 6),
             "flash_attention": check_flash(torch, rng, B * 8, B * 8, T, 192,
-                                           0, "bfloat16", Dv=128),
+                                           0, "bfloat16", Dv=128,
+                                           split=False),
             "paged_mla_decode_attention": check_paged_mla(
                 torch, rng, B, 8, 512, 64, EP_PAGE, per_row,
                 [EP_PROMPT + 1, EP_PROMPT + 2], B * per_row, "bfloat16")}
@@ -5405,6 +5720,8 @@ def phase_ep_moe(torch, backend=DIST_BACKEND, devices=f"{DEVICE}:0",
     L = m.num_layers
     expect = {k: 0 for k in ops.launch_counts()}
     expect.update(flash_attention=2 * L,
+                  flash_attention_merge=2 * sum(flash_split_layers(
+                      m, EP_BATCH[0], EP_BATCH[1], share=2)),
                   topk_router=(2 + EP_STEPS) * moe_layers,
                   paged_mla_decode_attention=EP_STEPS * L)
     total = {k: sum(r["launches"][k] for r in ranks) for k in expect}
@@ -5529,8 +5846,8 @@ def main() -> int:
         smi = phase_device(torch)
         phase = at("build")
         phase_build()
-        phase = at("sass")
-        phase_sass()
+        # the compiled code's report, on the host beside the card's phases
+        sass = start_sass()
         from repro_torch.configs import get_config
         one = numpy_clients(np.random.default_rng(SEED),
                             get_config("gru-traffic").model, 1)
@@ -5642,9 +5959,13 @@ def main() -> int:
         phase = at("dryrun")
         dryrun_launches, dryrun_grad_launches = phase_dryrun(
             torch, train_profile)
+        phase = at("sass")
+        finish_sass(*sass)
     except Exception:  # report which phase failed, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False})
+        if "sass" in locals() and sass[1].is_alive():
+            sass[1].terminate()
         return 1
 
     # each main path's launches, counted from 0 just before it ran
@@ -5774,6 +6095,12 @@ def main() -> int:
                      "src/repro/kernels/decode_attention.py:57",
                      total["decode_attention_partial"],
                      split_rows["stablelm_rank1_bfloat16"]),
+        # flash's split merge, launched behind every split flash call
+        # (its row: gemma3's global layer at T 1024)
+        kernel_entry("flash_attention_merge", f"{csrc}/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:70",
+                     total["flash_attention_merge"],
+                     gemma_rows["flash_attention_merge"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -37,13 +37,14 @@ with the plain version.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
 import subprocess
 import sys
 
 import numpy as np
+
+from _compare import import_other
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITERS = 200
@@ -71,28 +72,6 @@ LONG = [("gemma_paged_616_window_512", "paged", 2, 4, 1, 256, 64, [616] * 2,
         ("whisper_dense_B4", "dense", 4, 12, 12, 64, 1500, [1500] * 4)]
 
 
-def _package_modules() -> list:
-    return [k for k in sys.modules
-            if k == "repro_torch" or k.startswith("repro_torch.")]
-
-
-def import_other(root: str) -> dict:
-    """The decode wrapper modules of the checkout at ``root``, imported
-    with its own ``repro_torch`` package; this checkout's modules are put
-    back afterwards."""
-    saved = {k: sys.modules.pop(k) for k in _package_modules()}
-    src = os.path.join(os.path.abspath(root), "src")
-    sys.path.insert(0, src)
-    try:
-        return {m: importlib.import_module(f"repro_torch.kernels.{m}")
-                for m in MODULES}
-    finally:
-        sys.path.remove(src)
-        for k in _package_modules():
-            del sys.modules[k]
-        sys.modules.update(saved)
-
-
 def share_mask(rank: int) -> np.ndarray:
     """Rank ``rank``'s half of the split decode's 32,768-slot ring at its
     first step (``chip_smoke.split_masks``): rows of 3,001, 20,001 and
@@ -115,7 +94,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("decode compare: no CUDA device", file=sys.stderr)
         return 1
-    other = import_other(args.against)
+    other = import_other(args.against, MODULES)
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     from chip_smoke import bound, device_ms, BF16_FLOP_PER_S
     from repro_torch.kernels import decode_attention as da

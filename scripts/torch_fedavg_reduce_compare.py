@@ -27,11 +27,12 @@ differ.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
 import subprocess
 import sys
+
+from _compare import import_other
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRU_N, LM_N = 148_737, 792_797_824
@@ -49,27 +50,6 @@ SHAPES = [(20, GRU_N, "float32", 0), (20, GRU_N, "bfloat16", 0),
 ITERS = 200
 
 
-def _package_modules() -> list:
-    return [k for k in sys.modules
-            if k == "repro_torch" or k.startswith("repro_torch.")]
-
-
-def import_other(root: str):
-    """The ``fedavg_reduce`` wrapper module of the checkout at ``root``,
-    imported with its own ``repro_torch`` package; this checkout's
-    modules are put back afterwards."""
-    saved = {k: sys.modules.pop(k) for k in _package_modules()}
-    src = os.path.join(os.path.abspath(root), "src")
-    sys.path.insert(0, src)
-    try:
-        return importlib.import_module("repro_torch.kernels.fedavg_reduce")
-    finally:
-        sys.path.remove(src)
-        for k in _package_modules():
-            del sys.modules[k]
-        sys.modules.update(saved)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", required=True,
@@ -81,7 +61,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fedavg_reduce compare: no CUDA device", file=sys.stderr)
         return 1
-    other = import_other(args.against)
+    other = import_other(args.against, ["fedavg_reduce"])["fedavg_reduce"]
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     from chip_smoke import device_ms
     from repro_torch.kernels import build, ref

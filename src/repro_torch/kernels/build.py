@@ -37,8 +37,10 @@ SIGNATURES = {
        for i in ("vector", "scalar") for t in ("f32", "bf16")},
     "fedavg_reduce_blocks": (_I, _I, _I, _L, _I),
     "fedavg_reduce_floor": (_I, _I, _I, _L, _I, _P),
-    **{f"flash_attention_{t}": (_P, _P, _P, _P) + (_I,) * 8 + (_P,)
-       for t in ("f32", "bf16")},
+    "flash_attention_f32": (_P,) * 4 + (_I,) * 8 + (_P,),
+    # bf16: a scratch pointer after out, then S (chunks a block's walk
+    # over the keys is split into) after the shapes
+    "flash_attention_bf16": (_P,) * 5 + (_I,) * 9 + (_P,),
     # the GQA decode kernels: a scratch pointer, then S (chunks a row's
     # walk is split into) after the shapes
     **{f"decode_attention_{t}": (_P,) * 6 + (_I,) * 7 + (_F, _P)

@@ -6,9 +6,12 @@ ranks.
 
 Each wrapper counts its kernel launches in a plain integer
 (``gru_seq.launches``), so a run can show that its path went through
-the kernel.  On the card, with grad mode on and a floating input that
-requires grad, a wrapper's output stays in the graph: the forward is the
-kernel's, the backward its plain version's (``kernels/_grad.py``)."""
+the kernel; ``flash_attention`` also counts the launches of its split's
+merge kernel (``flash_attention.merges``, ``"flash_attention_merge"`` in
+:func:`launch_counts`).  On the card, with grad mode on and a floating
+input that requires grad, a wrapper's output stays in the graph: the
+forward is the kernel's, the backward its plain version's
+(``kernels/_grad.py``)."""
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_partial)
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce
@@ -27,10 +30,12 @@ KERNELS = (gru_seq, fedavg_reduce, flash_attention, decode_attention,
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    flash_attention.merges = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    return {**{k.__name__: k.launches for k in KERNELS},
+            "flash_attention_merge": flash_attention.merges}
 
 
 __all__ = ["decode_attention", "decode_attention_partial", "fedavg_reduce", "flash_attention",

@@ -144,6 +144,81 @@ def walk_chunks(first: int, last: int, S: int) -> List[Tuple[int, int]]:
     return out
 
 
+#: keys a tile of the flash kernel's walk (``csrc/flash_attention.cu``)
+FLASH_TILE = 64
+
+
+def flash_walk(row0: int, row1: int, Tk: int, causal: bool,
+               window: int) -> Tuple[int, int]:
+    """The 64-key tiles [first, end) that query rows [row0, row1) of
+    the flash kernel can see: from the tile of the first row's window
+    start (0 without a window) to the tile of the last row's diagonal
+    (every key without the causal mask)."""
+    lo = max(0, row0 - window + 1) if window > 0 else 0
+    hi = min(Tk, row1) if causal else Tk
+    return lo // FLASH_TILE, -(-hi // FLASH_TILE)
+
+
+def flash_chunks(first: int, end: int, S: int) -> List[Tuple[int, int]]:
+    """The S chunks [begin, end) of a walk over key tiles [first, end)
+    that the flash kernel's split gives its blocks: ceil(walk / S) whole
+    tiles each, from ``first`` on; trailing chunks may be empty."""
+    per = -(-max(end - first, 0) // S)
+    out = []
+    for c in range(S):
+        begin = min(end, first + c * per)
+        out.append((begin, min(end, begin + per)))
+    return out
+
+
+def flash_split_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         S: int, *, rows: int, causal: bool = True,
+                         window: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """The plain model of the flash kernel's split: the query rows in
+    blocks of ``rows`` (64 when two heads share a block, 128 when two
+    row tiles do), each block's walk (:func:`flash_walk`) in S chunks
+    (:func:`flash_chunks`), and for each chunk every row's fp32 (o, m,
+    l) over the chunk's keys as the kernel reports them: o = sum exp(s -
+    m) v, m the row max of the scaled scores, l = sum exp(s - m).  A row
+    with no visible key in its chunk, and every row of an empty chunk,
+    gives (0, :data:`PARTIAL_NEG_INF`, 0).  Returns o (S,BH,T,Dv), m and
+    l (S,BH,T), for :func:`combine_partials`."""
+    G = q.shape[0] // k.shape[0]
+    BH, T, D = q.shape
+    Tk, Dv = k.shape[1], v.shape[-1]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kx, vx = (x.repeat_interleave(G, dim=0).to(ct) for x in (k, v))
+    s = torch.einsum("bqd,bkd->bqk", q.to(ct), kx) / math.sqrt(D)
+    d = (torch.arange(T, device=q.device)[:, None]
+         - torch.arange(Tk, device=q.device)[None, :])
+    mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= d >= 0
+    if window > 0:
+        mask &= d < window
+    o = q.new_zeros((S, BH, T, Dv), dtype=ct)
+    m = q.new_full((S, BH, T), PARTIAL_NEG_INF, dtype=ct)
+    l = q.new_zeros((S, BH, T), dtype=ct)
+    for r0 in range(0, T, rows):
+        r1 = min(T, r0 + rows)
+        for c, (b, e) in enumerate(flash_chunks(
+                *flash_walk(r0, r1, Tk, causal, window), S)):
+            lo, hi = b * FLASH_TILE, min(Tk, e * FLASH_TILE)
+            if hi <= lo:
+                continue
+            seen = mask[r0:r1, lo:hi]
+            sc = torch.where(seen, s[:, r0:r1, lo:hi], PARTIAL_NEG_INF)
+            top = sc.amax(-1)
+            w = torch.exp(sc - top[..., None]) * seen
+            has = seen.any(-1)
+            o[c, :, r0:r1] = torch.einsum("bqk,bkd->bqd", w, vx[:, lo:hi])
+            m[c, :, r0:r1] = torch.where(has, top, PARTIAL_NEG_INF)
+            l[c, :, r0:r1] = w.sum(-1)
+    return o, m, l
+
+
 def combine_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Merge partial softmax statistics over their leading dim (the

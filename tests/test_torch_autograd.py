@@ -556,3 +556,41 @@ def test_split_kernel_route_gradients_match_the_plain_version(cuda_device,
         torch.testing.assert_close(o.float(), w.float(), **tol)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+def flash_split_inputs(dtype, device="cpu"):
+    """Cross attention from 8 tokens to 600 keys (10 key tiles) over 2
+    heads: a walk ``flash_splits`` splits on any card of 8 to 264 SMs."""
+    r = np.random.default_rng(2)
+    return [_normal(r, s).to(device, dtype)
+            for s in ((2, 8, 16), (2, 600, 16), (2, 600, 16))]
+
+
+@pytest.mark.parametrize("sms", [8, 132, 264])
+def test_flash_split_shape_splits(sms):
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.flash_splits(2, 2, 8, 600, False, 0, 16, 16, sms) > 1
+
+
+@pytest.mark.cuda
+def test_split_flash_route_gradients_match_the_plain_version(cuda_device):
+    """flash_attention with its walk split over blocks (bf16: the TMA
+    instance): one launch and one merge a call, the output and the plain
+    version's gradients."""
+    from repro_torch.kernels import flash_attention as fa
+    inputs = flash_split_inputs(torch.bfloat16, cuda_device)
+    assert fa.splits(*inputs, False, 0) > 1
+    diff = (1, 1, 1)
+    before = (ops.flash_attention.launches, ops.flash_attention.merges)
+    got_out, got = _grads(lambda *t: ops.flash_attention(*t, causal=False),
+                          _leaves(inputs, diff), diff)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.launches, ops.flash_attention.merges) == (
+        before[0] + 1, before[1] + 1)
+    want_out, want = _grads(
+        lambda *t: ref.flash_attention_ref(*t, causal=False),
+        _leaves(inputs, diff), diff)
+    torch.testing.assert_close(got_out.float(), want_out.float(),
+                               **TOL[torch.bfloat16])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])

@@ -102,7 +102,8 @@ def test_cpu_calls_do_not_count_launches():
         "gru_seq": 0, "fedavg_reduce": 0, "flash_attention": 0,
         "decode_attention": 0, "decode_attention_partial": 0,
         "paged_decode_attention": 0, "paged_mla_decode_attention": 0,
-        "topk_router": 0, "mamba_chunk_scan": 0}
+        "topk_router": 0, "mamba_chunk_scan": 0,
+        "flash_attention_merge": 0}
 
 
 def test_wrappers_check_shapes_and_devices():
@@ -171,8 +172,8 @@ def _entry_parameters():
 
 def test_signatures_match_the_entry_points():
     """``build.SIGNATURES`` passes each entry point's parameters in its
-    order and types: the GQA decode kernels' scratch pointer and chunk
-    count S among them."""
+    order and types: the GQA decode kernels' and flash's bf16 scratch
+    pointer and chunk count S among them."""
     import ctypes
     entries = _entry_parameters()
     assert set(entries) == set(build.SIGNATURES)
@@ -182,6 +183,9 @@ def test_signatures_match_the_entry_points():
     assert build.SIGNATURES["decode_attention_bf16"][4:7] == (P, P, I)
     assert build.SIGNATURES["decode_attention_partial_f32"][6:9] == (P, P, I)
     assert build.SIGNATURES["paged_decode_attention_bf16"][5:8] == (P, P, I)
+    # flash's bf16 entry: the split's scratch after out, S after the shapes
+    assert build.SIGNATURES["flash_attention_bf16"][4:6] == (P, I)
+    assert build.SIGNATURES["flash_attention_bf16"][13:] == (I, P)
 
 
 def _chip_smoke():
