@@ -1,0 +1,8 @@
+"""device.idle_share.train: share of the profiled stretch (global_every
+rounds and the sync after them) in which no device operation ran, in
+percent (``TraceSummary.idle_percent``)."""
+
+
+def read(run):
+    s = getattr(run, "summary", None)
+    return s.idle_percent() if s is not None else None
